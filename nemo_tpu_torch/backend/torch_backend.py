@@ -1,14 +1,21 @@
-"""TorchBackend: the dense analysis path on one device.
+"""TorchBackend: the analysis path on one device, dense and sparse tiers.
 
 The device boundary is ``TorchExecutor.run(verb, arrays, params)``, the
 contract of the JAX package's ``LocalExecutor`` (backend/jax_backend.py):
-named kernels over named numpy arrays and integer params.  This slice has
-three verbs — ``fused`` (one dispatch per joint (pre, post) bucket:
-condition marking, clean-copy, chain contraction, prototype bitsets),
-``diff`` (one good-run-anchored dispatch over all failed runs) and
-``synth_ext`` (per-run extension candidates).  ``TorchBackend`` always takes
-the dense device route: packing, bucketing and the report-facing extraction
-are host numpy, everything else runs on the executor's device.
+named kernels over named numpy arrays and integer params.  Verbs: ``fused``
+(one dense dispatch per joint (pre, post) bucket: condition marking,
+clean-copy, chain contraction, prototype bitsets), ``sparse_fused`` (the
+same analysis as gather/scatter waves over the [B,E] edge planes),
+``diff`` and ``sparse_diff`` (one good-run-anchored dispatch over all failed
+runs, dense or sparse) and ``synth_ext`` (per-run extension candidates).
+
+Routes follow the JAX package's device order: runs above ``giant_v`` nodes
+leave the buckets and go to ``sparse_fused`` one at a time; each bucket
+goes to ``sparse_fused`` when its dense footprint crosses the memory
+watermark (reason ``mem``) or it is large and very sparse (``density``),
+else ``fused``; the diff goes sparse for a giant good run or past the
+watermark.  Packing, bucketing and the report-facing extraction are host
+numpy; everything else runs on the executor's device.
 """
 
 from __future__ import annotations
@@ -42,7 +49,13 @@ from nemo_tpu_torch.ops.adjacency import build_adjacency
 from nemo_tpu_torch.ops.diff import diff_masks
 from nemo_tpu_torch.ops.proto import DEPTH_INF
 from nemo_tpu_torch.ops.simplify import pair_chains_linear
-from nemo_tpu_torch.ops.sparse_device import synth_ext_candidates
+from nemo_tpu_torch.ops.sparse_device import (
+    CsrAdjRows,
+    diff_masks_sparse_device,
+    sparse_device_step,
+    synth_ext_candidates,
+)
+from nemo_tpu_torch.parallel.giant import giant_plan
 
 #: Shadow-run id offset of the differential-provenance graphs (the
 #: reference's diff runs, differential-provenance.go).
@@ -87,6 +100,22 @@ def _k_fused(*args):
     )
 
 
+def _k_sparse_fused(*args):
+    pre = BatchArrays(*args[:8])
+    post = BatchArrays(*args[8:16])
+    v, pre_tid, post_tid, num_tables, comp_linear, pack_out = args[16:]
+    return sparse_device_step(
+        pre,
+        post,
+        v=v,
+        pre_tid=pre_tid,
+        post_tid=post_tid,
+        num_tables=num_tables,
+        comp_linear=bool(comp_linear),
+        pack_out=bool(pack_out),
+    )
+
+
 def _k_diff(edge_src, edge_dst, edge_mask, is_goal, node_mask, label_id, fail_bits, v, max_depth):
     adj_good = build_adjacency(edge_src, edge_dst, edge_mask, v)[0]
     return diff_masks(adj_good, is_goal, node_mask, label_id, fail_bits, max_depth)
@@ -124,6 +153,18 @@ def unpack_summary(
     return out
 
 
+def _children_of_edges(kept: np.ndarray, v: int):
+    """children(slot) -> [V] bool over a kept [K,2] edge list (the sparse
+    diff's edge_keep, applied to the good run's edges)."""
+
+    def children(r: int) -> np.ndarray:
+        row = np.zeros(v, dtype=bool)
+        row[kept[kept[:, 0] == r, 1]] = True
+        return row
+
+    return children
+
+
 class TorchExecutor:
     """The backend's device boundary: named kernels over named numpy arrays
     and integer params, run on one device."""
@@ -151,6 +192,18 @@ class TorchExecutor:
             ),
             None,  # dict-returning: output names come from analysis_step
         ),
+        "sparse_fused": (
+            _k_sparse_fused,
+            tuple(f"pre_{f}" for f in _BA_FIELDS) + tuple(f"post_{f}" for f in _BA_FIELDS),
+            ("v", "pre_tid", "post_tid", "num_tables", "comp_linear", "pack_out"),
+            None,  # dict-returning: output names come from sparse_device_step
+        ),
+        "sparse_diff": (
+            diff_masks_sparse_device,
+            ("edge_src", "edge_dst", "edge_mask", "is_goal", "node_mask", "label_id", "fail_bits"),
+            ("v",),
+            ("node_keep", "edge_keep", "frontier_rule", "missing_goal"),
+        ),
         "synth_ext": (
             _k_synth_ext,
             ("edge_src", "edge_dst", "edge_mask", "is_goal", "node_mask",
@@ -160,9 +213,10 @@ class TorchExecutor:
         ),
     }
 
-    #: Fused outputs that stay on the device: the [B,V,V] clean adjacencies
-    #: (plus alive/type rows) are consumed per row by figure
-    #: materialization, never bucket-wide.
+    #: Fused outputs that stay on the device: the dense [B,V,V] clean
+    #: adjacencies (plus alive/type rows) are consumed per row by figure
+    #: materialization, never bucket-wide.  The sparse step's contracted
+    #: edge lists come back to the host for CsrAdjRows.
     ON_DEVICE = frozenset(
         {"pre_adj_clean", "post_adj_clean", "pre_alive", "post_alive", "pre_type", "post_type"}
     )
@@ -189,7 +243,7 @@ class TorchExecutor:
         if verb not in self.VERBS:
             raise ValueError(f"unknown kernel verb {verb!r}")
         fn, array_names, param_names, out_names = self.VERBS[verb]
-        if verb == "fused" and "pack_out" not in params:
+        if verb in ("fused", "sparse_fused") and "pack_out" not in params:
             # One bit-packed device->host copy on the card; on the CPU the
             # "copy" is free.
             params = dict(params, pack_out=int(self.device.type == "cuda"))
@@ -227,7 +281,7 @@ class TorchExecutor:
 
 
 def _verb_arrays(pre_b: PackedBatch, post_b: PackedBatch) -> dict[str, np.ndarray]:
-    """The fused verb's named-array inputs for one (pre, post) bucket."""
+    """The fused verbs' named-array inputs for one (pre, post) bucket."""
     return {
         f"{prefix}_{f}": getattr(b, f)
         for prefix, b in (("pre", pre_b), ("post", post_b))
@@ -235,13 +289,56 @@ def _verb_arrays(pre_b: PackedBatch, post_b: PackedBatch) -> dict[str, np.ndarra
     }
 
 
-class TorchBackend:
-    """The dense analysis path of the JAX package's ``JaxBackend`` on one
-    device: fused buckets, the good-run-anchored diff and the synth_ext
-    extension pass, with the same host-side extraction."""
+def _wrap_sparse_clean(res: dict, v: int) -> dict:
+    """sparse_fused output -> a fused-compatible result: the contracted
+    ``{cond}_clean_src/dst/mask`` edge planes become lazy
+    ``{cond}_adj_clean`` CsrAdjRows views."""
+    out = dict(res)
+    for cond in ("pre", "post"):
+        out[f"{cond}_adj_clean"] = CsrAdjRows(
+            out.pop(f"{cond}_clean_src"),
+            out.pop(f"{cond}_clean_dst"),
+            out.pop(f"{cond}_clean_mask"),
+            v=v,
+        )
+    return out
 
-    def __init__(self, device=None) -> None:
+
+#: Analysis routes a caller may ask for: per-bucket auto routing, or one
+#: route forced for every bucket and the diff (giant runs always take the
+#: sparse step: the port has no dense giant path).
+ANALYSIS_IMPLS = ("auto", "dense", "sparse_device")
+
+
+class TorchBackend:
+    """The device analysis path of the JAX package's ``JaxBackend`` on one
+    device: fused buckets (dense or sparse), giant runs on the sparse step,
+    the good-run-anchored diff and the synth_ext extension pass, with the
+    same host-side extraction.
+
+    Route knobs, with the JAX package's defaults: ``analysis_impl`` (see
+    ANALYSIS_IMPLS), ``giant_v`` (runs with more nodes leave the buckets),
+    ``sparse_device_mem_bytes`` (dense footprint watermark; 0 disables),
+    ``sparse_device_density`` and ``sparse_device_min_v`` (the density
+    crossover; density 0 disables).  Buckets run serially in bucket order."""
+
+    def __init__(
+        self,
+        device=None,
+        analysis_impl: str = "auto",
+        giant_v: int = 4096,
+        sparse_device_mem_bytes: int = 256_000_000,
+        sparse_device_density: float = 1.0 / 256.0,
+        sparse_device_min_v: int = 1024,
+    ) -> None:
+        if analysis_impl not in ANALYSIS_IMPLS:
+            raise ValueError(f"analysis_impl {analysis_impl!r} (expected one of {ANALYSIS_IMPLS})")
         self.executor = TorchExecutor(device)
+        self.analysis_impl = analysis_impl
+        self.giant_v = int(giant_v)
+        self.sparse_device_mem_bytes = int(sparse_device_mem_bytes)
+        self.sparse_device_density = float(sparse_device_density)
+        self.sparse_device_min_v = int(sparse_device_min_v)
         self._reset(None)
 
     def _reset(self, molly: MollyOutput | None) -> None:
@@ -253,6 +350,9 @@ class TorchBackend:
         self._fused_out: list[tuple[PackedBatch, PackedBatch, dict]] | None = None
         self._row_of: dict[int, tuple[int, int]] = {}
         self._proto_tables_cache = None
+        #: one record per routed dispatch of the current corpus: verb,
+        #: route, rows, v, e, reason (the JAX package's analysis_routes).
+        self.analysis_routes: list[dict] = []
 
     # ---------------------------------------------------------------- ingest
 
@@ -265,14 +365,58 @@ class TorchBackend:
             for cond, prov in (("pre", run.pre_prov), ("post", run.post_prov)):
                 self.packed[(run.iteration, cond)] = pack_graph(prov, self.vocab)
 
+    # ---------------------------------------------------------------- routes
+
+    def _analysis_route(self, rows: int, v: int, e: int, rows_dispatch: int) -> tuple[str, str]:
+        """(route, reason) of one fused bucket.  ``rows_dispatch`` is the
+        padded batch width the dense step would allocate, which the memory
+        watermark prices.  Auto: past the dense memory watermark (rows x
+        V^2 x ~4 bytes: the bool adjacency and its closure copies) -> sparse
+        by "mem"; large and very sparse -> sparse by "density"; else dense."""
+        if self.analysis_impl != "auto":
+            return self.analysis_impl, "forced"
+        mem = self.sparse_device_mem_bytes
+        if mem and max(rows_dispatch, rows) * v * v * 4 > mem:
+            return "sparse_device", "mem"
+        if (
+            self.sparse_device_density
+            and v >= self.sparse_device_min_v
+            and e <= v * v * self.sparse_device_density
+        ):
+            return "sparse_device", "density"
+        return "dense", "default"
+
+    def _diff_route(self, good_nodes: int, f_pad: int, v: int) -> tuple[str, str]:
+        """(route, reason) of the diff: a giant good run -> sparse by
+        "giant"; a forced route; past the watermark (F_pad x V^2 bytes of
+        dense edge_keep planes) -> sparse by "mem"; else dense."""
+        if good_nodes > self.giant_v:
+            return "sparse_device", "giant"
+        if self.analysis_impl != "auto":
+            return self.analysis_impl, "forced"
+        if self.sparse_device_mem_bytes and f_pad * v * v > self.sparse_device_mem_bytes:
+            return "sparse_device", "mem"
+        return "dense", "default"
+
+    def _record_route(self, verb: str, route: str, rows: int, v: int, e: int, reason: str) -> None:
+        self.analysis_routes.append(
+            {"verb": verb, "route": route, "rows": int(rows), "v": int(v), "e": int(e), "reason": reason}
+        )
+
+    # ------------------------------------------------------------------ fused
+
     def _fused(self) -> list[tuple[PackedBatch, PackedBatch, dict]]:
-        """Run the fused analysis step once per joint size bucket; cached."""
+        """Run the analysis step once per joint size bucket and once per
+        giant run; cached.  Results are in bucket order, giants last."""
         if self._fused_out is None:
             assert self.molly is not None
-            run_ids = [r.iteration for r in self.molly.runs]
+            run_ids, giant_ids = [], []
+            for r in self.molly.runs:
+                n = max(self.packed[(r.iteration, c)].n_nodes for c in ("pre", "post"))
+                (giant_ids if n > self.giant_v else run_ids).append(r.iteration)
             # Size floors: at corpus scale, pad every family to one bucket
             # shape (the JAX backend's compile-sharing floors, kept so both
-            # backends bucket identically).
+            # backends bucket identically).  Only the bucketed runs count.
             big = len(run_ids) >= 512
             min_v, min_e, min_t, min_d = (64, 256, 32, 32) if big else (16, 16, 8, 4)
             batches = bucketize_pairs(
@@ -282,31 +426,60 @@ class TorchBackend:
                 min_v=min_v,
                 min_e=min_e,
             )
-            params_common = dict(
+            tids = dict(
                 pre_tid=self.vocab.tables.lookup("pre"),
                 post_tid=self.vocab.tables.lookup("post"),
                 num_tables=bucket_size(len(self.vocab.tables), min_t),
-                num_labels=8,  # unused without the diff tail
-                with_diff=0,
             )
             out = []
-            for bi, (pre_b, post_b) in enumerate(batches):
-                res = self.executor.run(
-                    "fused",
-                    _verb_arrays(pre_b, post_b),
-                    dict(
-                        v=pre_b.v,
-                        max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), min_d),
-                        comp_linear=int(pair_chains_linear(pre_b, post_b)),
-                        **params_common,
-                    ),
-                    rows=len(pre_b.run_ids),
-                )
+            for pre_b, post_b in batches:
+                rows = len(pre_b.run_ids)
+                route, reason = self._analysis_route(rows, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
+                self._record_route("fused", route, rows, pre_b.v, pre_b.e, reason)
+                linear = int(pair_chains_linear(pre_b, post_b))
+                if route == "sparse_device":
+                    res = self._sparse_fused(pre_b, post_b, linear, tids)
+                else:
+                    res = self.executor.run(
+                        "fused",
+                        _verb_arrays(pre_b, post_b),
+                        dict(
+                            v=pre_b.v,
+                            max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), min_d),
+                            comp_linear=linear,
+                            num_labels=8,  # unused without the diff tail
+                            with_diff=0,
+                            **tids,
+                        ),
+                        rows=rows,
+                    )
                 out.append((pre_b, post_b, res))
+            if giant_ids:
+                # Each giant packs alone at corpus-common (V, E) buckets.
+                graphs = [self.packed[(rid, c)] for rid in giant_ids for c in ("pre", "post")]
+                v_g = bucket_size(max(g.n_nodes for g in graphs))
+                e_g = bucket_size(max(1, *(len(g.edges) for g in graphs)))
+                for rid in giant_ids:
+                    gpre, gpost = self.packed[(rid, "pre")], self.packed[(rid, "post")]
+                    pre_b = pack_batch([rid], [gpre], v_g, e_g)
+                    post_b = pack_batch([rid], [gpost], v_g, e_g)
+                    self._record_route("giant", "sparse_device", 1, v_g, e_g, "giant")
+                    linear = int(giant_plan(gpre) and giant_plan(gpost))
+                    out.append((pre_b, post_b, self._sparse_fused(pre_b, post_b, linear, tids)))
+            for bi, (pre_b, _post_b, _res) in enumerate(out):
                 for row, rid in enumerate(pre_b.run_ids):
                     self._row_of[rid] = (bi, row)
             self._fused_out = out
         return self._fused_out
+
+    def _sparse_fused(self, pre_b: PackedBatch, post_b: PackedBatch, linear: int, tids: dict) -> dict:
+        res = self.executor.run(
+            "sparse_fused",
+            _verb_arrays(pre_b, post_b),
+            dict(v=pre_b.v, comp_linear=linear, **tids),
+            rows=len(pre_b.run_ids),
+        )
+        return _wrap_sparse_clean(res, pre_b.v)
 
     def load_raw_provenance(self) -> None:
         """Condition marking for every run (the fused dispatches)."""
@@ -402,7 +575,7 @@ class TorchBackend:
     def missing_events(self, failed_iters: list[int]) -> list[list[MissingEvent]]:
         """The missing events of every failed run against the good run (the
         missing-event output of the reference's CreateNaiveDiffProv): one
-        dense ``diff`` dispatch over all failed runs."""
+        ``diff`` or ``sparse_diff`` dispatch over all failed runs."""
         assert self.molly is not None
         if not failed_iters:
             return []
@@ -416,31 +589,42 @@ class TorchBackend:
         for j, f in enumerate(failed_iters):
             pg = self.packed[(f, "post")]
             bits[j, pg.label_id[: pg.n_goals]] = True
-        out = self.executor.run(
-            "diff",
-            {
-                "edge_src": gb.edge_src,
-                "edge_dst": gb.edge_dst,
-                "edge_mask": gb.edge_mask,
-                "is_goal": gb.is_goal[0],
-                "node_mask": gb.node_mask[0],
-                "label_id": gb.label_id[0],
-                "fail_bits": bits,
-            },
-            {"v": gb.v, "max_depth": bucket_size(gb.max_depth, 4)},
-            rows=len(failed_iters),
-        )
-        edge_keep, frontier_rule, missing_goal = (
-            out["edge_keep"], out["frontier_rule"], out["missing_goal"],
-        )
+        route, reason = self._diff_route(good.n_nodes, bits.shape[0], gb.v)
+        self._record_route("diff", route, len(failed_iters), good.n_nodes, len(good.edges), reason)
+        arrays = {
+            "edge_src": gb.edge_src,
+            "edge_dst": gb.edge_dst,
+            "edge_mask": gb.edge_mask,
+            "is_goal": gb.is_goal[0],
+            "node_mask": gb.node_mask[0],
+            "label_id": gb.label_id[0],
+            "fail_bits": bits,
+        }
+        if route == "sparse_device":
+            for name in ("edge_src", "edge_dst", "edge_mask"):
+                arrays[name] = arrays[name][0]
+            out = self.executor.run("sparse_diff", arrays, {"v": gb.v}, rows=len(failed_iters))
+            # edge_keep is a mask over the good run's padded edge list.
+            edge_keep = out["edge_keep"][:, : len(good.edges)]
+
+            def children(j: int):
+                return _children_of_edges(good.edges[edge_keep[j]], gb.v)
+        else:
+            out = self.executor.run(
+                "diff", arrays, {"v": gb.v, "max_depth": bucket_size(gb.max_depth, 4)},
+                rows=len(failed_iters),
+            )
+
+            def children(j: int):
+                return out["edge_keep"][j].__getitem__
         holds = np.zeros(gb.v, dtype=bool)
         holds[: good.n_nodes] = self.cond_holds(g, "post")
         return [
             self._missing_events(
                 gb,
-                frontier_rule[j],
-                missing_goal[j],
-                edge_keep[j],
+                out["frontier_rule"][j],
+                out["missing_goal"][j],
+                children(j),
                 f"run_{DIFF_OFFSET + f}_post_",
                 holds,
             )
@@ -452,7 +636,7 @@ class TorchBackend:
         gb: PackedBatch,
         frontier_rule: np.ndarray,
         missing_goal: np.ndarray,
-        edge_keep: np.ndarray,  # [V,V] kept edges of this failed run's diff
+        children,  # callable(slot) -> [V] bool kept-edge children of slot
         prefix: str,
         holds: np.ndarray,
     ) -> list[MissingEvent]:
@@ -470,7 +654,7 @@ class TorchBackend:
                 type=TYPE_NAMES[int(good.type_id[r])],
             )
             goals = []
-            for gslot in sorted(np.nonzero(edge_keep[r] & missing_goal)[0].tolist(), key=rename):
+            for gslot in sorted(np.nonzero(children(r) & missing_goal)[0].tolist(), key=rename):
                 goals.append(
                     Goal(
                         id=rename(gslot),

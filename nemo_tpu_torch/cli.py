@@ -1,12 +1,16 @@
-"""Command line: analyze one Molly output directory on the dense device path.
+"""Command line: analyze one Molly output directory on one device.
 
-    python -m nemo_tpu_torch.cli -faultInjOut <dir> [--device cuda|cpu] [--out analysis.json]
+    python -m nemo_tpu_torch.cli -faultInjOut <dir> [--device cuda|cpu]
+        [--analysis-impl auto|dense|sparse_device] [--out analysis.json]
 
 Writes one JSON document: the success and failed iterations, the good run,
 per-run achieved-antecedent goal counts, the four prototype outputs, the
-missing events of every failed run, the extension candidates of every run
-and the wall time of each phase.  The device defaults to ``cuda``; without a
-card that raises unless ``--device cpu`` is given.
+missing events of every failed run, the extension candidates of every run,
+the route taken by each dispatch, the dispatch counts per verb and the wall
+time of each phase.  The device defaults to ``cuda``; without a card that
+raises unless ``--device cpu`` is given.  ``--analysis-impl`` forces the
+dense or the sparse tier for every bucket and the diff (giant runs always
+take the sparse tier); ``auto`` routes per bucket.
 """
 
 from __future__ import annotations
@@ -18,14 +22,14 @@ import time
 
 import torch
 
-from nemo_tpu_torch.backend.torch_backend import NoSuccessfulRunError, TorchBackend
+from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.molly import load_molly_output
 
 
-def analyze(fault_inj_out: str, device=None) -> dict:
+def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto") -> dict:
     """The analysis document of one corpus (see the module docstring)."""
     timings: dict[str, float] = {}
-    backend = TorchBackend(device=device)
+    backend = TorchBackend(device=device, analysis_impl=analysis_impl)
     dev = backend.executor.device
 
     def phase(name, fn, *args):
@@ -66,6 +70,7 @@ def analyze(fault_inj_out: str, device=None) -> dict:
             str(f): [m.to_json() for m in events] for f, events in zip(failed, missing)
         },
         "synth_candidates": {str(i): synth[i] for i in molly.get_runs_iters()},
+        "routes": list(backend.analysis_routes),
         "device": str(dev),
         "dispatches": dict(backend.executor.dispatches),
         "dispatch_wall_s": dict(backend.executor.wall_s),
@@ -78,9 +83,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("-faultInjOut", dest="fault_inj_out", required=True,
                     help="Molly output directory to analyze")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--analysis-impl", default="auto", choices=ANALYSIS_IMPLS,
+                    help="route every bucket and the diff dense or sparse (default: per bucket)")
     ap.add_argument("--out", default="analysis.json", help="where to write the JSON document")
     args = ap.parse_args(argv)
-    doc = analyze(args.fault_inj_out, device=args.device)
+    doc = analyze(args.fault_inj_out, device=args.device, analysis_impl=args.analysis_impl)
     with open(args.out, "w", encoding="utf-8") as f:
         json.dump(doc, f, indent=1)
     print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")

@@ -23,7 +23,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 #: Every kernel source of the port, by name (csrc/<name>.cu).
-SOURCES = ("closure",)
+SOURCES = ("closure", "edge_wave")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -5,7 +5,7 @@ so it runs on a machine that has only PyTorch:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain version on the same inputs; the
+Each kernel is held against its plain version on the same inputs; the
 outputs are bool, so the tolerance is none.
 """
 
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from nemo_tpu_torch.kernels import closure as k1
+from nemo_tpu_torch.kernels import edge_wave as k2
 
 
 @pytest.fixture
@@ -44,3 +45,95 @@ def test_closure_kernel_rejects_bad_input(cuda):
         k1.closure(torch.zeros(2, 8, 9, dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError):
         k1.closure(torch.zeros(2, 8, 8, dtype=torch.bool, device=cuda).transpose(1, 2))
+
+
+def _wave_inputs(b, v, e, seed, shared=False):
+    """Random edges with 20 % masked out, the last eighth of the rows
+    padding (empty state, all-false mask); ``shared``: one [E] list."""
+    rng = np.random.default_rng(seed)
+    shape = (e,) if shared else (b, e)
+    src = rng.integers(0, v, shape).astype(np.int32)
+    dst = rng.integers(0, v, shape).astype(np.int32)
+    mask = rng.random(shape) < 0.8
+    state = rng.random((b, v)) < 2.0 / v
+    pad = b - b // 8
+    state[pad:] = False
+    if not shared:
+        mask[pad:] = False
+    return [torch.from_numpy(a) for a in (state, src, dst, mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,v,e,shared",
+    [(2048, 64, 256, False), (1024, 256, 256, False), (128, 512, 512, False), (1024, 256, 256, True),
+     (3, 40, 70, False)],
+)
+def test_edge_wave_kernel_matches_plain(cuda, b, v, e, shared):
+    args = [t.to(cuda) for t in _wave_inputs(b, v, e, v + e, shared)]
+    for n_steps in (1, 2, 3, 4, None):
+        before = k2.edge_wave.launches
+        got = k2.edge_wave(*args, n_steps)
+        torch.cuda.synchronize()
+        assert k2.edge_wave.launches == before + 1
+        assert torch.equal(got, k2.edge_wave_plain(*args, n_steps)), n_steps
+
+
+@pytest.mark.cuda
+def test_edge_wave_kernel_long_chain(cuda):
+    """A 10,000-node chain in a 16,384-node graph, edges in shuffled order:
+    n_steps reaches exactly n_steps hops; the fix point reaches the end."""
+    rng = np.random.default_rng(0)
+    v = e = 16384
+    perm = rng.permutation(v)
+    order = rng.permutation(9999)
+    src = np.zeros(e, dtype=np.int32)
+    dst = np.zeros(e, dtype=np.int32)
+    src[:9999], dst[:9999] = perm[:9999][order], perm[1:10000][order]
+    mask = np.zeros(e, dtype=bool)
+    mask[:9999] = True
+    state = np.zeros((1, v), dtype=bool)
+    state[0, perm[0]] = True
+    args = [torch.from_numpy(a).to(cuda) for a in (state, src[None], dst[None], mask[None])]
+    for n_steps in (1, 4, None):
+        got = k2.edge_wave(*args, n_steps)
+        assert int(got.sum()) == (10000 if n_steps is None else n_steps + 1)
+        assert torch.equal(got, k2.edge_wave_plain(*args, n_steps))
+
+
+@pytest.mark.cuda
+def test_edge_wave_kernel_rejects_bad_input(cuda):
+    state = torch.zeros(2, 8, dtype=torch.bool, device=cuda)
+    e32 = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    mask = torch.zeros(2, 4, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        k2.edge_wave(state, e32.long(), e32, mask, 1)
+    with pytest.raises(TypeError):
+        k2.edge_wave(state.to(torch.uint8), e32, e32, mask, 1)
+    with pytest.raises(ValueError):
+        k2.edge_wave(state, e32[:1], e32[:1], mask[:1], 1)
+    with pytest.raises(ValueError):
+        k2.edge_wave(state, e32, e32, mask, -1)
+    with pytest.raises(ValueError):
+        k2.edge_wave(state, e32.cpu(), e32, mask, 1)
+    with pytest.raises(ValueError):
+        k2.edge_wave(torch.zeros(1, 1 << 20, dtype=torch.bool, device=cuda), e32[0], e32[0], mask[0])
+
+
+@pytest.mark.cuda
+def test_sparse_step_on_card_matches_cpu(cuda, tmp_path):
+    """The whole sparse step on the card (K2 in every reach) equals the
+    same step on the CPU."""
+    from nemo_tpu_torch.models.pipeline_model import synth_batch_arrays
+    from nemo_tpu_torch.ops.sparse_device import sparse_device_step
+
+    pre, post, st = synth_batch_arrays(n_runs=40, seed=6, eot=20, device="cpu")
+    kw = dict(v=st["v"], pre_tid=st["pre_tid"], post_tid=st["post_tid"],
+              num_tables=st["num_tables"], comp_linear=st["comp_linear"])
+    want = sparse_device_step(pre, post, **kw)
+    moved = [type(b)(**{f: getattr(b, f).to(cuda) for f in b.FIELDS}) for b in (pre, post)]
+    before = k2.edge_wave.launches
+    got = sparse_device_step(*moved, **kw)
+    assert k2.edge_wave.launches == before + 3
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k

@@ -5,8 +5,9 @@
 * no file of the port, nor chip_smoke.py, imports either;
 * asking for the card where there is none raises instead of running on the
   CPU;
-* a CPU tensor into the closure wrapper takes closure_plain and launches no
-  kernel; a tensor on any other non-CUDA device raises.
+* a CPU tensor into a kernel wrapper (closure, edge_wave) takes the plain
+  version and never loads the kernel library; a tensor on any other
+  non-CUDA device raises.
 """
 
 import os
@@ -21,6 +22,7 @@ import torch
 from nemo_tpu_torch import device as port_device
 from nemo_tpu_torch.backend.torch_backend import TorchBackend
 from nemo_tpu_torch.kernels import closure as k1
+from nemo_tpu_torch.kernels import edge_wave as k2
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "nemo_tpu_torch"
@@ -99,3 +101,27 @@ def test_cpu_tensor_takes_plain_version(monkeypatch):
 def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         k1.closure(torch.zeros(2, 8, 8, dtype=torch.bool, device="meta"))
+
+
+def test_edge_wave_cpu_tensor_takes_plain_version(monkeypatch):
+    def no_kernel():
+        raise AssertionError("the CUDA library must not be loaded for a CPU tensor")
+
+    monkeypatch.setattr(k2, "_lib", no_kernel)
+    monkeypatch.setattr(k2.edge_wave, "launches", 0)
+    g = torch.Generator().manual_seed(0)
+    state = torch.rand(4, 16, generator=g) < 0.2
+    src = torch.randint(0, 16, (4, 24), generator=g, dtype=torch.int32)
+    dst = torch.randint(0, 16, (4, 24), generator=g, dtype=torch.int32)
+    mask = torch.rand(4, 24, generator=g) < 0.8
+    for n_steps in (2, None):
+        got = k2.edge_wave(state, src, dst, mask, n_steps)
+        assert torch.equal(got, k2.edge_wave_plain(state, src, dst, mask, n_steps))
+    assert k2.edge_wave.launches == 0
+
+
+def test_edge_wave_other_devices_raise():
+    z = torch.zeros(2, 8, dtype=torch.bool, device="meta")
+    e = torch.zeros(2, 4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k2.edge_wave(z, e, e, torch.zeros(2, 4, dtype=torch.bool, device="meta"), None)
