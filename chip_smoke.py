@@ -10,29 +10,44 @@ each fatal (non-zero exit, no result line) on failure:
   2. build every CUDA kernel of the port from csrc/ (nvcc, sm_90a), one
      nvcc per source, all at once;
   3. hold the closure kernel (K1) against its plain PyTorch version on the
-     card, bit for bit, at the main path's shapes and a set of edge cases,
-     and time it (with a hot and with a cold L2) beside the plain version
-     and a bf16 torch.bmm squaring chain (the library yardstick, which the
-     port never calls);
+     card, bit for bit, at the main path's shapes and on the edge cases of
+     nemo_tpu_torch/kernels/cases.py under every launch plan that takes
+     them, and time it (device time by CUDA event pairs, every plan in
+     turns, hot and cold L2) beside the plain version and a bf16 torch.bmm
+     squaring chain (the library yardstick, which the port never calls);
   4. hold the edge-wave kernel (K2) against its plain version, bit for bit,
      at the sparse path's shapes, n_steps 1-4 and the fix point, on cyclic
-     graphs, padding rows, an all-false mask, a shared edge list and a
-     10,000-node chain, and time it beside the plain version and a
-     torch.sparse CSR block-diagonal matrix-vector product (the yardstick);
+     graphs, padding rows, an all-false mask, a shared edge list, a
+     10,000-node chain and the edge cases of kernels/cases.py under every
+     plan, and time it (every plan in turns: the worklist against the
+     waves) beside the plain version, a torch.sparse CSR block-diagonal
+     matrix-vector product (the yardstick) and the launch floor (an empty
+     kernel timed the same way);
   5. drive the dense main path — TorchBackend over all six case-study
      families at 1,700 runs each (seed 0) — with the kernels' launch counts
-     zeroed just before and read just after, and check the ZK-1270 analysis
-     document on cuda equals the port's cpu document;
+     zeroed just before and read just after, check every family's analysis
+     document on cuda equals the port's cpu document, check from the
+     recorded launches that each took the expected plan variant, and
+     profile each family (K1's device time, launches and kernel functions,
+     which must show those variants where the profiler saw the device);
   6. drive the sparse path, each analysis with the launch counts zeroed
      just before and read just after: (a) two giant-V corpora on the auto
      route (every giant run on sparse_fused; a giant good run's diff on
      sparse_diff), (b) a long-horizon sweep of 1,700 runs whose buckets
      split between the dense and the sparse tier (both kernels launch),
      each document equal to the cpu one, and (c) ZK-1270 forced onto the
-     sparse tier, whose document must equal the dense one.
+     sparse tier, whose document must equal the dense one; each with its
+     plan variants checked and profiled as in phase 5;
+  7. time each kernel at every shape those analyses launched it at (a
+     LaunchLog records the shapes, the launches by analysis and the first
+     inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
+     spread printed), the wrapper's call time, the plain version, the
+     library yardstick, the bound (for K1, the word ORs these inputs need
+     up to each graph's fix point).
 
-The line before the last is a JSON object with one record per kernel; the
-last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of the
+Before the card's line, a JSON object {"shapes": [...]} holds phase 7's
+rows; the line before the last is a JSON object with one record per kernel;
+the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of the
 JAX package.
 """
 
@@ -48,12 +63,18 @@ import time
 import numpy as np
 import torch
 
-#: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8
-#: tensor-core operations/s and float32 operations/s outside the tensor
-#: cores (the nearest listed rate for K2's scalar bit operations).
+#: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
+#: operations/s outside the tensor cores (the nearest listed rate for the
+#: kernels' 32-bit integer and bit operations).
 PEAK_BYTES_S = 3.35e12
-PEAK_INT8_OPS_S = 1979e12
 PEAK_FP32_OPS_S = 67e12
+
+#: Cycles of the spin kernel that device_ms queues its calls behind (about
+#: 10 ms at the H100's clock; lengthened where the host needs longer).
+SPIN_CYCLES = 20_000_000
+#: Rounds of turns (each every plan in order, then in reverse) at every
+#: shape the analyses launch a kernel at.
+SHAPE_ROUNDS = 3
 
 FAMILY_RUNS = 1700
 SEED = 0
@@ -94,7 +115,8 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters calls, by CUDA events."""
+    """Mean time per call of fn() over iters calls in a row, by CUDA events
+    around the loop: for a small kernel, the host's time per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -108,22 +130,76 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms_cold_l2(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() with a cold L2: a 64 MB buffer (more than
-    the H100's 50 MB L2) is written before every call, outside the timed
-    span."""
+def cold_device_ms(fn, iters: int = 20) -> float:
+    """Device time of fn() with a cold L2: a 64 MB buffer (more than the
+    H100's 50 MB L2) is written before every call; the write's own device
+    time, measured alone, is taken off."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    spans = []
-    for i in range(warmup + iters):
-        flush.fill_(i & 0xFF)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+
+    def flushed():
+        flush.fill_(1)
         fn()
-        end.record()
-        spans.append((start, end))
+
+    return device_ms(flushed, iters) - device_ms(lambda: flush.fill_(1), iters)
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time per call of fn() over iters calls in a row, by CUDA
+    events around the loop, with the loop queued behind a spin kernel
+    (torch.cuda._sleep): the device runs the calls back to back, and the
+    host's time per call (some 25 us of Python and ctypes, more than a small
+    kernel's run) falls inside the spin instead of between the calls.  The
+    spin is lengthened until it outlasts the host's enqueueing; a call that
+    still outlasts it (one that waits for the device) is said to be
+    host-bound."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in spans[warmup:]) / iters
+    spin = SPIN_CYCLES
+    for _ in range(4):
+        spin_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin_start.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+        if spin_start.elapsed_time(start) > host_ms:
+            return ms
+        spin *= 4
+    log(f"device_ms: the host's enqueueing ({host_ms:.3f} ms) outlasted the spin; the time is host-bound")
+    return ms
+
+
+def time_in_turns(run, plans: dict, iters: int = 20, warmup: int = 3, rounds: int = 1) -> dict[str, list[float]]:
+    """Device ms (device_ms) of run(plan) for every plan, timed in turns:
+    each round times every plan once in the given order (the wrapper's
+    choice first), then once in the reverse order.  Returns each plan's
+    2 x rounds turns."""
+    turns = {k: [] for k in plans}
+    for _ in range(rounds):
+        for order in (list(plans), list(plans)[::-1]):
+            for k in order:
+                turns[k].append(device_ms(lambda: run(plans[k]), iters, warmup))
+    return turns
+
+
+def means(turns: dict[str, list[float]]) -> dict[str, float]:
+    return {k: sum(v) / len(v) for k, v in turns.items()}
+
+
+def fmt_ms(times: dict[str, float]) -> str:
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+
+
+def fmt_turns(turns: dict[str, list[float]]) -> str:
+    """Each plan's mean device ms and, in brackets, its fastest and slowest
+    turn: the spread within the call that a gap between plans must exceed."""
+    return ", ".join(f"{k} {sum(v) / len(v):.4f} ms [{min(v):.4f}-{max(v):.4f}]" for k, v in turns.items())
 
 
 def closure_bmm_bf16(adj: torch.Tensor, n_steps: int) -> torch.Tensor:
@@ -135,8 +211,43 @@ def closure_bmm_bf16(adj: torch.Tensor, n_steps: int) -> torch.Tensor:
     return r > 0.5
 
 
+def closure_ops(adj: torch.Tensor, n_steps: int) -> int:
+    """The operations the closure needs on these inputs, as bit rows: a
+    squaring ORs, for every set bit (i, k) of R, row k's words into row i,
+    and each graph needs the squarings up to its fix point (the one that
+    finds R*R = R included) or n_steps, whichever comes first.  Counted by
+    running the chain on the card, a graph dropping out at its fix point."""
+    a3 = adj if adj.ndim == 3 else adj[None]
+    v = a3.shape[-1]
+    words = (v + 31) // 32
+    r = a3 | torch.eye(v, dtype=torch.bool, device=adj.device)
+    active = torch.ones(a3.shape[0], dtype=torch.bool, device=adj.device)
+    ops = 0
+    for _ in range(n_steps):
+        ops += int(r[active].sum()) * words
+        f = r.to(torch.float32)
+        nxt = torch.bmm(f, f) > 0.5
+        active &= (nxt != r).flatten(1).any(1)
+        r = nxt
+        if not bool(active.any()):
+            break
+    return ops
+
+
+def closure_bounds(adj: torch.Tensor, n_steps: int) -> dict[str, float]:
+    """The two bounds (ms) of the closure of adj: one read of the bool input
+    and one write of the output over the HBM rate, and the word ORs
+    closure_ops counts over the float32 rate outside the tensor cores (the
+    nearest listed rate for 32-bit integer operations).  The larger is the
+    bound."""
+    return {"bytes": 2 * adj.numel() / PEAK_BYTES_S * 1e3,
+            "operations": closure_ops(adj, n_steps) / PEAK_FP32_OPS_S * 1e3}
+
+
 def check_closure(closure_mod) -> dict:
     """Phase 3: K1 against closure_plain on the card, then timings."""
+    from nemo_tpu_torch.kernels import cases as kcases
+
     closure, closure_plain, closure_steps = (
         closure_mod.closure, closure_mod.closure_plain, closure_mod.closure_steps,
     )
@@ -177,25 +288,43 @@ def check_closure(closure_mod) -> dict:
     compare("cyclic max_len=4", torch.from_numpy(cyc).to(dev), max_len=4)
     compare("cyclic batch max_len=3",
             torch.from_numpy(rng.random((32, 128, 128)) < 1.5 / 128).to(dev), max_len=3)
+    # Every variant that takes each edge case's shape, bit for bit.
+    n_runs = 0
+    for name, adj_np, max_len in kcases.closure_cases(SEED):
+        adj = torch.from_numpy(adj_np).to(dev)
+        want = closure_plain(adj, max_len=max_len)
+        for variant, plan in closure_mod.closure_plans(adj.shape[0] if adj.ndim == 3 else 1, adj.shape[-1]).items():
+            got = closure_mod.launch_plan(adj, plan, max_len)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max().item())
+            max_err = max(max_err, err)
+            if got.shape != adj.shape or err != 0:
+                raise AssertionError(f"closure {name} plan {variant}: kernel != closure_plain (max err {err})")
+            n_runs += 1
+    log(f"closure edge cases: {len(kcases.closure_cases(SEED))} cases, {n_runs} (case, plan) runs bit-identical")
 
     b, v, max_len = TIMED_SHAPE
     adj = torch.from_numpy(rng.random((b, v, v)) < 2.0 / v).to(dev)
     n_steps = closure_steps(v, max_len)
     launches_before = closure.launches
-    ms = time_ms(lambda: closure(adj, max_len=max_len))
-    cold_ms = time_ms_cold_l2(lambda: closure(adj, max_len=max_len))
+    plans = closure_mod.closure_plans(b, v)
+    by_plan = means(time_in_turns(lambda plan: closure_mod.launch_plan(adj, plan, max_len), plans))
+    ms = by_plan[closure_mod.closure_plan(b, v).variant]
+    call_ms = time_ms(lambda: closure(adj, max_len=max_len))
+    cold_ms = cold_device_ms(lambda: closure(adj, max_len=max_len))
     closure.launches = launches_before  # timing launches are not main-path launches
     plain_ms = time_ms(lambda: closure_plain(adj, max_len=max_len))
     library_ms = time_ms(lambda: closure_bmm_bf16(adj, n_steps))
     if not torch.equal(closure_bmm_bf16(adj, n_steps), closure_plain(adj, max_len=max_len)):
         raise AssertionError("bf16 bmm yardstick disagrees with closure_plain")
-    bytes_moved = 2 * b * v * v  # one read of the bool input, one write of the output
-    ops = n_steps * 2 * b * v ** 3  # multiply-adds of the squaring chain, as int8 MMA ops
-    bound_s = {"bytes": bytes_moved / PEAK_BYTES_S, "operations": ops / PEAK_INT8_OPS_S}
-    bound_by = max(bound_s, key=bound_s.get)
-    log(f"closure timing [{b},{v},{v}] max_len={max_len} ({n_steps} squarings): kernel {ms:.4f} ms "
-        f"(cold L2 {cold_ms:.4f} ms), plain {plain_ms:.4f} ms, bf16 bmm chain {library_ms:.4f} ms, "
-        f"bound {bound_s[bound_by] * 1e3:.5f} ms ({bound_by})")
+    bounds = closure_bounds(adj, n_steps)
+    bound_by = max(bounds, key=bounds.get)
+    bound_ms = bounds[bound_by]
+    log(f"closure timing [{b},{v},{v}] max_len={max_len} ({n_steps} squarings): kernel {ms:.4f} ms device "
+        f"(by plan in turns: {fmt_ms(by_plan)}; cold L2 {cold_ms:.4f} ms); wrapper call by CUDA events "
+        f"{call_ms:.4f} ms; plain {plain_ms:.4f} ms, bf16 bmm chain {library_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}; bytes {bounds['bytes']:.6f} ms, operations "
+        f"{bounds['operations']:.6f} ms)")
     return {
         "name": "closure",
         "route": "cuda",
@@ -205,7 +334,7 @@ def check_closure(closure_mod) -> dict:
         "max_abs_err": float(max_err),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_s[bound_by] * 1e3,
+        "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
@@ -250,6 +379,21 @@ def csr_waves(state, src, dst, mask):
     """Library yardstick for K2: the runs' edges as one block-diagonal
     torch.sparse CSR matrix; returns waves(n) = n products with the state
     as a column, thresholded and ORed into it."""
+    step, x0 = csr_step(state, src, dst, mask)
+    b, v = state.shape
+
+    def waves(n: int) -> torch.Tensor:
+        x = x0
+        for _ in range(n):
+            x = step(x)
+        return x.reshape(b, v) > 0
+
+    return waves
+
+
+def csr_step(state, src, dst, mask):
+    """(step, x0) of the CSR yardstick: x0 the state as a float32 column,
+    step(x) one product with the block-diagonal adjacency, ORed into x."""
     b, v = state.shape
     e = src.shape[-1]
     base = torch.arange(b, device=state.device)[:, None] * v
@@ -260,18 +404,13 @@ def csr_waves(state, src, dst, mask):
     adj = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (b * v, b * v))
     adj = adj.coalesce().to_sparse_csr()
     x0 = state.reshape(b * v, 1).to(torch.float32)
-
-    def waves(n: int) -> torch.Tensor:
-        x = x0
-        for _ in range(n):
-            x = ((adj @ x) + x > 0).to(torch.float32)
-        return x.reshape(b, v) > 0
-
-    return waves
+    return (lambda x: ((adj @ x) + x > 0).to(torch.float32)), x0
 
 
 def check_edge_wave(ew_mod) -> dict:
     """Phase 4: K2 against edge_wave_plain on the card, then timings."""
+    from nemo_tpu_torch.kernels import cases as kcases
+
     edge_wave, plain = ew_mod.edge_wave, ew_mod.edge_wave_plain
     rng = np.random.default_rng(SEED)
     launches_before = edge_wave.launches
@@ -301,41 +440,73 @@ def check_edge_wave(ew_mod) -> dict:
         if not torch.equal(compare("all-false mask", args, n_steps), args[0]):
             raise AssertionError("edge_wave with an all-false mask moved the state")
     log("edge_wave all-false mask [64,64] E=256: bit-identical, state unchanged")
+    # Every variant that takes each edge case's shape, at the fix point and
+    # at finite n_steps, bit for bit.
+    n_runs = 0
+    for name, arrays in kcases.edge_wave_cases(SEED):
+        args = [torch.from_numpy(a).to("cuda") for a in arrays]
+        b, v = args[0].shape
+        for n_steps in (None, 1, 3):
+            want = plain(*kcases.in_range(*args), n_steps)
+            for variant, plan in ew_mod.edge_wave_plans(b, v, args[1].shape[-1], n_steps).items():
+                got = ew_mod.launch_plan(plan, *args, n_steps)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max().item())
+                max_err = max(max_err, err)
+                if err != 0:
+                    raise AssertionError(f"edge_wave {name} plan {variant} n_steps={n_steps}: kernel != plain")
+                n_runs += 1
+    log(f"edge_wave edge cases: {len(kcases.edge_wave_cases(SEED))} cases, {n_runs} (case, plan, n_steps) "
+        f"runs bit-identical")
+    lib = ew_mod._lib()
+    for v, e, warps in ((1, 0, 1), (256, 256, 1), (100, 301, 8), (16384, 16384, 8)):
+        if lib.nemo_edge_wave_run_bytes(v, e, warps) != ew_mod.worklist_run_bytes(v, e, warps):
+            raise AssertionError(f"edge_wave: the wrapper's shared-memory layout differs from the source's at {v, e}")
+
     chain = chain_inputs(rng)
     for n_steps in EDGE_WAVE_STEPS:
         got = compare("chain", chain, n_steps)
         if int(got.sum()) != (CHAIN_NODES if n_steps is None else n_steps + 1):
             raise AssertionError(f"edge_wave chain n_steps={n_steps}: {int(got.sum())} nodes reached")
-    chain_ms = time_ms(lambda: edge_wave(*chain, None), iters=3, warmup=1)
+    chain_plans = ew_mod.edge_wave_plans(1, CHAIN_V, CHAIN_V, None)
+    chain_ms = means(time_in_turns(lambda plan: ew_mod.launch_plan(plan, *chain, None), chain_plans, iters=5,
+                                   warmup=1))
     chain_plain_ms = time_ms(lambda: plain(*chain, None), iters=1, warmup=0)
     log(f"edge_wave chain of {CHAIN_NODES} nodes in V=E={CHAIN_V}: bit-identical at n_steps "
-        f"{EDGE_WAVE_STEPS}; fix point kernel {chain_ms:.4f} ms, plain {chain_plain_ms:.4f} ms")
+        f"{EDGE_WAVE_STEPS}; fix point by plan in turns (device): {fmt_ms(chain_ms)} (wrapper: "
+        f"{ew_mod.edge_wave_plan(1, CHAIN_V, CHAIN_V, None).variant}), plain {chain_plain_ms:.4f} ms, "
+        f"{(CHAIN_NODES - 1) / 1e3 / chain_ms[ew_mod.edge_wave_plan(1, CHAIN_V, CHAIN_V, None).variant]:.3f} "
+        f"hops per us")
 
     b, v, e = EDGE_WAVE_TIMED
     args = wave_inputs(rng, b, v, e)
     final = plain(*args, None)
-    waves = 1  # the kernel's last wave finds nothing new
-    cur = args[0]
-    while not torch.equal(cur, final):
-        cur = plain(cur, *args[1:], 1)
-        waves += 1
+    waves = wave_levels(*args)
     yardstick = csr_waves(*args)
     if not torch.equal(yardstick(waves), final):
         raise AssertionError("torch.sparse CSR yardstick disagrees with edge_wave_plain")
-    ms = time_ms(lambda: edge_wave(*args, None))
+    by_plan = means(time_in_turns(lambda plan: ew_mod.launch_plan(plan, *args, None),
+                                  ew_mod.edge_wave_plans(b, v, e, None)))
+    ms = by_plan[ew_mod.edge_wave_plan(b, v, e, None).variant]
+    call_ms = time_ms(lambda: edge_wave(*args, None))
     edge_wave.launches = launches_before  # check and timing launches are not main-path launches
     plain_ms = time_ms(lambda: plain(*args, None))
     library_ms = time_ms(lambda: yardstick(waves))
     n_edges = int(args[3].sum())
     # One read of the state and the edge planes (int32 src and dst, bool
-    # mask), one write of the output; per wave, a bit test of each masked
-    # edge's source and an OR into its destination.
+    # mask), one write of the output; a work-efficient traversal tests each
+    # masked edge's source and ORs into its destination once.
     bytes_moved = 2 * b * v + 9 * b * e
-    ops = waves * 2 * n_edges
+    ops = 2 * n_edges
     bound_s = {"bytes": bytes_moved / PEAK_BYTES_S, "operations": ops / PEAK_FP32_OPS_S}
     bound_by = max(bound_s, key=bound_s.get)
+    # The floor under every small kernel: one launch of a kernel that does
+    # nothing, timed the same way.
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    log(f"launch floor: an empty kernel takes {floor_ms:.4f} ms device per call, back to back")
     log(f"edge_wave timing [{b},{v}] E={e} to the fix point ({waves} waves, {n_edges} masked edges): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse CSR waves {library_ms:.4f} ms, "
+        f"kernel {ms:.4f} ms device (by plan in turns: {fmt_ms(by_plan)}); wrapper call by CUDA events "
+        f"{call_ms:.4f} ms; plain {plain_ms:.4f} ms, torch.sparse CSR waves {library_ms:.4f} ms, "
         f"bound {bound_s[bound_by] * 1e3:.5f} ms ({bound_by})")
     return {
         "name": "edge_wave",
@@ -350,6 +521,158 @@ def check_edge_wave(ew_mod) -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+#: Kernel functions of K1 and K2 by the names the profiler shows; a name is
+#: matched by the first function it contains (unpack_kernel before pack_kernel).
+KERNEL_FUNCTIONS = {
+    "closure": ("closure_warp_kernel", "closure_block_kernel", "unpack_kernel", "pack_kernel",
+                "square_kernel"),
+    "edge_wave": ("edge_wave_worklist_warp", "edge_wave_worklist_block", "edge_wave_kernel"),
+}
+
+
+class LaunchLog:
+    """The shapes at which the analyses launch K1 and K2.  Proxies in place
+    of the names the ops modules call (``ops.adjacency._closure_kernel``,
+    ``ops.sparse_device.edge_wave``) forward every call to the wrapper and,
+    for CUDA inputs during a counted analysis (``label`` set), count it by
+    shape and analysis and keep a copy of the first inputs at each shape."""
+
+    def __init__(self):
+        self.label = None
+        self.shapes = {}  # (kernel, key) -> {"args", "kw", "launches": {label: n}}
+        self._restore = []
+
+    def install(self, closure_fn, edge_wave_fn, closure_steps) -> None:
+        import nemo_tpu_torch.ops.adjacency as adjacency
+        import nemo_tpu_torch.ops.sparse_device as sparse_device
+
+        def closure_key(adj, max_len=None):
+            v = adj.shape[-1]
+            return (adj.shape[0] if adj.ndim == 3 else 1, v, closure_steps(v, max_len))
+
+        def wave_key(state, src, dst, mask, n_steps=None):
+            return (state.shape[0], state.shape[1], src.shape[-1], src.ndim == 1, n_steps)
+
+        for mod, attr, name, fn, key_of in (
+            (adjacency, "_closure_kernel", "closure", closure_fn, closure_key),
+            (sparse_device, "edge_wave", "edge_wave", edge_wave_fn, wave_key),
+        ):
+            self._restore.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, self._proxy(name, fn, key_of))
+
+    def uninstall(self) -> None:
+        for mod, attr, fn in self._restore:
+            setattr(mod, attr, fn)
+        self._restore = []
+
+    def _proxy(self, name, fn, key_of):
+        def proxy(*args, **kw):
+            if self.label is not None and args[0].is_cuda:
+                rec = self.shapes.setdefault((name, key_of(*args, **kw)), {"launches": {}})
+                if "args" not in rec:
+                    rec["args"] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+                    rec["kw"] = dict(kw)
+                rec["launches"][self.label] = rec["launches"].get(self.label, 0) + 1
+            return fn(*args, **kw)
+
+        return proxy
+
+    def launches(self, kernel: str) -> int:
+        return sum(sum(r["launches"].values()) for (k, _), r in self.shapes.items() if k == kernel)
+
+
+def wave_levels(state, src, dst, mask) -> int:
+    """Synchronous waves to the fix point, the last one finding nothing
+    new (the CSR yardstick's count), by stepping the yardstick itself."""
+    step, x = csr_step(state, src, dst, mask)
+    n = 0
+    while True:
+        nxt = step(x)
+        n += 1
+        if torch.equal(nxt, x):
+            return n
+        x = nxt
+
+
+def time_closure_shape(closure_mod, key, rec) -> dict:
+    """K1 at one shape the analyses launch it at: every plan's device time in
+    turns, the wrapper's call time, the plain chain, the bf16 bmm chain
+    (call and device time), the bounds (closure_bounds)."""
+    b, v, n_steps = key
+    adj = rec["args"][0].contiguous()
+    max_len = rec["kw"].get("max_len", rec["args"][1] if len(rec["args"]) > 1 else None)
+    plans = closure_mod.closure_plans(b, v)
+    turns = time_in_turns(lambda plan: closure_mod.launch_plan(adj, plan, max_len), plans, rounds=SHAPE_ROUNDS)
+    call_ms = time_ms(lambda: closure_mod.closure(adj, max_len=max_len))
+    plain_ms = time_ms(lambda: closure_mod.closure_plain(adj, max_len=max_len), iters=5, warmup=1)
+    adj3 = adj if adj.ndim == 3 else adj[None]
+    library_ms = time_ms(lambda: closure_bmm_bf16(adj3, n_steps), iters=5, warmup=1)
+    library_device_ms = device_ms(lambda: closure_bmm_bf16(adj3, n_steps), iters=5, warmup=1)
+    bounds = closure_bounds(adj, n_steps)
+    bound_by = max(bounds, key=bounds.get)
+    return {"kernel": "closure", "shape": {"B": b, "V": v, "squarings": n_steps},
+            "plan": closure_mod.closure_plan(b, v).variant, "ms_by_plan": means(turns), "turns_by_plan": turns,
+            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "bounds_ms": bounds, "launches": rec["launches"]}
+
+
+def time_wave_shape(ew_mod, key, rec) -> dict:
+    """K2 at one shape the analyses launch it at (to the fix point): every
+    plan's device time in turns (the waves variants run it in place), the
+    wrapper's call time, the plain waves, the torch.sparse CSR yardstick,
+    the byte and operation bounds and the synchronous wave count (the
+    longest chain of dependent hops + 1)."""
+    b, v, e, shared, n_steps = key
+    state, src, dst, mask = rec["args"][:4]
+    plans = ew_mod.edge_wave_plans(b, v, e, n_steps)
+    turns = time_in_turns(lambda plan: ew_mod.launch_plan(plan, state, src, dst, mask, n_steps), plans,
+                          iters=10, warmup=2, rounds=SHAPE_ROUNDS)
+    final = ew_mod.edge_wave_plain(state, src, dst, mask, n_steps)
+    plain_ms = time_ms(lambda: ew_mod.edge_wave_plain(state, src, dst, mask, n_steps), iters=1, warmup=0)
+    waves = wave_levels(state, src, dst, mask)
+    yardstick = csr_waves(state, src, dst, mask)
+    if not torch.equal(yardstick(waves), final):
+        raise AssertionError(f"edge_wave shape {key}: the CSR yardstick disagrees with the plain waves")
+    library_ms = time_ms(lambda: yardstick(waves), iters=1, warmup=1)
+    library_device_ms = device_ms(lambda: yardstick(waves), iters=1, warmup=0)
+    call_ms = time_ms(lambda: ew_mod.edge_wave(state, src, dst, mask, n_steps), iters=10, warmup=2)
+    n_edges = int(mask.sum()) * (b if shared else 1)
+    bytes_moved = 2 * b * v + 9 * (1 if shared else b) * e
+    bounds = {"bytes": bytes_moved / PEAK_BYTES_S * 1e3, "operations": 2 * n_edges / PEAK_FP32_OPS_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    return {"kernel": "edge_wave", "shape": {"B": b, "V": v, "E": e, "shared": shared},
+            "plan": ew_mod.edge_wave_plan(b, v, e, n_steps).variant, "ms_by_plan": means(turns),
+            "turns_by_plan": turns, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "bounds_ms": bounds, "waves": waves, "masked_edges": n_edges, "launches": rec["launches"]}
+
+
+def shape_timings(launch_log: LaunchLog, closure_mod, ew_mod) -> list[dict]:
+    """Phase 7: each kernel timed at every shape the analyses launched it
+    at, beside its bound; one log line per shape."""
+    rows = []
+    for (kernel, key), rec in launch_log.shapes.items():
+        row = (time_closure_shape(closure_mod, key, rec) if kernel == "closure"
+               else time_wave_shape(ew_mod, key, rec))
+        rows.append(row)
+        chosen = row["ms_by_plan"][row["plan"]]
+        log(f"shape {kernel} {row['shape']}: {sum(row['launches'].values())} launches {row['launches']}; "
+            f"{row['plan']} {chosen:.4f} ms ({chosen / row['bound_ms']:.1f}x its bound "
+            f"{row['bound_ms']:.5f} ms, {row['bound_by']}; bytes {row['bounds_ms']['bytes']:.6f} ms, operations "
+            f"{row['bounds_ms']['operations']:.6f} ms); device ms by plan in turns, mean [fastest-slowest of "
+            f"{2 * SHAPE_ROUNDS}] {fmt_turns(row['turns_by_plan'])}; wrapper call {row['call_ms']:.4f} ms; "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms (device "
+            f"{row['library_device_ms']:.4f} ms)"
+            + (f"; {row['waves']} synchronous waves, {row['masked_edges']} masked edges"
+               if kernel == "edge_wave" else ""))
+    closure_mod.closure.launches = ew_mod.edge_wave.launches = 0  # timing launches are not main-path launches
+    return rows
+
+
+LAUNCH_LOG = LaunchLog()
 
 
 def strip_run_facts(doc: dict) -> dict:
@@ -368,8 +691,12 @@ def analyze_counted(label: str, cd: str, kernels, **kw) -> tuple[dict, float, di
     LOOP_STATS.clear()
     for k in kernels:
         k.launches = 0
+    LAUNCH_LOG.label = label
     t = time.perf_counter()
-    doc = analyze(cd, device="cuda", **kw)
+    try:
+        doc = analyze(cd, device="cuda", **kw)
+    finally:
+        LAUNCH_LOG.label = None
     wall = time.perf_counter() - t
     counts = {k.__name__: k.launches for k in kernels}
     routes = [(r["verb"], r["route"], r["rows"], r["v"], r["e"], r["reason"]) for r in doc["routes"]]
@@ -425,9 +752,12 @@ def main_path(work: str, kernels) -> tuple[dict, str, dict]:
         if not doc["inter_proto"] or not doc["union_proto"]:
             raise AssertionError(f"{name}: empty prototypes")
 
+    for name, cd in dirs.items():
+        check_cpu_equal(name, cd, docs[name])
+        # The bucket closure (2,048 graphs) takes the block variant, the
+        # [V,V] diff closure the warp variant.
+        expect_variants(f"main path {name}", "closure", {"block", "warp"}, profile_family(cd))
     zk = "ZK-1270-racing-sent-flag"
-    check_cpu_equal(zk, dirs[zk], docs[zk])
-    profile_family(dirs[zk])
     return launches, dirs[zk], docs[zk]
 
 
@@ -478,7 +808,11 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_doc: dict) -> dict:
         check_cpu_equal(name, cd, doc)
     if not sparse_diffs:
         raise AssertionError("no giant corpus drove sparse_diff")
-    profile_family(giant_dirs[0])
+    for cd in giant_dirs:
+        label, profile = f"sparse path {os.path.basename(cd)}", profile_family(cd)
+        expect_variants(label, "edge_wave", {"worklist_block"}, profile)
+        if launched_variants(label, "closure"):  # sd_giantv's V = 2,048 diff closure
+            expect_variants(label, "closure", {"global"}, profile)
 
     # (b) The long-horizon sweep on the auto route: some buckets past the
     # dense memory watermark go sparse by "mem", the others stay dense, so
@@ -495,7 +829,12 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_doc: dict) -> dict:
     if doc["runs"] != n_runs or min(counts.values()) <= 0:
         raise AssertionError(f"{name}: {doc['runs']} runs, launches {counts}")
     check_cpu_equal(name, cd, doc)
-    profile_family(cd)
+    profile = profile_family(cd)
+    # The mem-routed V = 256 bucket (1,024 runs, all resident at once) takes
+    # the staged waves, the diff's shared V = 512 list the warp worklist;
+    # the dense buckets are batches, on the block variant.
+    expect_variants(f"sparse path {name}", "edge_wave", {"waves_staged", "worklist_warp"}, profile)
+    expect_variants(f"sparse path {name}", "closure", {"block"}, profile)
 
     # (c) ZK-1270 forced onto the sparse tier: the document equals the dense
     # one of the main path, and no dense kernel runs.
@@ -513,29 +852,101 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_doc: dict) -> dict:
     }:
         raise AssertionError("ZK-1270: the sparse document differs from the dense one")
     log("ZK-1270: the forced-sparse document equals the dense document")
+    # The buckets (2,048 runs, two rounds of wave CTAs) take the warp
+    # worklist, the diff's shared V = 32 list the staged waves.
+    expect_variants("sparse path ZK-1270 forced sparse_device", "edge_wave", {"worklist_warp", "waves_staged"},
+                    profile_family(zk_dir, analysis_impl="sparse_device"))
     return launches
 
 
-def profile_family(cd: str) -> None:
+def profile_family(cd: str, **kw) -> dict[str, dict[str, tuple[float, int]]]:
     """Device busy time of one corpus's analysis, by torch.profiler: the
-    sum of kernel times on the card against the wall of the whole run."""
+    sum of kernel times on the card against the wall of the whole run, the
+    largest items, and K1's and K2's device time, launches and kernel
+    functions.  Returns {kernel: {function: (device ms, launches)}}."""
     from torch.profiler import ProfilerActivity, profile
 
     from nemo_tpu_torch.cli import analyze
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        analyze(cd, device="cuda")
+        analyze(cd, device="cuda", **kw)
         wall = time.perf_counter() - t
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
+    label = os.path.basename(cd) + (f" {kw}" if kw else "")
     if not busy_us:
-        log("profile: the profiler recorded no device time (device busy share not measured)")
-        return
-    log(f"profile {os.path.basename(cd)}: wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} ms "
+        log(f"profile {label}: the profiler recorded no device time (device busy share not measured)")
+        return {}
+    log(f"profile {label}: wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / 1e6 / wall:.2f} % of the wall), {len(events)} kernel names")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    found = {}
+    for kernel, functions in KERNEL_FUNCTIONS.items():
+        for e in events:
+            fn = next((f for f in functions if f in e.key), None)
+            if fn is not None:
+                ms, n = found.setdefault(kernel, {}).get(fn, (0.0, 0))
+                found[kernel][fn] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        per_fn = found.get(kernel, {})
+        log(f"  {kernel}: device {sum(ms for ms, _ in per_fn.values()):.4f} ms over "
+            f"{sum(n for _, n in per_fn.values())} launches; functions "
+            f"{ {f: (round(ms, 4), n) for f, (ms, n) in per_fn.items()} }")
+    return found
+
+
+#: The kernel function each launch-plan variant runs, as KERNEL_FUNCTIONS
+#: names it.
+VARIANT_FUNCTIONS = {
+    "closure": {"warp": "closure_warp_kernel", "block": "closure_block_kernel", "global": "square_kernel"},
+    "edge_wave": {"worklist_warp": "edge_wave_worklist_warp", "worklist_block": "edge_wave_worklist_block",
+                  "waves_staged": "edge_wave_kernel", "waves_streamed": "edge_wave_kernel"},
+}
+
+
+def plan_of(kernel: str, key: tuple):
+    """The launch plan the wrapper of ``kernel`` takes at a LaunchLog key."""
+    if kernel == "closure":
+        from nemo_tpu_torch.kernels.closure import closure_plan
+
+        b, v, _squarings = key
+        return closure_plan(b, v)
+    from nemo_tpu_torch.kernels.edge_wave import edge_wave_plan
+
+    b, v, e, _shared, n_steps = key
+    return edge_wave_plan(b, v, e, n_steps)
+
+
+def launched_variants(label: str, kernel: str) -> dict[str, int]:
+    """{variant: launches} of ``kernel`` in the counted analysis ``label``:
+    every launch the LaunchLog recorded, by the variant of the plan the
+    wrapper takes at its shape."""
+    found = {}
+    for (k, key), rec in LAUNCH_LOG.shapes.items():
+        if k == kernel and label in rec["launches"]:
+            variant = plan_of(kernel, key).variant
+            found[variant] = found.get(variant, 0) + rec["launches"][label]
+    return found
+
+
+def expect_variants(label: str, kernel: str, want: set[str], profile: dict) -> None:
+    """The counted analysis ``label`` launched ``kernel`` by exactly the
+    variants ``want``, as its launches show (launched_variants).  Where the
+    profile of the same corpus saw the device, it must show each variant's
+    kernel function too; an empty profile is logged and checks nothing."""
+    got = launched_variants(label, kernel)
+    if set(got) != want:
+        raise AssertionError(f"{label}: {kernel} launched by variants {got}, expected {sorted(want)}")
+    functions = {VARIANT_FUNCTIONS[kernel][v] for v in want}
+    if not profile:
+        log(f"{label}: {kernel} variants {got} by the launches; the profile recorded no device time, so the "
+            f"kernel functions were not checked against it")
+        return
+    missing = functions - set(profile.get(kernel, {}))
+    if missing:
+        raise AssertionError(f"{label}: the profile shows no {sorted(missing)} for {kernel}: {profile.get(kernel)}")
+    log(f"{label}: {kernel} variants {got} by the launches, functions {sorted(functions)} in the profile")
 
 
 def main() -> int:
@@ -566,15 +977,22 @@ def main() -> int:
     work = os.path.join(repo, ".smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    LAUNCH_LOG.install(closure_mod.closure, edge_wave_mod.edge_wave, closure_mod.closure_steps)
     try:
         dense, zk_dir, zk_doc = main_path(work, kernels)
         sparse = sparse_path(work, kernels, zk_dir, zk_doc)
     finally:
+        LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the dense main path {dense}, on the sparse path {sparse}")
     for record in records:
         record["launches"] = dense[record["name"]] + sparse[record["name"]]
+        if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
+            raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
+                                 f"launches, the wrapper {record['launches']}")
+    shapes = shape_timings(LAUNCH_LOG, closure_mod, edge_wave_mod)
 
+    print(json.dumps({"shapes": shapes}))
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from nemo_tpu_torch.kernels import cases
 from nemo_tpu_torch.kernels import closure as k1
 from nemo_tpu_torch.kernels import edge_wave as k2
 
@@ -35,6 +36,21 @@ def test_closure_kernel_matches_plain(cuda, b, v):
         torch.cuda.synchronize()
         assert k1.closure.launches == before + 1
         assert torch.equal(got, k1.closure_plain(adj, max_len=max_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(cases.closure_cases())))
+def test_closure_every_plan_on_edge_cases(cuda, case):
+    """Every variant that takes the shape (warp, block, global), on one
+    edge case, bit for bit against the plain chain."""
+    name, adj, max_len = cases.closure_cases()[case]
+    adj = torch.from_numpy(adj).to(cuda)
+    want = k1.closure_plain(adj, max_len=max_len)
+    b = adj.shape[0] if adj.ndim == 3 else 1
+    for variant, plan in k1.closure_plans(b, adj.shape[-1]).items():
+        got = k1.launch_plan(adj, plan, max_len)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, variant)
 
 
 @pytest.mark.cuda
@@ -99,6 +115,36 @@ def test_edge_wave_kernel_long_chain(cuda):
         got = k2.edge_wave(*args, n_steps)
         assert int(got.sum()) == (10000 if n_steps is None else n_steps + 1)
         assert torch.equal(got, k2.edge_wave_plain(*args, n_steps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(cases.edge_wave_cases())))
+def test_edge_wave_every_plan_on_edge_cases(cuda, case):
+    """Every variant that takes the shape (the worklist's warp and block
+    variants at the fix point, the staged and streamed waves at every
+    n_steps), on one edge case, bit for bit against the plain waves; the
+    wrapper's own choice launches once."""
+    name, arrays = cases.edge_wave_cases()[case]
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    b, v = args[0].shape
+    for n_steps in (None, 1, 3):
+        want = k2.edge_wave_plain(*cases.in_range(*args), n_steps)
+        before = k2.edge_wave.launches
+        assert torch.equal(k2.edge_wave(*args, n_steps), want), (name, n_steps)
+        assert k2.edge_wave.launches == before + 1
+        for variant, plan in k2.edge_wave_plans(b, v, args[1].shape[-1], n_steps).items():
+            got = k2.launch_plan(plan, *args, n_steps)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, variant, n_steps)
+
+
+@pytest.mark.cuda
+def test_edge_wave_run_bytes_match_the_source(cuda):
+    """The wrapper's shared-memory layout of a worklist run is the
+    kernel's."""
+    lib = k2._lib()
+    for v, e, warps in ((1, 0, 1), (256, 256, 1), (100, 301, 8), (16384, 16384, 8)):
+        assert lib.nemo_edge_wave_run_bytes(v, e, warps) == k2.worklist_run_bytes(v, e, warps)
 
 
 @pytest.mark.cuda
