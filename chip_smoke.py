@@ -23,21 +23,25 @@ each fatal (non-zero exit, no result line) on failure:
      waves) beside the plain version, a torch.sparse CSR block-diagonal
      matrix-vector product (the yardstick) and the launch floor (an empty
      kernel timed the same way);
-  5. drive the dense main path — TorchBackend over all six case-study
-     families at 1,700 runs each (seed 0) — with the kernels' launch counts
-     zeroed just before and read just after, check every family's analysis
-     document on cuda equals the port's cpu document, check from the
-     recorded launches that each took the expected plan variant, and
-     profile each family (K1's device time, launches and kernel functions,
-     which must show those variants where the profiler saw the device);
-  6. drive the sparse path, each analysis with the launch counts zeroed
-     just before and read just after: (a) two giant-V corpora on the auto
-     route (every giant run on sparse_fused; a giant good run's diff on
-     sparse_diff), (b) a long-horizon sweep of 1,700 runs whose buckets
-     split between the dense and the sparse tier (both kernels launch),
-     each document equal to the cpu one, and (c) ZK-1270 forced onto the
-     sparse tier, whose document must equal the dense one; each with its
-     plan variants checked and profiled as in phase 5;
+  5. drive the dense main path — the debugging report (analysis/pipeline.py
+     run_debug over TorchBackend) of all six case-study families at 1,700
+     runs each (seed 0), figures sample:8, and of ZK-1270 with every
+     figure — with the kernels' launch counts zeroed just before each
+     report and read just after; check every report tree on cuda equals,
+     byte for byte, the same report on the cpu, check from the recorded
+     launches that each took the expected plan variant, and profile each
+     family's report (device busy share; K1's device time, launches and
+     kernel functions, which must show those variants where the profiler
+     saw the device);
+  6. drive the reports that take the sparse tier, each with the launch
+     counts zeroed just before and read just after: (a) two giant-V
+     corpora on the auto route (every giant run on sparse_fused; a giant
+     good run's diff on sparse_diff; giant10k without figures, sd_giantv
+     with every figure), (b) a long-horizon sweep of 1,700 runs whose
+     buckets split between the dense and the sparse tier (both kernels
+     launch), each report equal to the cpu one, and (c) ZK-1270 forced
+     onto the sparse tier, whose report must equal the dense one; each
+     with its plan variants checked and profiled as in phase 5;
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -45,7 +49,9 @@ each fatal (non-zero exit, no result line) on failure:
      library yardstick, the bound (for K1, the word ORs these inputs need
      up to each graph's fix point).
 
-Before the card's line, a JSON object {"shapes": [...]} holds phase 7's
+Each report logs its wall, runs/s, phase walls, figures against unique
+renders and bytes.  Before the card's line, a JSON object {"shapes": [...]}
+holds phase 7's
 rows; the line before the last is a JSON object with one record per kernel;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of the
 JAX package.
@@ -100,6 +106,10 @@ GIANT_V = 4096  # TorchBackend's default giant threshold
 #: path's run count whose buckets split between the two tiers.
 GIANT_SPECS = (("giant10k", 2, 2, 3000), ("sd_giantv", 3, 3, 4800))
 SWEEP_SPEC = ("sweep", FAMILY_RUNS, 6, 80)
+#: Figure policy of the reports (bench.py's end-to-end policy); ZK-1270 is
+#: also reported with every figure, and the giant corpora as listed.
+REPORT_FIGURES = "sample:8"
+GIANT_FIGURES = {"giant10k": "none", "sd_giantv": "all"}
 
 
 def log(msg: str) -> None:
@@ -664,8 +674,8 @@ def shape_timings(launch_log: LaunchLog, closure_mod, ew_mod) -> list[dict]:
             f"{row['bound_ms']:.5f} ms, {row['bound_by']}; bytes {row['bounds_ms']['bytes']:.6f} ms, operations "
             f"{row['bounds_ms']['operations']:.6f} ms); device ms by plan in turns, mean [fastest-slowest of "
             f"{2 * SHAPE_ROUNDS}] {fmt_turns(row['turns_by_plan'])}; wrapper call {row['call_ms']:.4f} ms; "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms (device "
-            f"{row['library_device_ms']:.4f} ms)"
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms (CUDA events around the whole "
+            f"call: device plus host; device {row['library_device_ms']:.4f} ms)"
             + (f"; {row['waves']} synchronous waves, {row['masked_edges']} masked edges"
                if kernel == "edge_wave" else ""))
     closure_mod.closure.launches = ew_mod.edge_wave.launches = 0  # timing launches are not main-path launches
@@ -675,98 +685,136 @@ def shape_timings(launch_log: LaunchLog, closure_mod, ew_mod) -> list[dict]:
 LAUNCH_LOG = LaunchLog()
 
 
-def strip_run_facts(doc: dict) -> dict:
-    """The analysis document without the facts of the run itself."""
-    return {k: v for k, v in doc.items() if k not in ("device", "timings_s", "dispatch_wall_s")}
-
-
-def analyze_counted(label: str, cd: str, kernels, **kw) -> tuple[dict, float, dict]:
-    """One analysis on cuda through the CLI's entry point, with every
-    kernel's launch count set to 0 just before and read just after.
-    Returns (document, host wall s, launches by kernel name) and logs the
-    routes, the phase walls and the plain fix-point loops' iterations."""
-    from nemo_tpu_torch.cli import analyze
+def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, report_name: str,
+                   **backend_kw):
+    """One debugging report on cuda through run_debug, with every kernel's
+    launch count set to 0 just before and read just after.  Returns (the
+    DebugResult, the backend, the report tree's bytes, launches by kernel
+    name) and logs the report wall, runs/s, every phase wall, the figures
+    against their unique renders, the report's bytes, the routes and the
+    plain fix-point loops' iterations."""
+    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.ops.sparse_device import LOOP_STATS
 
+    backend = TorchBackend(device="cuda", **backend_kw)
     LOOP_STATS.clear()
     for k in kernels:
         k.launches = 0
     LAUNCH_LOG.label = label
     t = time.perf_counter()
     try:
-        doc = analyze(cd, device="cuda", **kw)
+        res = run_debug(cd, out_root, backend, figures=figures, report_name=report_name)
     finally:
         LAUNCH_LOG.label = None
     wall = time.perf_counter() - t
     counts = {k.__name__: k.launches for k in kernels}
-    routes = [(r["verb"], r["route"], r["rows"], r["v"], r["e"], r["reason"]) for r in doc["routes"]]
+    tree = report_tree_bytes(res.report_dir)
+    runs = len(res.molly.runs)
+    fs = res.figure_stats
+    routes = [(r["verb"], r["route"], r["rows"], r["v"], r["e"], r["reason"]) for r in backend.analysis_routes]
     loops = {n: (r["calls"], r["iters"], round(r["wall_s"], 4)) for n, r in LOOP_STATS.items()}
-    log(f"{label}: {doc['runs']} runs, {len(doc['failed_iters'])} failed, wall {wall:.3f} s, "
-        f"{doc['runs'] / wall:.1f} runs/s, launches {counts}, dispatches {doc['dispatches']}, "
-        f"routes (verb, route, rows, v, e, reason) {routes}, "
-        f"plain fix-point loops (calls, iters, wall s) {loops}, "
-        f"phase wall {json.dumps({k: round(v, 4) for k, v in doc['timings_s'].items()})}, "
-        f"dispatch wall {json.dumps({k: round(v, 4) for k, v in doc['dispatch_wall_s'].items()})}")
-    return doc, wall, counts
+    log(f"{label}: {runs} runs, {len(res.molly.failed_runs_iters)} failed, figures={figures}, report wall "
+        f"{wall:.3f} s, {runs / wall:.1f} runs/s; phase wall "
+        f"{json.dumps({k: round(v, 4) for k, v in res.timings.items()})}; figures {fs['figures']} written from "
+        f"{fs['unique_figures']} unique renders (render {fs['render_s']} s, drain wall {fs['render_wall_s']} s); "
+        f"report {sum(map(len, tree.values()))} bytes in {len(tree)} files; launches {counts}, dispatches "
+        f"{backend.executor.dispatches}, routes (verb, route, rows, v, e, reason) {routes}, plain fix-point "
+        f"loops (calls, iters, wall s) {loops}")
+    return res, backend, tree, counts
 
 
-def check_cpu_equal(label: str, cd: str, doc: dict, **kw) -> None:
-    """The same analysis on the CPU must give the same document."""
-    from nemo_tpu_torch.cli import analyze
+def check_report_cpu_equal(label: str, cd: str, tree: dict, out_root: str, figures: str, report_name: str,
+                           **backend_kw) -> None:
+    """The same report on the CPU must have the same bytes, file for file."""
+    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
 
     t = time.perf_counter()
-    cpu_doc = analyze(cd, device="cpu", **kw)
+    res = run_debug(cd, out_root, TorchBackend(device="cpu", **backend_kw), figures=figures,
+                    report_name=report_name)
+    cpu_tree = report_tree_bytes(res.report_dir)
     log(f"{label} on cpu: {time.perf_counter() - t:.3f} s")
-    if strip_run_facts(cpu_doc) != strip_run_facts(doc):
-        diff = [k for k in cpu_doc if cpu_doc[k] != doc.get(k)]
-        raise AssertionError(f"{label}: cuda document differs from cpu document in {diff}")
-    log(f"{label}: cuda analysis document equals the cpu document "
-        f"({sum(len(v) for v in cpu_doc['missing_events'].values())} missing events)")
+    if cpu_tree != tree:
+        differ = sorted(set(cpu_tree) ^ set(tree)) + sorted(k for k in tree if cpu_tree.get(k, tree[k]) != tree[k])
+        raise AssertionError(f"{label}: the cuda report differs from the cpu report in {differ[:10]}")
+    log(f"{label}: cuda report equals the cpu report ({len(tree)} files, {sum(map(len, tree.values()))} bytes)")
+    shutil.rmtree(res.report_dir)
+
+
+def check_report_content(label: str, res, protos: bool = False) -> None:
+    """What the report must say: every failed run's missing events (when a
+    good run exists), a recommendation for every run and, with ``protos``,
+    the prototypes."""
+    runs = res.molly.runs
+    failed = [r for r in runs if r.iteration in set(res.molly.failed_runs_iters)]
+    if failed and res.molly.success_runs_iters and not any(r.missing_events for r in failed):
+        raise AssertionError(f"{label}: failed runs but no missing events")
+    if protos and (not runs[0].inter_proto or not runs[0].union_proto):
+        raise AssertionError(f"{label}: empty prototypes")
+    if not all(r.recommendation for r in runs):
+        raise AssertionError(f"{label}: a run without a recommendation")
 
 
 def main_path(work: str, kernels) -> tuple[dict, str, dict]:
-    """Phase 5: all six families through TorchBackend on cuda.  Returns the
-    launches by kernel over the run, and ZK-1270's directory and document."""
-    from nemo_tpu_torch.cli import analyze
+    """Phase 5: the debugging report of all six families on cuda.  Returns
+    the launches by kernel over the run, and ZK-1270's directory and
+    report tree (sample:8)."""
+    from nemo_tpu_torch.analysis.pipeline import run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.models.case_studies import write_all_case_studies, write_case_study
 
     t0 = time.perf_counter()
     dirs = write_all_case_studies(FAMILY_RUNS, SEED, work)
     log(f"generated {len(dirs)} families x {FAMILY_RUNS} runs in {time.perf_counter() - t0:.2f} s")
     # Warm-up on a small corpus: CUDA context, cuBLAS handles, the loaded
-    # kernel library.  Not part of the timed main path.
+    # kernel library and the report's host code (hazard DOTs, PGraphs, the
+    # renderer and writer).  Not part of the timed main path.
     warm = write_case_study("pb_asynchronous", 12, SEED, os.path.join(work, "warm"))
-    analyze(warm, device="cuda")
+    run_debug(warm, os.path.join(work, "reports", "warm"), TorchBackend(device="cuda"), figures=REPORT_FIGURES)
+    cuda_root, cpu_root = os.path.join(work, "reports", "cuda"), os.path.join(work, "reports", "cpu")
 
     launches = {k.__name__: 0 for k in kernels}
-    docs = {}
-    for name, cd in dirs.items():
-        doc, _wall, counts = analyze_counted(f"main path {name}", cd, kernels)
-        docs[name] = doc
+    trees = {}
+
+    def add(counts):
         for k, n in counts.items():
             launches[k] += n
-        if doc["runs"] != FAMILY_RUNS or counts["closure"] <= 0:
-            raise AssertionError(f"{name}: {doc['runs']} runs analyzed, {counts['closure']} closure launches")
-        if doc["failed_iters"] and not any(doc["missing_events"].values()):
-            raise AssertionError(f"{name}: failed runs but no missing events")
-        if not doc["inter_proto"] or not doc["union_proto"]:
-            raise AssertionError(f"{name}: empty prototypes")
 
     for name, cd in dirs.items():
-        check_cpu_equal(name, cd, docs[name])
+        res, _backend, trees[name], counts = report_counted(
+            f"report {name}", cd, kernels, cuda_root, REPORT_FIGURES, name)
+        add(counts)
+        if len(res.molly.runs) != FAMILY_RUNS or counts["closure"] <= 0:
+            raise AssertionError(f"{name}: {len(res.molly.runs)} runs reported, {counts['closure']} closure launches")
+        check_report_content(name, res, protos=True)
+    zk = "ZK-1270-racing-sent-flag"
+    label = f"report {zk} figures=all"
+    res, _backend, tree, counts = report_counted(label, dirs[zk], kernels, cuda_root, "all", f"{zk}-all")
+    add(counts)
+    if counts["closure"] <= 0:
+        raise AssertionError(f"{label}: closure never launched")
+    check_report_content(label, res, protos=True)
+    shutil.rmtree(res.report_dir)
+    check_report_cpu_equal(label, dirs[zk], tree, cpu_root, "all", f"{zk}-all")
+    del tree
+
+    for name, cd in dirs.items():
+        check_report_cpu_equal(f"report {name}", cd, trees[name], cpu_root, REPORT_FIGURES, name)
         # The bucket closure (2,048 graphs) takes the block variant, the
         # [V,V] diff closure the warp variant.
-        expect_variants(f"main path {name}", "closure", {"block", "warp"}, profile_family(cd))
-    zk = "ZK-1270-racing-sent-flag"
-    return launches, dirs[zk], docs[zk]
+        expect_variants(f"report {name}", "closure", {"block", "warp"},
+                        profile_family(cd, cuda_root, REPORT_FIGURES))
+    return launches, dirs[zk], trees[zk]
 
 
-def sparse_path(work: str, kernels, zk_dir: str, zk_dense_doc: dict) -> dict:
-    """Phase 6: the sparse-CSR device tier through TorchBackend on cuda.
-    Returns the launches by kernel over its analyses."""
+def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> dict:
+    """Phase 6: the reports that take the sparse-CSR device tier on cuda.
+    Returns the launches by kernel over them."""
     from nemo_tpu_torch.models.synth import SynthSpec, write_corpus
 
     launches = {k.__name__: 0 for k in kernels}
+    cuda_root, cpu_root = os.path.join(work, "reports", "cuda"), os.path.join(work, "reports", "cpu")
 
     def add(counts):
         for k, n in counts.items():
@@ -783,95 +831,100 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_doc: dict) -> dict:
         cd = write_corpus(SynthSpec(n_runs=n_runs, seed=seed, eot=eot, name=name), work)
         log(f"generated {name} in {time.perf_counter() - t:.2f} s")
         giant_dirs.append(cd)
-        doc, _wall, counts = analyze_counted(f"sparse path {name}", cd, kernels)
+        figures = GIANT_FIGURES[name]
+        res, backend, tree, counts = report_counted(f"report {name}", cd, kernels, cuda_root, figures, name)
         add(counts)
-        fused = [r for r in doc["routes"] if r["verb"] == "fused"]
-        giants = [r for r in doc["routes"] if r["verb"] == "giant"]
-        (diff,) = [r for r in doc["routes"] if r["verb"] == "diff"]
+        routes, dispatches, runs = backend.analysis_routes, backend.executor.dispatches, len(res.molly.runs)
+        fused = [r for r in routes if r["verb"] == "fused"]
+        giants = [r for r in routes if r["verb"] == "giant"]
+        (diff,) = [r for r in routes if r["verb"] == "diff"]
         n_sparse = len(giants) + sum(r["route"] == "sparse_device" for r in fused)
         if (
             not giants
             or any(r["route"] != "sparse_device" or r["rows"] != 1 for r in giants)
             or any(r["v"] > GIANT_V for r in fused)
-            or sum(r["rows"] for r in fused) + len(giants) != doc["runs"]
-            or doc["dispatches"].get("sparse_fused", 0) != n_sparse
+            or sum(r["rows"] for r in fused) + len(giants) != runs
+            or dispatches.get("sparse_fused", 0) != n_sparse
         ):
-            raise AssertionError(f"{name}: giant runs not each on sparse_fused: {doc['routes']}")
+            raise AssertionError(f"{name}: giant runs not each on sparse_fused: {routes}")
         if diff["v"] > GIANT_V:  # the good run's node count
-            if (diff["route"], diff["reason"]) != ("sparse_device", "giant") or doc["dispatches"].get(
-                "sparse_diff"
-            ) != 1:
+            if (diff["route"], diff["reason"]) != ("sparse_device", "giant") or dispatches.get("sparse_diff") != 1:
                 raise AssertionError(f"{name}: a giant good run's diff not on sparse_diff: {diff}")
             sparse_diffs += 1
         if counts["edge_wave"] <= 0:
             raise AssertionError(f"{name}: edge_wave never launched")
-        check_cpu_equal(name, cd, doc)
+        if figures == "all" and not any("diff_post_prov-diff" in k for k in tree):
+            raise AssertionError(f"{name}: no diff overlay in the report")
+        check_report_content(name, res)
+        check_report_cpu_equal(f"report {name}", cd, tree, cpu_root, figures, name)
     if not sparse_diffs:
         raise AssertionError("no giant corpus drove sparse_diff")
     for cd in giant_dirs:
-        label, profile = f"sparse path {os.path.basename(cd)}", profile_family(cd)
+        name = os.path.basename(cd)
+        label, profile = f"report {name}", profile_family(cd, cuda_root, GIANT_FIGURES[name])
         expect_variants(label, "edge_wave", {"worklist_block"}, profile)
         if launched_variants(label, "closure"):  # sd_giantv's V = 2,048 diff closure
             expect_variants(label, "closure", {"global"}, profile)
 
     # (b) The long-horizon sweep on the auto route: some buckets past the
     # dense memory watermark go sparse by "mem", the others stay dense, so
-    # both kernels launch in one analysis.
+    # both kernels launch in one report.
     name, n_runs, seed, eot = SWEEP_SPEC
     t = time.perf_counter()
     cd = write_corpus(SynthSpec(n_runs=n_runs, seed=seed, eot=eot, name=name), work)
     log(f"generated {name} in {time.perf_counter() - t:.2f} s")
-    doc, _wall, counts = analyze_counted(f"sparse path {name}", cd, kernels)
+    res, backend, tree, counts = report_counted(f"report {name}", cd, kernels, cuda_root, REPORT_FIGURES, name)
     add(counts)
-    split = {(r["route"], r["reason"]) for r in doc["routes"] if r["verb"] == "fused"}
+    split = {(r["route"], r["reason"]) for r in backend.analysis_routes if r["verb"] == "fused"}
     if ("sparse_device", "mem") not in split or not any(route == "dense" for route, _ in split):
-        raise AssertionError(f"{name}: buckets did not split between the tiers: {doc['routes']}")
-    if doc["runs"] != n_runs or min(counts.values()) <= 0:
-        raise AssertionError(f"{name}: {doc['runs']} runs, launches {counts}")
-    check_cpu_equal(name, cd, doc)
-    profile = profile_family(cd)
+        raise AssertionError(f"{name}: buckets did not split between the tiers: {backend.analysis_routes}")
+    if len(res.molly.runs) != n_runs or min(counts.values()) <= 0:
+        raise AssertionError(f"{name}: {len(res.molly.runs)} runs, launches {counts}")
+    check_report_content(name, res)
+    check_report_cpu_equal(f"report {name}", cd, tree, cpu_root, REPORT_FIGURES, name)
+    profile = profile_family(cd, cuda_root, REPORT_FIGURES)
     # The mem-routed V = 256 bucket (1,024 runs, all resident at once) takes
     # the staged waves, the diff's shared V = 512 list the warp worklist;
     # the dense buckets are batches, on the block variant.
-    expect_variants(f"sparse path {name}", "edge_wave", {"waves_staged", "worklist_warp"}, profile)
-    expect_variants(f"sparse path {name}", "closure", {"block"}, profile)
+    expect_variants(f"report {name}", "edge_wave", {"waves_staged", "worklist_warp"}, profile)
+    expect_variants(f"report {name}", "closure", {"block"}, profile)
 
-    # (c) ZK-1270 forced onto the sparse tier: the document equals the dense
-    # one of the main path, and no dense kernel runs.
-    doc, _wall, counts = analyze_counted(
-        "sparse path ZK-1270 forced sparse_device", zk_dir, kernels, analysis_impl="sparse_device"
-    )
+    # (c) ZK-1270 forced onto the sparse tier: the report equals the dense
+    # one of the main path byte for byte, and no dense kernel runs.
+    label = "report ZK-1270 forced sparse_device"
+    res, backend, tree, counts = report_counted(label, zk_dir, kernels, cuda_root, REPORT_FIGURES,
+                                                "ZK-1270-sparse_device", analysis_impl="sparse_device")
     add(counts)
     if counts["closure"] != 0 or counts["edge_wave"] <= 0:
         raise AssertionError(f"ZK-1270 forced sparse: launches {counts}")
-    if {r["route"] for r in doc["routes"]} != {"sparse_device"}:
-        raise AssertionError(f"ZK-1270 forced sparse: routes {doc['routes']}")
-    facts = ("routes", "dispatches")
-    if {k: v for k, v in strip_run_facts(doc).items() if k not in facts} != {
-        k: v for k, v in strip_run_facts(zk_dense_doc).items() if k not in facts
-    }:
-        raise AssertionError("ZK-1270: the sparse document differs from the dense one")
-    log("ZK-1270: the forced-sparse document equals the dense document")
+    if {r["route"] for r in backend.analysis_routes} != {"sparse_device"}:
+        raise AssertionError(f"ZK-1270 forced sparse: routes {backend.analysis_routes}")
+    if tree != zk_dense_tree:
+        raise AssertionError("ZK-1270: the forced-sparse report differs from the dense one")
+    log("ZK-1270: the forced-sparse report equals the dense report byte for byte")
     # The buckets (2,048 runs, two rounds of wave CTAs) take the warp
     # worklist, the diff's shared V = 32 list the staged waves.
-    expect_variants("sparse path ZK-1270 forced sparse_device", "edge_wave", {"worklist_warp", "waves_staged"},
-                    profile_family(zk_dir, analysis_impl="sparse_device"))
+    expect_variants(label, "edge_wave", {"worklist_warp", "waves_staged"},
+                    profile_family(zk_dir, cuda_root, REPORT_FIGURES, analysis_impl="sparse_device"))
     return launches
 
 
-def profile_family(cd: str, **kw) -> dict[str, dict[str, tuple[float, int]]]:
-    """Device busy time of one corpus's analysis, by torch.profiler: the
-    sum of kernel times on the card against the wall of the whole run, the
+def profile_family(cd: str, out_root: str, figures: str, **kw) -> dict[str, dict[str, tuple[float, int]]]:
+    """Device busy time of one corpus's report, by torch.profiler: the sum
+    of kernel times on the card against the wall of the whole report, the
     largest items, and K1's and K2's device time, launches and kernel
     functions.  Returns {kernel: {function: (device ms, launches)}}."""
     from torch.profiler import ProfilerActivity, profile
 
-    from nemo_tpu_torch.cli import analyze
+    from nemo_tpu_torch.analysis.pipeline import run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        analyze(cd, device="cuda", **kw)
+        res = run_debug(cd, out_root, TorchBackend(device="cuda", **kw), figures=figures,
+                        report_name="profile-" + os.path.basename(cd))
         wall = time.perf_counter() - t
+    shutil.rmtree(res.report_dir)
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     label = os.path.basename(cd) + (f" {kw}" if kw else "")
@@ -979,8 +1032,8 @@ def main() -> int:
     os.makedirs(work)
     LAUNCH_LOG.install(closure_mod.closure, edge_wave_mod.edge_wave, closure_mod.closure_steps)
     try:
-        dense, zk_dir, zk_doc = main_path(work, kernels)
-        sparse = sparse_path(work, kernels, zk_dir, zk_doc)
+        dense, zk_dir, zk_tree = main_path(work, kernels)
+        sparse = sparse_path(work, kernels, zk_dir, zk_tree)
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)

@@ -16,6 +16,10 @@ watermark (reason ``mem``) or it is large and very sparse (``density``),
 else ``fused``; the diff goes sparse for a giant good run or past the
 watermark.  Packing, bucketing and the report-facing extraction are host
 numpy; everything else runs on the executor's device.
+
+The report verbs (``pull_pre_post_prov``, ``create_naive_diff_prov``'s
+overlays, the trigger queries) build host property graphs lazily, only for
+the runs a caller asks for, from rows gathered off the device in one batch.
 """
 
 from __future__ import annotations
@@ -25,7 +29,10 @@ import time
 import numpy as np
 import torch
 
+from nemo_tpu_torch.analysis.corrections import synthesize_corrections, synthesize_extensions
 from nemo_tpu_torch.analysis.protos import intersect_proto, missing_from, union_proto, wrap_code
+from nemo_tpu_torch.analysis.queries import extension_candidates, find_post_triggers, find_pre_triggers
+from nemo_tpu_torch.backend.base import GraphBackend, NoSuccessfulRunError  # noqa: F401 (re-exported)
 from nemo_tpu_torch.device import resolve_device
 from nemo_tpu_torch.graphs.packed import (
     TYPE_NAMES,
@@ -36,7 +43,9 @@ from nemo_tpu_torch.graphs.packed import (
     pack_batch,
     pack_graph,
     rewrite_run_prefix,
+    unpack_to_pgraph,
 )
+from nemo_tpu_torch.graphs.pgraph import PGraph, build_pgraph
 from nemo_tpu_torch.ingest.datatypes import Goal, MissingEvent, Rule
 from nemo_tpu_torch.ingest.molly import MollyOutput
 from nemo_tpu_torch.models.pipeline_model import (
@@ -56,28 +65,13 @@ from nemo_tpu_torch.ops.sparse_device import (
     synth_ext_candidates,
 )
 from nemo_tpu_torch.parallel.giant import giant_plan
+from nemo_tpu_torch.report.dot import DotGraph
+from nemo_tpu_torch.report.figures import create_diff_dot, create_dot
 
-#: Shadow-run id offset of the differential-provenance graphs (the
-#: reference's diff runs, differential-provenance.go).
+#: Shadow-run id offsets of the simplified graphs (preprocessing.go:15) and
+#: of the differential-provenance graphs (differential-provenance.go:40).
+CLEAN_OFFSET = 1000
 DIFF_OFFSET = 2000
-
-
-class NoSuccessfulRunError(RuntimeError):
-    """The corpus has no successful run to diff against."""
-
-
-def choose_good_run(molly) -> int | None:
-    """The baseline successful run used for differential provenance — the
-    first status-success run that ACHIEVED the consequent, else the first
-    status-success run, else None."""
-    succ = molly.get_success_runs_iters()
-    if not succ:
-        return None
-    by_iter = {r.iteration: r for r in molly.runs}
-    for i in succ:
-        if by_iter[i].time_post_holds:
-            return i
-    return succ[0]
 
 
 def _k_fused(*args):
@@ -165,6 +159,27 @@ def _children_of_edges(kept: np.ndarray, v: int):
     return children
 
 
+def _dense_of_edges(kept: np.ndarray, v: int) -> np.ndarray:
+    """[V,V] bool plane of a kept [K,2] edge list."""
+    dense = np.zeros((v, v), dtype=bool)
+    if len(kept):
+        dense[kept[:, 0], kept[:, 1]] = True
+    return dense
+
+
+def _gather_rows(a, rows: list[int]):
+    """Rows ``rows`` of a per-bucket output: one index_select on the
+    tensor's device (the host copy is the caller's), or the rows of a
+    CsrAdjRows, densified for those rows only."""
+    if isinstance(a, torch.Tensor):
+        return a.index_select(0, torch.as_tensor(rows, dtype=torch.long, device=a.device))
+    return a[np.asarray(rows)]
+
+
+def _to_host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 class TorchExecutor:
     """The backend's device boundary: named kernels over named numpy arrays
     and integer params, run on one device."""
@@ -213,13 +228,15 @@ class TorchExecutor:
         ),
     }
 
-    #: Fused outputs that stay on the device: the dense [B,V,V] clean
-    #: adjacencies (plus alive/type rows) are consumed per row by figure
-    #: materialization, never bucket-wide.  The sparse step's contracted
-    #: edge lists come back to the host for CsrAdjRows.
-    ON_DEVICE = frozenset(
+    #: Outputs that stay on the device, by verb.  The fused steps' dense
+    #: [B,V,V] clean adjacencies (plus alive/type rows) and the dense diff's
+    #: [F,V,V] edge_keep planes are read by row gathers for the runs a
+    #: figure or a missing-event list needs, never whole.  The sparse
+    #: step's contracted edge lists come back to the host for CsrAdjRows.
+    _CLEAN = frozenset(
         {"pre_adj_clean", "post_adj_clean", "pre_alive", "post_alive", "pre_type", "post_type"}
     )
+    ON_DEVICE = {"fused": _CLEAN, "sparse_fused": _CLEAN, "diff": frozenset({"edge_keep"})}
 
     #: Params that may be absent; 0 selects the generic path, except
     #: pack_out, which the executor resolves for its own device.
@@ -236,10 +253,11 @@ class TorchExecutor:
     def run(
         self, verb: str, arrays: dict, params: dict, rows: int | None = None
     ) -> dict[str, np.ndarray]:
-        """Returns a dict of numpy arrays, except the ON_DEVICE bulk outputs,
-        which stay tensors on the device.  ``rows`` is the caller's real-run
-        count (the batches carry padding rows); the dense verbs compute
-        every row regardless, so it is accepted for the contract only."""
+        """Returns a dict of numpy arrays, except the verb's ON_DEVICE bulk
+        outputs, which stay tensors on the device.  ``rows`` is the caller's
+        real-run count (the batches carry padding rows); the dense verbs
+        compute every row regardless, so it is accepted for the contract
+        only."""
         if verb not in self.VERBS:
             raise ValueError(f"unknown kernel verb {verb!r}")
         fn, array_names, param_names, out_names = self.VERBS[verb]
@@ -255,15 +273,14 @@ class TorchExecutor:
         t0 = time.perf_counter()
         try:
             args = [torch.from_numpy(np.array(arrays[n])).to(self.device) for n in array_names]
-            return self._materialize(fn(*args, *statics), arrays, params, out_names)
+            return self._materialize(verb, fn(*args, *statics), arrays, params, out_names)
         finally:
             self.wall_s[verb] = self.wall_s.get(verb, 0.0) + time.perf_counter() - t0
 
-    def _materialize(self, out, arrays: dict, params: dict, out_names) -> dict:
+    def _materialize(self, verb: str, out, arrays: dict, params: dict, out_names) -> dict:
+        keep = self.ON_DEVICE.get(verb, frozenset())
         if isinstance(out, dict):
-            res = {
-                n: (o if n in self.ON_DEVICE else o.cpu().numpy()) for n, o in out.items()
-            }
+            res = {n: (o if n in keep else o.cpu().numpy()) for n, o in out.items()}
             if "packed_summary" in res:
                 res.update(
                     unpack_summary(
@@ -277,7 +294,7 @@ class TorchExecutor:
             return res
         if not isinstance(out, tuple):
             out = (out,)
-        return {n: o.cpu().numpy() for n, o in zip(out_names, out)}
+        return {n: (o if n in keep else o.cpu().numpy()) for n, o in zip(out_names, out)}
 
 
 def _verb_arrays(pre_b: PackedBatch, post_b: PackedBatch) -> dict[str, np.ndarray]:
@@ -310,11 +327,11 @@ def _wrap_sparse_clean(res: dict, v: int) -> dict:
 ANALYSIS_IMPLS = ("auto", "dense", "sparse_device")
 
 
-class TorchBackend:
+class TorchBackend(GraphBackend):
     """The device analysis path of the JAX package's ``JaxBackend`` on one
     device: fused buckets (dense or sparse), giant runs on the sparse step,
     the good-run-anchored diff and the synth_ext extension pass, with the
-    same host-side extraction.
+    same host-side extraction and report verbs.
 
     Route knobs, with the JAX package's defaults: ``analysis_impl`` (see
     ANALYSIS_IMPLS), ``giant_v`` (runs with more nodes leave the buckets),
@@ -339,9 +356,14 @@ class TorchBackend:
         self.sparse_device_mem_bytes = int(sparse_device_mem_bytes)
         self.sparse_device_density = float(sparse_device_density)
         self.sparse_device_min_v = int(sparse_device_min_v)
-        self._reset(None)
+        #: one record per routed dispatch of the current corpus: verb,
+        #: route, rows, v, e, reason (the JAX package's analysis_routes);
+        #: kept past close_db for the caller to read.
+        self.analysis_routes: list[dict] = []
+        self._release(None)
 
-    def _reset(self, molly: MollyOutput | None) -> None:
+    def _release(self, molly: MollyOutput | None) -> None:
+        """Drop every per-corpus state and attach ``molly``."""
         self.molly = molly
         self.vocab = CorpusVocab()
         self.packed: dict[tuple[int, str], object] = {}
@@ -350,9 +372,12 @@ class TorchBackend:
         self._fused_out: list[tuple[PackedBatch, PackedBatch, dict]] | None = None
         self._row_of: dict[int, tuple[int, int]] = {}
         self._proto_tables_cache = None
-        #: one record per routed dispatch of the current corpus: verb,
-        #: route, rows, v, e, reason (the JAX package's analysis_routes).
-        self.analysis_routes: list[dict] = []
+        self._run_by_iter = {r.iteration: r for r in molly.runs} if molly is not None else {}
+        #: host property graphs, built on first use: (run, cond) -> PGraph
+        self._raw: dict[tuple[int, str], PGraph] = {}
+        self._clean: dict[tuple[int, str], PGraph] = {}
+        #: (run, cond) -> host (alive, adj, type) rows of the simplify outputs
+        self._clean_rows: dict[tuple[int, str], tuple] = {}
 
     # ---------------------------------------------------------------- ingest
 
@@ -360,10 +385,17 @@ class TorchBackend:
         """Pack every run's two provenance graphs against one corpus
         vocabulary (``conn`` is the reference's graph-store address; the
         port keeps the signature and needs none)."""
-        self._reset(molly)
+        self._release(molly)
+        self.analysis_routes = []
         for run in molly.runs:
             for cond, prov in (("pre", run.pre_prov), ("post", run.post_prov)):
                 self.packed[(run.iteration, cond)] = pack_graph(prov, self.vocab)
+
+    def close_db(self) -> None:
+        """Release everything init_graph_db and the verbs allocated (the
+        reference's CloseDB, graphing/helpers.go:58-86); the route records
+        and the executor's counts stay, and the backend stays reusable."""
+        self._release(None)
 
     # ---------------------------------------------------------------- routes
 
@@ -507,17 +539,76 @@ class TorchBackend:
                         self._simplified_row[(rid, cond)] = (bi, row)
             self.simplified[cond] = outs
 
-    def good_run_iter(self) -> int:
-        """Iteration of the baseline successful run used for differential
-        provenance (choose_good_run); raises NoSuccessfulRunError."""
-        assert self.molly is not None
-        good = choose_good_run(self.molly)
-        if good is None:
-            raise NoSuccessfulRunError(
-                "no successful run in this corpus: differential provenance "
-                "and correction synthesis need a good run to diff against"
+    # ------------------------------------------------------- lazy host graphs
+
+    def raw_graph(self, rid: int, cond: str) -> PGraph:
+        """One run's raw provenance as a host property graph, its goals'
+        condition_holds mirrored from the fused step; built on first use."""
+        key = (rid, cond)
+        g = self._raw.get(key)
+        if g is None:
+            run = self._run_by_iter[rid]
+            g = build_pgraph(run.pre_prov if cond == "pre" else run.post_prov)
+            holds = self.cond_holds(rid, cond).tolist()
+            pg = self.packed[key]
+            for slot in range(pg.n_goals):
+                g.nodes[pg.node_ids[slot]].cond_holds = bool(holds[slot])
+            self._raw[key] = g
+        return g
+
+    def clean_graph(self, rid: int, cond: str) -> PGraph:
+        """One run's simplified shadow graph (run 1000+rid) as a host
+        property graph, from the simplify outputs; built on first use."""
+        key = (rid, cond)
+        g = self._clean.get(key)
+        if g is None:
+            bi, row = self._simplified_row[key]
+            batch = self.simplified[cond][bi][0]
+            if key not in self._clean_rows:
+                self._prefetch_clean_rows([rid])
+            alive_r, adj_r, type_r = self._clean_rows[key]
+            holds = np.zeros(batch.v, dtype=bool)
+            holds[: int(batch.n_nodes[row])] = self.cond_holds(rid, cond)
+            g = self._clean[key] = unpack_to_pgraph(
+                batch, row, self.vocab, alive_r, adj_r, type_r, holds,
+                id_prefix=f"run_{CLEAN_OFFSET + rid}_{cond}_",
             )
-        return good
+        return g
+
+    def _prefetch_clean_rows(self, run_ids: list[int]) -> None:
+        """Bring the simplify outputs of the given runs to the host: one
+        index_select per (bucket, array) on the device, then one copy of
+        each gathered batch, never a copy per row.  A sparse bucket's
+        CsrAdjRows densifies the gathered rows only."""
+        gathers = []
+        for cond in ("pre", "post"):
+            by_bucket: dict[int, list[tuple[int, int]]] = {}
+            for rid in run_ids:
+                loc = self._simplified_row.get((rid, cond))
+                if loc is not None and (rid, cond) not in self._clean_rows:
+                    by_bucket.setdefault(loc[0], []).append((loc[1], rid))
+            for bi, pairs in by_bucket.items():
+                _, adj, alive, type_new = self.simplified[cond][bi]
+                rows = [r for r, _ in pairs]
+                gathers.append((cond, pairs, [_gather_rows(a, rows) for a in (alive, adj, type_new)]))
+        for cond, pairs, arrays in gathers:
+            alive_g, adj_g, type_g = (_to_host(a) for a in arrays)
+            for j, (_, rid) in enumerate(pairs):
+                self._clean_rows[(rid, cond)] = (alive_g[j], adj_g[j], type_g[j])
+
+    def pull_pre_post_prov(
+        self, iters: list[int] | None = None
+    ) -> tuple[list[DotGraph], list[DotGraph], list[DotGraph], list[DotGraph]]:
+        assert self.molly is not None
+        run_ids = [r.iteration for r in self.molly.runs] if iters is None else list(iters)
+        self._prefetch_clean_rows(run_ids)
+        pre, post, pre_clean, post_clean = [], [], [], []
+        for i in run_ids:
+            pre.append(create_dot(self.raw_graph(i, "pre"), "pre"))
+            post.append(create_dot(self.raw_graph(i, "post"), "post"))
+            pre_clean.append(create_dot(self.clean_graph(i, "pre"), "pre"))
+            post_clean.append(create_dot(self.clean_graph(i, "post"), "post"))
+        return pre, post, pre_clean, post_clean
 
     # ------------------------------------------------------------ prototypes
 
@@ -572,13 +663,24 @@ class TorchBackend:
 
     # ------------------------------------------------------------------ diff
 
-    def missing_events(self, failed_iters: list[int]) -> list[list[MissingEvent]]:
-        """The missing events of every failed run against the good run (the
-        missing-event output of the reference's CreateNaiveDiffProv): one
-        ``diff`` or ``sparse_diff`` dispatch over all failed runs."""
+    def create_naive_diff_prov(
+        self,
+        symmetric: bool,
+        failed_iters: list[int],
+        success_post_dot: DotGraph | None,
+        dot_iters: list[int] | None = None,
+    ) -> tuple[list[DotGraph], list[DotGraph], list[list[MissingEvent]]]:
+        """One ``diff`` or ``sparse_diff`` dispatch over all failed runs
+        against the good run: every failed run's missing events, and the
+        overlay DOTs of the runs in ``dot_iters`` (None = every failed run).
+        The dense diff's [F,V,V] edge_keep planes stay on the device: the
+        missing events read the kept-child rows of the frontier rules, and
+        the overlays the planes of the ``dot_iters`` runs, each in one
+        gather."""
         assert self.molly is not None
         if not failed_iters:
-            return []
+            return [], [], []
+        dot_set = set(failed_iters if dot_iters is None else dot_iters)
         g = self.good_run_iter()
         good = self.packed[(g, "post")]
         # Pad the failed-run axis and the label dim to powers of two (all-false
@@ -600,6 +702,7 @@ class TorchBackend:
             "label_id": gb.label_id[0],
             "fail_bits": bits,
         }
+        dot_js = [j for j, f in enumerate(failed_iters) if f in dot_set]
         if route == "sparse_device":
             for name in ("edge_src", "edge_dst", "edge_mask"):
                 arrays[name] = arrays[name][0]
@@ -609,27 +712,54 @@ class TorchBackend:
 
             def children(j: int):
                 return _children_of_edges(good.edges[edge_keep[j]], gb.v)
+
+            def plane(j: int) -> np.ndarray:
+                return _dense_of_edges(good.edges[edge_keep[j]], gb.v)
         else:
             out = self.executor.run(
                 "diff", arrays, {"v": gb.v, "max_depth": bucket_size(gb.max_depth, 4)},
                 rows=len(failed_iters),
             )
+            ek = out["edge_keep"]
+            fj, fr = np.nonzero(out["frontier_rule"][: len(failed_iters)])
+            kept_rows = _to_host(
+                ek[torch.as_tensor(fj, device=ek.device), torch.as_tensor(fr, device=ek.device)]
+            )
+            row_of = {jr: k for k, jr in enumerate(zip(fj.tolist(), fr.tolist()))}
+            planes = _to_host(_gather_rows(ek, dot_js)) if dot_js else None
+            plane_of = {j: k for k, j in enumerate(dot_js)}
 
             def children(j: int):
-                return out["edge_keep"][j].__getitem__
+                return lambda r: kept_rows[row_of[(j, r)]]
+
+            def plane(j: int) -> np.ndarray:
+                return planes[plane_of[j]]
         holds = np.zeros(gb.v, dtype=bool)
         holds[: good.n_nodes] = self.cond_holds(g, "post")
-        return [
-            self._missing_events(
-                gb,
-                out["frontier_rule"][j],
-                out["missing_goal"][j],
-                children(j),
-                f"run_{DIFF_OFFSET + f}_post_",
-                holds,
+        diff_dots, failed_dots, missing_events = [], [], []
+        for j, f in enumerate(failed_iters):
+            prefix = f"run_{DIFF_OFFSET + f}_post_"
+            missing = self._missing_events(
+                gb, out["frontier_rule"][j], out["missing_goal"][j], children(j), prefix, holds
             )
-            for j, f in enumerate(failed_iters)
-        ]
+            missing_events.append(missing)
+            if f not in dot_set:
+                continue
+            diff_graph = unpack_to_pgraph(
+                gb, 0, self.vocab, out["node_keep"][j], plane(j), gb.type_id[0], holds,
+                id_prefix=prefix,
+            )
+            diff_dot, failed_dot = create_diff_dot(
+                DIFF_OFFSET + f, diff_graph, self.raw_graph(f, "post"), g, success_post_dot, missing
+            )
+            diff_dots.append(diff_dot)
+            failed_dots.append(failed_dot)
+        return diff_dots, failed_dots, missing_events
+
+    def missing_events(self, failed_iters: list[int]) -> list[list[MissingEvent]]:
+        """The missing events of every failed run against the good run, with
+        no overlay DOTs (create_naive_diff_prov's third output)."""
+        return self.create_naive_diff_prov(False, failed_iters, None, dot_iters=[])[2]
 
     def _missing_events(
         self,
@@ -667,7 +797,25 @@ class TorchBackend:
             out.append(MissingEvent(rule=rule, goals=goals))
         return out
 
+    # ------------------------------------------------------------ corrections
+
+    def generate_corrections(self) -> list[str]:
+        g = self.good_run_iter()
+        return synthesize_corrections(
+            find_pre_triggers(self.raw_graph(g, "pre")), find_post_triggers(self.raw_graph(g, "post"))
+        )
+
     # ------------------------------------------------------------ extensions
+
+    def extension_suggestions(self) -> list[str]:
+        return synthesize_extensions(extension_candidates(self.raw_graph(self.baseline_run_iter(), "pre")))
+
+    def generate_extensions(self) -> tuple[bool, list[str]]:
+        assert self.molly is not None
+        achieved = sum(self.achieved_pre_goal_counts().values())
+        if achieved >= len(self.molly.runs):
+            return True, []
+        return False, self.extension_suggestions()
 
     def achieved_pre_goal_counts(self) -> dict[int, int]:
         """Per run: the count of antecedent goals with condition_holds

@@ -1,13 +1,21 @@
-"""Command line: analyze one Molly output directory on one device.
+"""Command line: the debugging report of one Molly output directory, on one
+device.
 
     python -m nemo_tpu_torch.cli -faultInjOut <dir> [--device cuda|cpu]
+        [--results-dir DIR] [--figures all|failed|sample:N|none]
         [--analysis-impl auto|dense|sparse_device] [--out analysis.json]
 
-Writes one JSON document: the success and failed iterations, the good run,
-per-run achieved-antecedent goal counts, the four prototype outputs, the
-missing events of every failed run, the extension candidates of every run,
-the route taken by each dispatch, the dispatch counts per verb and the wall
-time of each phase.  The device defaults to ``cuda``; without a card that
+Writes the report tree ``DIR/<corpus>/`` (default ``./results``):
+debugging.json, repairs.json, the figures as .dot and .svg and the HTML/JS
+frontend, byte-equal to the JAX package's report of the same corpus, and
+telemetry.json with the phase walls.  ``--figures`` picks the runs that get
+figures (analysis/pipeline.py:select_figure_iters).
+
+With ``--out FILE`` it writes instead one JSON analysis document (analyze):
+the success and failed iterations, the good run, per-run achieved-antecedent
+goal counts, the four prototype outputs, the missing events of every failed
+run, the extension candidates of every run, the route taken by each
+dispatch, the dispatch counts per verb and the wall time of each phase.  The device defaults to ``cuda``; without a card that
 raises unless ``--device cpu`` is given.  ``--analysis-impl`` forces the
 dense or the sparse tier for every bucket and the diff (giant runs always
 take the sparse tier); ``auto`` routes per bucket.
@@ -17,11 +25,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import torch
 
+from nemo_tpu_torch.analysis.pipeline import run_debug
 from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.molly import load_molly_output
 
@@ -85,12 +95,28 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--analysis-impl", default="auto", choices=ANALYSIS_IMPLS,
                     help="route every bucket and the diff dense or sparse (default: per bucket)")
-    ap.add_argument("--out", default="analysis.json", help="where to write the JSON document")
+    ap.add_argument("--results-dir", default=os.path.join(os.getcwd(), "results"),
+                    help="root directory of the report (default ./results)")
+    ap.add_argument("--figures", default="all", metavar="POLICY",
+                    help="figure policy: all, failed (failed runs + the good run), "
+                         "sample:N (N failed + N other runs + the good run) or none")
+    ap.add_argument("--out", default=None,
+                    help="write the JSON analysis document to this file instead of the report")
     args = ap.parse_args(argv)
-    doc = analyze(args.fault_inj_out, device=args.device, analysis_impl=args.analysis_impl)
-    with open(args.out, "w", encoding="utf-8") as f:
-        json.dump(doc, f, indent=1)
-    print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
+    if args.out is not None:
+        doc = analyze(args.fault_inj_out, device=args.device, analysis_impl=args.analysis_impl)
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=1)
+        print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
+        return 0
+    backend = TorchBackend(device=args.device, analysis_impl=args.analysis_impl)
+    res = run_debug(args.fault_inj_out, args.results_dir, backend, figures=args.figures)
+    print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {backend.executor.device} -> {res.report_dir}")
+    print("timings (s): " + ", ".join(f"{k} {v:.3f}" for k, v in res.timings.items()))
+    fs = res.figure_stats
+    if fs and fs["figures"]:
+        print(f"figures: {fs['figures']} written from {fs['unique_figures']} unique renders "
+              f"in {fs['render_wall_s']} s")
     return 0
 
 

@@ -1,7 +1,7 @@
 """Packed-array graph batches: the device-side representation.
 
 Host-side numpy, shared by every device route of the port; a copy of the
-JAX package's ``graphs/packed.py`` trimmed to what the dense path uses.
+JAX package's ``graphs/packed.py`` trimmed to what the port uses.
 
 Each (run, condition) provenance graph becomes fixed-shape integer/boolean
 arrays; runs of similar size share a bucket (padded to the bucket's V/E) so
@@ -21,6 +21,7 @@ import numpy as np
 
 from nemo_tpu_torch.ingest.datatypes import ProvData
 
+from .pgraph import PGraph, PNode
 from .vocab import Vocab
 
 TYPE_NONE, TYPE_ASYNC, TYPE_NEXT, TYPE_COLLAPSED = 0, 1, 2, 3
@@ -276,3 +277,61 @@ def rewrite_run_prefix(orig_id: str, new_prefix: str) -> str:
     (ingest/molly.py prefixing, reference molly.go:92) with a shadow-run
     prefix, mirroring the reference's sed rewrites (preprocessing.go:33-54)."""
     return new_prefix + orig_id.split("_", 3)[-1] if orig_id.count("_") >= 3 else new_prefix + orig_id
+
+
+def unpack_to_pgraph(
+    batch: PackedBatch,
+    row: int,
+    vocab: CorpusVocab,
+    alive: np.ndarray,
+    adj: np.ndarray,
+    type_id: np.ndarray,
+    cond_holds: np.ndarray,
+    id_prefix: str,
+) -> PGraph:
+    """Materialize one (possibly kernel-rewritten) graph row back into a
+    PGraph for DOT rendering.  ``alive``/``adj``/``type_id``/``cond_holds``
+    are the step's numpy outputs for this row ([V], [V,V], [V], [V]);
+    collapsed rules (slots whose type became TYPE_COLLAPSED) get fresh
+    ids/labels per preprocessing.go:251-252."""
+    g = batch.graphs[row]
+    n = g.n_nodes
+    alive_l = np.asarray(alive[:n]).tolist()
+    type_l = np.asarray(type_id[:n]).tolist()
+    holds_l = np.asarray(cond_holds[:n]).tolist()
+    table_l = batch.table_id[row, :n].tolist()
+    label_l = batch.label_id[row, :n].tolist()
+    orig_type_l = batch.type_id[row, :n].tolist()
+    time_l = g.time_id.tolist()
+    out = PGraph()
+    n_coll = 0
+    names: dict[int, str] = {}
+    for slot in range(n):
+        if not alive_l[slot]:
+            continue
+        is_goal = slot < g.n_goals
+        table = vocab.tables[table_l[slot]]
+        if not is_goal and type_l[slot] == TYPE_COLLAPSED and orig_type_l[slot] != TYPE_COLLAPSED:
+            label = f"{table}_collapsed"
+            nid = f"{id_prefix}{label}_{n_coll}"
+            n_coll += 1
+        else:
+            label = vocab.labels[label_l[slot]]
+            nid = rewrite_run_prefix(g.node_ids[slot], id_prefix)
+        names[slot] = nid
+        out.add_node(
+            PNode(
+                id=nid,
+                is_goal=is_goal,
+                label=label,
+                table=table,
+                time=vocab.times[time_l[slot]] if is_goal else "",
+                type="" if is_goal else TYPE_NAMES.get(type_l[slot], ""),
+                cond_holds=bool(holds_l[slot]) if is_goal else False,
+            )
+        )
+    srcs, dsts = np.nonzero(adj)
+    for s, d in zip(srcs.tolist(), dsts.tolist()):
+        if s in names and d in names:
+            out.add_edge(names[s], names[d])
+    return out

@@ -1,8 +1,9 @@
 """Molly fault-injector output loader (ETL).
 
 Reads a Molly output directory — runs.json plus per-run
-run_<i>_{pre,post}_provenance.json — into RunData structures, preserving the
-reference's ingestion invariants (reference: faultinjectors/molly.go:15-163):
+run_<i>_{pre,post}_provenance.json and run_<i>_spacetime.dot — into RunData
+structures, preserving the reference's ingestion invariants
+(reference: faultinjectors/molly.go:15-163):
 
   * holds-maps are keyed by the *string* timestep in the last column of the
     model's 'pre'/'post' table rows (molly.go:38-48);
@@ -75,6 +76,9 @@ class MollyOutput:
     #: bad), "file", "error"}.
     quarantined: list[dict] = field(default_factory=list)
 
+    def get_output(self):
+        return self.runs
+
     def get_runs_iters(self):
         return self.runs_iters
 
@@ -83,6 +87,18 @@ class MollyOutput:
 
     def get_failed_runs_iters(self):
         return self.failed_runs_iters
+
+    def spacetime_dot_path(self, iteration: int) -> str:
+        """Path of Molly's space-time diagram for one run
+        (reference: graphing/hazard-analysis.go:25)."""
+        return os.path.join(self.output_dir, f"run_{iteration}_spacetime.dot")
+
+    def spacetime_dot_text(self, iteration: int) -> str:
+        """One run's space-time DOT text, read from the Molly layout's
+        per-run file; a missing file raises FileNotFoundError (the port
+        reads no layout that ships no diagrams)."""
+        with open(self.spacetime_dot_path(iteration), "r", encoding="utf-8") as f:
+            return f.read()
 
 
 def attach_run_metadata(out: MollyOutput, run) -> None:

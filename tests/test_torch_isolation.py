@@ -4,7 +4,7 @@
   module of the JAX package (checked in a fresh interpreter);
 * no file of the port, nor chip_smoke.py, imports either;
 * asking for the card where there is none raises instead of running on the
-  CPU;
+  CPU: the backend, the analysis document and the report;
 * a CPU tensor into a kernel wrapper (closure, edge_wave) takes the plain
   version and never loads the kernel library; a tensor on any other
   non-CUDA device raises.
@@ -84,6 +84,18 @@ def test_cli_defaults_to_cuda(monkeypatch, corpus_dir, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["-faultInjOut", corpus_dir, "--out", str(tmp_path / "a.json")])
     assert not (tmp_path / "a.json").exists()
+
+
+def test_report_defaults_to_cuda(monkeypatch, corpus_dir, tmp_path):
+    from nemo_tpu_torch import cli
+    from nemo_tpu_torch.analysis.pipeline import run_debug
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["-faultInjOut", corpus_dir, "--results-dir", str(tmp_path / "R")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_debug(corpus_dir, str(tmp_path / "R"))
+    assert not (tmp_path / "R").exists()
 
 
 def test_cpu_tensor_takes_plain_version(monkeypatch):
