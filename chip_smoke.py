@@ -8,7 +8,8 @@ each fatal (non-zero exit, no result line) on failure:
   1. print the card's name and power limit (nvidia-smi); exit if
      torch.cuda.is_available() is False;
   2. build every CUDA kernel of the port from csrc/ (nvcc, sm_90a), one
-     nvcc per source, all at once;
+     nvcc per source, all at once, and beside them the host ingest engine
+     (csrc/host/nemo_native.cpp, g++);
   3. hold the closure kernel (K1) against its plain PyTorch version on the
      card, bit for bit, at the main path's shapes and on the edge cases of
      nemo_tpu_torch/kernels/cases.py under every launch plan that takes
@@ -27,12 +28,29 @@ each fatal (non-zero exit, no result line) on failure:
      run_debug over TorchBackend) of all six case-study families at 1,700
      runs each (seed 0), figures sample:8, and of ZK-1270 with every
      figure — with the kernels' launch counts zeroed just before each
-     report and read just after; check every report tree on cuda equals,
-     byte for byte, the same report on the cpu, check from the recorded
+     report and read just after; check every report tree on cuda (native
+     ingest, caches off) equals, byte for byte, the same report on the cpu
+     (the families' through the Python loader), check from the recorded
      launches that each took the expected plan variant, and profile each
      family's report (device busy share; K1's device time, launches and
      kernel functions, which must show those variants where the profiler
      saw the device);
+  5b. drive the host ingest paths, each report with the launch counts
+     zeroed just before and read just after: every family through four
+     legs (the Python loader; the native engine cold, populating a fresh
+     corpus store; a warm store hit; a whole-report result-cache hit, which
+     must launch neither kernel), each report equal to the cpu report and
+     each leg's ingest wall (the store populate and the cache lookup and
+     publish apart), report wall and runs/s printed (a JSON line
+     {"ingest_legs": [...]}); then ZK-1270 grown by 200 runs under
+     figures=failed, whose report must map only the new segment and equal
+     a from-scratch report; then the same growth through the CLI's
+     defaults (figures=all, both caches on, fresh roots): each of the two
+     reports beside the same corpus's report with both caches off, the
+     grown one mapping only the new segment and equal to its from-scratch
+     report (a JSON line {"cli_grown": {...}}), and the host's cost of one
+     file operation of each kind the report and the result cache make
+     (write, stat, link, rename; {"host_file_ops_ms": {...}});
   6. drive the reports that take the sparse tier, each with the launch
      counts zeroed just before and read just after: (a) two giant-V
      corpora on the auto route (every giant run on sparse_fused; a giant
@@ -49,8 +67,10 @@ each fatal (non-zero exit, no result line) on failure:
      library yardstick, the bound (for K1, the word ORs these inputs need
      up to each graph's fix point).
 
-Each report logs its wall, runs/s, phase walls, figures against unique
-renders and bytes.  Before the card's line, a JSON object {"shapes": [...]}
+Each report logs its wall, runs/s, which ingest served it, the result
+cache's part, phase walls, figures against unique renders and bytes.  Every
+report names its cache roots (off, or fresh roots under .smoke/), so no
+report reads another's store or cached result.  Before the card's line, a JSON object {"shapes": [...]}
 holds phase 7's
 rows; the line before the last is a JSON object with one record per kernel;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of the
@@ -109,6 +129,8 @@ SWEEP_SPEC = ("sweep", FAMILY_RUNS, 6, 80)
 #: Figure policy of the reports (bench.py's end-to-end policy); ZK-1270 is
 #: also reported with every figure, and the giant corpora as listed.
 REPORT_FIGURES = "sample:8"
+#: Runs the grown ZK-1270 sweep of phase 5b appends to its first ones.
+INGEST_GROWN_RUNS = 200
 GIANT_FIGURES = {"giant10k": "none", "sd_giantv": "all"}
 
 
@@ -686,13 +708,14 @@ LAUNCH_LOG = LaunchLog()
 
 
 def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, report_name: str,
-                   **backend_kw):
+                   ingest: str = "auto", corpus_cache: str = "off", result_cache: str = "off", **backend_kw):
     """One debugging report on cuda through run_debug, with every kernel's
-    launch count set to 0 just before and read just after.  Returns (the
+    launch count set to 0 just before and read just after; the corpus store
+    and the result cache are off unless roots are given.  Returns (the
     DebugResult, the backend, the report tree's bytes, launches by kernel
-    name) and logs the report wall, runs/s, every phase wall, the figures
-    against their unique renders, the report's bytes, the routes and the
-    plain fix-point loops' iterations."""
+    name) and logs the report wall, runs/s, which ingest served it, every
+    phase wall, the figures against their unique renders, the report's
+    bytes, the routes and the plain fix-point loops' iterations."""
     from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.ops.sparse_device import LOOP_STATS
@@ -704,35 +727,38 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     LAUNCH_LOG.label = label
     t = time.perf_counter()
     try:
-        res = run_debug(cd, out_root, backend, figures=figures, report_name=report_name)
+        res = run_debug(cd, out_root, backend, figures=figures, report_name=report_name, ingest=ingest,
+                        corpus_cache=corpus_cache, result_cache=result_cache)
     finally:
         LAUNCH_LOG.label = None
     wall = time.perf_counter() - t
     counts = {k.__name__: k.launches for k in kernels}
     tree = report_tree_bytes(res.report_dir)
     runs = len(res.molly.runs)
-    fs = res.figure_stats
+    fs = res.figure_stats or {"figures": 0, "unique_figures": 0, "render_s": 0, "render_wall_s": 0}
     routes = [(r["verb"], r["route"], r["rows"], r["v"], r["e"], r["reason"]) for r in backend.analysis_routes]
     loops = {n: (r["calls"], r["iters"], round(r["wall_s"], 4)) for n, r in LOOP_STATS.items()}
     log(f"{label}: {runs} runs, {len(res.molly.failed_runs_iters)} failed, figures={figures}, report wall "
-        f"{wall:.3f} s, {runs / wall:.1f} runs/s; phase wall "
+        f"{wall:.3f} s, {runs / wall:.1f} runs/s; ingest {res.ingest}, result cache {res.result_cache}; phase wall "
         f"{json.dumps({k: round(v, 4) for k, v in res.timings.items()})}; figures {fs['figures']} written from "
         f"{fs['unique_figures']} unique renders (render {fs['render_s']} s, drain wall {fs['render_wall_s']} s); "
         f"report {sum(map(len, tree.values()))} bytes in {len(tree)} files; launches {counts}, dispatches "
         f"{backend.executor.dispatches}, routes (verb, route, rows, v, e, reason) {routes}, plain fix-point "
         f"loops (calls, iters, wall s) {loops}")
+    res.report_wall_s = wall
     return res, backend, tree, counts
 
 
 def check_report_cpu_equal(label: str, cd: str, tree: dict, out_root: str, figures: str, report_name: str,
-                           **backend_kw) -> None:
-    """The same report on the CPU must have the same bytes, file for file."""
+                           ingest: str = "auto", **backend_kw) -> None:
+    """The same report on the CPU, caches off, must have the same bytes,
+    file for file."""
     from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
 
     t = time.perf_counter()
     res = run_debug(cd, out_root, TorchBackend(device="cpu", **backend_kw), figures=figures,
-                    report_name=report_name)
+                    report_name=report_name, ingest=ingest, corpus_cache="off", result_cache="off")
     cpu_tree = report_tree_bytes(res.report_dir)
     log(f"{label} on cpu: {time.perf_counter() - t:.3f} s")
     if cpu_tree != tree:
@@ -756,10 +782,10 @@ def check_report_content(label: str, res, protos: bool = False) -> None:
         raise AssertionError(f"{label}: a run without a recommendation")
 
 
-def main_path(work: str, kernels) -> tuple[dict, str, dict]:
+def main_path(work: str, kernels) -> tuple[dict, dict, dict]:
     """Phase 5: the debugging report of all six families on cuda.  Returns
-    the launches by kernel over the run, and ZK-1270's directory and
-    report tree (sample:8)."""
+    the launches by kernel over the run, the families' directories and
+    their report trees (sample:8), each equal to the cpu report."""
     from nemo_tpu_torch.analysis.pipeline import run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.models.case_studies import write_all_case_studies, write_case_study
@@ -771,7 +797,8 @@ def main_path(work: str, kernels) -> tuple[dict, str, dict]:
     # kernel library and the report's host code (hazard DOTs, PGraphs, the
     # renderer and writer).  Not part of the timed main path.
     warm = write_case_study("pb_asynchronous", 12, SEED, os.path.join(work, "warm"))
-    run_debug(warm, os.path.join(work, "reports", "warm"), TorchBackend(device="cuda"), figures=REPORT_FIGURES)
+    run_debug(warm, os.path.join(work, "reports", "warm"), TorchBackend(device="cuda"), figures=REPORT_FIGURES,
+              corpus_cache="off", result_cache="off")
     cuda_root, cpu_root = os.path.join(work, "reports", "cuda"), os.path.join(work, "reports", "cpu")
 
     launches = {k.__name__: 0 for k in kernels}
@@ -800,12 +827,207 @@ def main_path(work: str, kernels) -> tuple[dict, str, dict]:
     del tree
 
     for name, cd in dirs.items():
-        check_report_cpu_equal(f"report {name}", cd, trees[name], cpu_root, REPORT_FIGURES, name)
+        # The cuda reports read the corpus through the native engine, the
+        # cpu report through the Python loader.
+        check_report_cpu_equal(f"report {name}", cd, trees[name], cpu_root, REPORT_FIGURES, name, ingest="python")
         # The bucket closure (2,048 graphs) takes the block variant, the
         # [V,V] diff closure the warp variant.
         expect_variants(f"report {name}", "closure", {"block", "warp"},
                         profile_family(cd, cuda_root, REPORT_FIGURES))
-    return launches, dirs[zk], trees[zk]
+    return launches, dirs, trees
+
+
+def ingest_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
+    """Phase 5b: the host ingest paths.  Each family (1,700 runs,
+    sample:8) is reported on cuda four times, each leg into its own report
+    root, with the corpus store and the result cache under fresh roots of
+    this phase: the Python loader (caches off), the native engine cold
+    (populating the store), a warm store hit (populating the result cache)
+    and a whole-report result-cache hit, which must launch neither kernel.
+    Every leg's report must equal the family's cpu report (trees).  Then
+    ZK-1270 grows by INGEST_GROWN_RUNS runs under figures=failed: the
+    report of the grown directory must map only the new segment and equal
+    a from-scratch report.  Returns the launches by kernel over the
+    phase."""
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
+
+    launches = {k.__name__: 0 for k in kernels}
+    root = os.path.join(work, "ingest")
+    cc, rc = os.path.join(root, "corpus-cache"), os.path.join(root, "result-cache")
+    legs = (
+        ("python", dict(ingest="python")),
+        ("native cold", dict(ingest="native", corpus_cache=cc)),
+        ("warm store", dict(ingest="native", corpus_cache=cc, result_cache=rc)),
+        ("rcache hit", dict(ingest="native", corpus_cache=cc, result_cache=rc)),
+    )
+    want_ingest = {"python": "python", "native cold": "native", "warm store": "store_hit", "rcache hit": "store_hit"}
+    table = []
+    for name, cd in dirs.items():
+        row = {"family": name}
+        for leg, kw in legs:
+            label = f"ingest {leg} {name}"
+            res, _backend, tree, counts = report_counted(
+                label, cd, kernels, os.path.join(root, "reports", leg.replace(" ", "-")), REPORT_FIGURES, name, **kw)
+            for k, n in counts.items():
+                launches[k] += n
+            if res.ingest != want_ingest[leg]:
+                raise AssertionError(f"{label}: served by {res.ingest}, expected {want_ingest[leg]}")
+            hit = res.result_cache.get("state") == "report_hit"
+            if hit != (leg == "rcache hit") or (hit and any(counts.values())):
+                raise AssertionError(f"{label}: result cache {res.result_cache}, launches {counts}")
+            if tree != trees[name]:
+                differ = sorted(k for k in set(tree) | set(trees[name]) if tree.get(k) != trees[name].get(k))
+                raise AssertionError(f"{label}: the report differs from the cpu report in {differ[:10]}")
+            ph = res.timings
+            row[leg] = {"ingest_s": round(ph["ingest"], 4), "store_populate_s": round(ph.get("store_populate", 0), 4),
+                        "cache_s": round(ph.get("cache_lookup", 0) + ph.get("cache_publish", 0), 4),
+                        "report_s": round(res.report_wall_s, 4),
+                        "runs_per_s": round(len(res.molly.runs) / res.report_wall_s, 1), "launches": counts}
+            shutil.rmtree(res.report_dir)
+        log(f"ingest legs {name}: {json.dumps(row)}; every leg equals the cpu report")
+        table.append(row)
+    print(json.dumps({"ingest_legs": table}))
+
+    # The grown sweep: ZK-1270's first runs, then INGEST_GROWN_RUNS more.
+    zk = "ZK-1270-racing-sent-flag"
+    grown = os.path.join(root, "grown", zk)
+    gcc, grc = os.path.join(root, "grown-corpus-cache"), os.path.join(root, "grown-result-cache")
+    n_old = FAMILY_RUNS - INGEST_GROWN_RUNS
+    grow_corpus_dir(dirs[zk], grown, n_old)
+    res, _backend, _tree, counts = report_counted(
+        f"ingest grown {zk} first {n_old} runs", grown, kernels, os.path.join(root, "reports", "grown0"), "failed",
+        zk, ingest="native", corpus_cache=gcc, result_cache=grc)
+    for k, n in counts.items():
+        launches[k] += n
+    shutil.rmtree(res.report_dir)
+    grow_corpus_dir(dirs[zk], grown, FAMILY_RUNS)
+    label = f"ingest grown {zk} +{INGEST_GROWN_RUNS} runs"
+    res, backend, tree, counts = report_counted(
+        label, grown, kernels, os.path.join(root, "reports", "grown1"), "failed", zk, ingest="native",
+        corpus_cache=gcc, result_cache=grc)
+    for k, n in counts.items():
+        launches[k] += n
+    want = {"state": "computed", "segments_cached": 1, "segments_mapped": 1, "runs_cached": n_old,
+            "runs_mapped": INGEST_GROWN_RUNS}
+    if res.ingest != "store_grown" or res.result_cache != want:
+        raise AssertionError(f"{label}: ingest {res.ingest}, result cache {res.result_cache}, expected {want}")
+    mapped_rows = sum(r["rows"] for r in backend.analysis_routes if r["verb"] in ("fused", "giant"))
+    if mapped_rows > INGEST_GROWN_RUNS + 1:  # the new runs, and the good run as context
+        raise AssertionError(f"{label}: {mapped_rows} runs analysed, expected the {INGEST_GROWN_RUNS} new ones")
+    shutil.rmtree(res.report_dir)
+    scratch, _b, scratch_tree, counts = report_counted(
+        f"ingest grown {zk} from scratch", grown, kernels, os.path.join(root, "reports", "scratch"), "failed", zk)
+    for k, n in counts.items():
+        launches[k] += n
+    if tree != scratch_tree:
+        differ = sorted(k for k in set(tree) | set(scratch_tree) if tree.get(k) != scratch_tree.get(k))
+        raise AssertionError(f"{label}: the merged report differs from the from-scratch report in {differ[:10]}")
+    log(f"{label}: mapped only the new segment ({mapped_rows} runs analysed); the merged report equals the "
+        f"from-scratch report ({len(tree)} files)")
+    shutil.rmtree(scratch.report_dir)
+    for k, n in cli_grown(os.path.join(root, "cli"), kernels, dirs[zk]).items():
+        launches[k] += n
+    host_file_ops(os.path.join(root, "file-ops"))
+    shutil.rmtree(root)
+    return launches
+
+
+def host_file_ops(root: str, n: int = 2000) -> dict:
+    """Milliseconds per file of each operation the report writer and the
+    result cache make, over ``n`` files of 2 KB (the size of a small
+    figure): create and write, stat, hardlink, rename."""
+    src, dst, mv = (os.path.join(root, d) for d in ("src", "dst", "mv"))
+    for d in (src, dst, mv):
+        os.makedirs(d)
+    names = [f"run_{i}_pre_prov.dot" for i in range(n)]
+    payload = b"x" * 2048
+    ops = {
+        "write": lambda f: open(os.path.join(src, f), "wb").write(payload),
+        "stat": lambda f: os.stat(os.path.join(src, f)),
+        "link": lambda f: os.link(os.path.join(src, f), os.path.join(dst, f)),
+        "rename": lambda f: os.rename(os.path.join(dst, f), os.path.join(mv, f)),
+    }
+    out = {}
+    for op, fn in ops.items():
+        t = time.perf_counter()
+        for f in names:
+            fn(f)
+        out[op] = round((time.perf_counter() - t) * 1e3 / n, 4)
+    shutil.rmtree(root)
+    log(f"host file operations, ms per file over {n} files: {out}")
+    print(json.dumps({"host_file_ops_ms": out}))
+    return out
+
+
+def cli_report(label: str, argv: list[str], kernels, report_dir: str):
+    """One report through the CLI's entry point (nemo_tpu_torch.cli.main)
+    with every kernel's launch count set to 0 just before and read just
+    after.  Returns (the wall, the report's telemetry.json, its tree,
+    launches by kernel name)."""
+    from nemo_tpu_torch import cli
+    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes
+
+    for k in kernels:
+        k.launches = 0
+    LAUNCH_LOG.label = label
+    t = time.perf_counter()
+    try:
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{label}: the CLI failed")
+    finally:
+        LAUNCH_LOG.label = None
+    wall = time.perf_counter() - t
+    counts = {k.__name__: k.launches for k in kernels}
+    with open(os.path.join(report_dir, "telemetry.json"), encoding="utf-8") as fh:
+        tel = json.load(fh)
+    tree = report_tree_bytes(report_dir)
+    log(f"{label}: report wall {wall:.3f} s; ingest {tel['ingest']}, result cache {tel['result_cache']}; phase "
+        f"wall {json.dumps(tel['timings'])}; report {len(tree)} files; launches {counts}")
+    return wall, tel, tree, counts
+
+
+def cli_grown(root: str, kernels, zk_dir: str) -> dict:
+    """Phase 5b's CLI leg: ZK-1270's first runs, then INGEST_GROWN_RUNS
+    more, through the CLI's defaults (figures=all, ingest auto) with both
+    caches on under fresh roots, each beside the report of the same
+    directory with both caches off.  The grown report must map only the
+    new segment and equal its from-scratch report.  Returns the launches
+    by kernel."""
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
+
+    zk = os.path.basename(zk_dir)
+    grown = os.path.join(root, "corpus", zk)
+    caches_on = ["--corpus-cache", os.path.join(root, "cc"), "--result-cache", os.path.join(root, "rc")]
+    caches_off = ["--corpus-cache", "off", "--result-cache", "off"]
+    launches = {k.__name__: 0 for k in kernels}
+    out, trees = {}, {}
+    n_old = FAMILY_RUNS - INGEST_GROWN_RUNS
+    for leg, n_runs, caches in (("off_first", n_old, caches_off), ("on_first", n_old, caches_on),
+                                ("on_grown", FAMILY_RUNS, caches_on), ("off_grown", FAMILY_RUNS, caches_off)):
+        grow_corpus_dir(zk_dir, grown, n_runs)
+        results = os.path.join(root, "reports", leg)
+        wall, tel, trees[leg], counts = cli_report(
+            f"cli {leg} {zk} {n_runs} runs", ["-faultInjOut", grown, "--results-dir", results, *caches],
+            kernels, os.path.join(results, zk))
+        for k, n in counts.items():
+            launches[k] += n
+        ph = tel["timings"]
+        out[leg] = {"runs": n_runs, "report_s": round(wall, 4), "ingest": tel["ingest"],
+                    "result_cache": tel["result_cache"],
+                    "cache_s": round(ph.get("cache_lookup", 0) + ph.get("cache_publish", 0), 4),
+                    "phases": tel["timings"], "launches": counts}
+        shutil.rmtree(results)
+    want = {"state": "computed", "segments_cached": 1, "segments_mapped": 1, "runs_cached": n_old,
+            "runs_mapped": INGEST_GROWN_RUNS}
+    if out["on_grown"]["ingest"] != "store_grown" or out["on_grown"]["result_cache"] != want:
+        raise AssertionError(f"cli on_grown {zk}: {out['on_grown']}, expected {want}")
+    for a, b in (("on_first", "off_first"), ("on_grown", "off_grown")):
+        if trees[a] != trees[b]:
+            differ = sorted(k for k in set(trees[a]) | set(trees[b]) if trees[a].get(k) != trees[b].get(k))
+            raise AssertionError(f"cli {a} {zk}: the report differs from the caches-off report in {differ[:10]}")
+    log(f"cli {zk}: with the caches on, each report equals the caches-off report ({len(trees['on_grown'])} files)")
+    print(json.dumps({"cli_grown": out}))
+    return launches
 
 
 def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> dict:
@@ -922,7 +1144,7 @@ def profile_family(cd: str, out_root: str, figures: str, **kw) -> dict[str, dict
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         res = run_debug(cd, out_root, TorchBackend(device="cuda", **kw), figures=figures,
-                        report_name="profile-" + os.path.basename(cd))
+                        report_name="profile-" + os.path.basename(cd), corpus_cache="off", result_cache="off")
         wall = time.perf_counter() - t
     shutil.rmtree(res.report_dir)
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1015,9 +1237,17 @@ def main() -> int:
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nemo_tpu_torch.ingest.native import NATIVE
+
     t = time.perf_counter()
-    reports = kbuild.build()
-    log(f"built {', '.join(kbuild.SOURCES)} in {time.perf_counter() - t:.2f} s")
+    # The host ingest engine (g++) builds beside the kernels (nvcc).
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(NATIVE.load)
+        reports = kbuild.build()
+        host.result()
+    log(f"built {', '.join(kbuild.SOURCES)} and the host ingest engine in {time.perf_counter() - t:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
@@ -1032,14 +1262,23 @@ def main() -> int:
     os.makedirs(work)
     LAUNCH_LOG.install(closure_mod.closure, edge_wave_mod.edge_wave, closure_mod.closure_steps)
     try:
-        dense, zk_dir, zk_tree = main_path(work, kernels)
-        sparse = sparse_path(work, kernels, zk_dir, zk_tree)
+        t = time.perf_counter()
+        dense, dirs, trees = main_path(work, kernels)
+        log(f"phase 5 wall {time.perf_counter() - t:.1f} s")
+        zk = "ZK-1270-racing-sent-flag"
+        t = time.perf_counter()
+        ingest = ingest_path(work, kernels, dirs, trees)
+        log(f"phase 5b wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        sparse = sparse_path(work, kernels, dirs[zk], trees[zk])
+        log(f"phase 6 wall {time.perf_counter() - t:.1f} s")
+        del trees
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
-    log(f"launches on the dense main path {dense}, on the sparse path {sparse}")
+    log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}")
     for record in records:
-        record["launches"] = dense[record["name"]] + sparse[record["name"]]
+        record["launches"] = dense[record["name"]] + ingest[record["name"]] + sparse[record["name"]]
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

@@ -1,23 +1,47 @@
-"""The analysis as one map over the corpus plus a reduce, a copy of the JAX
-package's ``analysis/delta.py`` trimmed to one segment: no store segments,
-cache keys or streamed tree reduce.
+"""The analysis as a map per corpus-store segment plus a reduce, a copy of
+the JAX package's ``analysis/delta.py`` without the streamed tree reduce.
 
   * **map** (:func:`map_runs`): the per-run verbs (condition marking,
     simplification, hazard and provenance figures, per-run prototype rule
-    tables, good-anchored differential provenance) and the anchor verbs
-    (corrections, extension suggestions, repair candidates).
+    tables, good-anchored differential provenance) over a set of runs, and
+    the anchor verbs (corrections, extension suggestions, repair
+    candidates).  A run's artifacts do not depend on which runs share its
+    batch, so mapping a segment alone gives the same bytes.
   * **reduce** (:func:`reduce_partials`): the cross-run aggregation:
     prototype intersection and union (analysis/protos.py set algebra over
     the per-run tables), per-failed-run missing lists, the achieved-
     antecedent count, the ranked repairs.  It imposes the corpus's run
     order itself, so it does not depend on the order of its partials.
+
+A :class:`SegmentPartial` is the intermediate: one segment's per-run
+artifacts as plain strings and ints (no vocabulary ids, so it survives the
+vocabulary growing on an append) and the names of its figure files.  The
+result cache (``store/rcache.py``) keeps partials and whole reports under
+the keys made here, which pin the corpus content (store segment
+fingerprints), the anchor runs, the figure policy and the versions in
+:func:`config_blob`, and name the implementation, so no key of the JAX
+package's cache is ever served to the port.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from nemo_tpu_torch.ingest.datatypes import MissingEvent
+
+#: Bump when a verb or the reduce changes its OUTPUT: every cached result is
+#: keyed on it.
+ANALYSIS_ABI_VERSION = 2
+
+#: Figure families of every figure-selected run (writer.py naming
+#: run_<iter>_<family>.{dot,svg}), then those of a selected failed run when
+#: a good run exists to diff against.
+FIG_FAMILIES = ("spacetime", "pre_prov", "post_prov", "pre_prov_clean", "post_prov_clean")
+DIFF_FAMILIES = ("diff_post_prov-diff", "diff_post_prov-failed")
 
 
 def choose_good_run(molly) -> int | None:
@@ -43,12 +67,204 @@ def choose_baseline_run(molly, good_iter: int | None) -> int | None:
     return molly.runs[0].iteration if molly.runs else None
 
 
+# ---------------------------------------------------------------------------
+# segments and cache keys
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Segment:
+    """One store segment's slice of the corpus, or the whole corpus as one
+    anonymous segment when no store served the ingest."""
+
+    name: str
+    fingerprint: str | None  # None = anonymous (not cacheable)
+    start: int  # first global run position
+    n_runs: int
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.n_runs
+
+
+def corpus_segments(molly) -> list[Segment]:
+    """The segment spans the store attached to the ingest
+    (``molly.store_segments``, append order = run order), else one
+    anonymous segment."""
+    meta = getattr(molly, "store_segments", None)
+    if not meta or sum(int(m["n_runs"]) for m in meta) != len(molly.runs):
+        return [Segment("all", None, 0, len(molly.runs))]
+    out, start = [], 0
+    for m in meta:
+        n = int(m["n_runs"])
+        out.append(Segment(str(m["name"]), m.get("fingerprint"), start, n))
+        start += n
+    return out
+
+
+def config_blob(figures: str) -> dict:
+    """Everything but the corpus content that decides the report bytes: the
+    figure policy, the output-affecting versions, and the implementation,
+    which keeps the port's keys apart from the JAX package's even under a
+    shared cache root."""
+    from nemo_tpu_torch.report.svg import RENDER_FORMAT_VERSION
+    from nemo_tpu_torch.store.npack import NPACK_ABI_VERSION
+
+    return {
+        "impl": "nemo_tpu_torch",
+        "figures": figures or "all",
+        "analysis_abi": ANALYSIS_ABI_VERSION,
+        "render_format": RENDER_FORMAT_VERSION,
+        "npack_abi": NPACK_ABI_VERSION,
+    }
+
+
+def _key(doc: dict) -> str:
+    return hashlib.sha256(json.dumps(doc, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
+
+
+def report_cache_key(molly, figures: str) -> str | None:
+    """Content address of a whole report tree: every segment fingerprint and
+    the config blob.  None when a segment is anonymous (no store)."""
+    segs = corpus_segments(molly)
+    if any(s.fingerprint is None for s in segs):
+        return None
+    return _key({"kind": "report", "config": config_blob(figures), "segments": [s.fingerprint for s in segs]})
+
+
+def partial_cache_key(
+    seg: Segment, segments: list[Segment], good_iter: int | None, baseline_iter: int | None, figures: str
+) -> str | None:
+    """Content address of one segment's partial: its fingerprint, the config
+    blob and the ANCHOR context (the good and baseline runs and the
+    fingerprints of their segments: the diff, corrections and extensions
+    are functions of those runs, so a changed anchor misses every old
+    partial).  None for ``sample:N``, whose selection depends on the whole
+    corpus's run list, so figure ownership does not split by segment."""
+    if seg.fingerprint is None or (figures or "all").startswith("sample:"):
+        return None
+
+    def anchor_fp(it: int | None) -> str | None:
+        pos = None if it is None else segments[0]._pos_by_iter.get(it)
+        if pos is None:
+            return None
+        return next((s.fingerprint for s in segments if s.start <= pos < s.stop), None)
+
+    return _key(
+        {
+            "kind": "partial",
+            "config": config_blob(figures),
+            "segment": seg.fingerprint,
+            "good": [good_iter, anchor_fp(good_iter)],
+            "baseline": [baseline_iter, anchor_fp(baseline_iter)],
+        }
+    )
+
+
+def attach_positions(segments: list[Segment], molly) -> list[Segment]:
+    """Give the segment table an iteration -> position index (a repeated
+    iteration keeps its first position, like every by-iteration dict)."""
+    tbl: dict[int, int] = {}
+    for pos, r in enumerate(molly.runs):
+        tbl.setdefault(r.iteration, pos)
+    for s in segments:
+        s._pos_by_iter = tbl
+    return segments
+
+
+# ---------------------------------------------------------------------------
+# sub-corpus views (a grown corpus maps only its new rows)
+# ---------------------------------------------------------------------------
+
+_COND_FIELDS = (
+    "table_id", "label_id", "time_id", "type_id", "is_goal", "node_mask",
+    "edge_src", "edge_dst", "edge_mask", "n_nodes", "n_goals", "chain_linear",
+)
+
+
+class _CorpusRowView:
+    """Row subset of a NativeCorpus/StoreCorpus: the batch arrays gathered
+    to the rows, the per-run strings delegated to the base corpus by its
+    own row."""
+
+    def __init__(self, base, rows: list[int]) -> None:
+        from nemo_tpu_torch.ingest.native import NativeCondBatch
+
+        idx = np.asarray(rows, dtype=np.int64)
+        self._base = base
+        self._rows = list(rows)
+        self.n_runs = len(rows)
+        for name in ("v", "e", "max_depth", "tables", "labels", "times", "pre_tid", "post_tid"):
+            setattr(self, name, getattr(base, name))
+        self.iteration = np.asarray(base.iteration)[idx]
+        self.success = np.asarray(base.success)[idx]
+
+        def gather(cb, f):
+            # A multi-segment store batch gathers from its per-segment maps
+            # without building the corpus-wide plane.
+            take = getattr(cb, "take", None)
+            return take(f, idx) if take is not None else np.asarray(getattr(cb, f))[idx]
+
+        self.pre = NativeCondBatch(**{f: gather(base.pre, f) for f in _COND_FIELDS})
+        self.post = NativeCondBatch(**{f: gather(base.post, f) for f in _COND_FIELDS})
+
+    def cond(self, name: str):
+        return self.pre if name == "pre" else self.post
+
+    def prov_json(self, cond_name: str, row: int) -> bytes:
+        return self._base.prov_json(cond_name, self._rows[row])
+
+    def run_head_json(self, row: int) -> bytes:
+        return self._base.run_head_json(self._rows[row])
+
+    def lazy_node_ids(self, cond_name: str, row: int) -> list[str]:
+        return self._base.lazy_node_ids(cond_name, self._rows[row])
+
+
+def subset_molly(molly, rows: list[int]):
+    """MollyOutput view over a row subset (global positions, ascending).
+    The run objects are shared with the full molly: the map never changes
+    them, only the recommendation assembly does, on the full molly."""
+    from nemo_tpu_torch.ingest.molly import MollyOutput
+
+    out = MollyOutput(run_name=molly.run_name, output_dir=molly.output_dir)
+    out.runs = [molly.runs[r] for r in rows]
+    for run in out.runs:
+        out.runs_iters.append(run.iteration)
+        (out.success_runs_iters if run.succeeded else out.failed_runs_iters).append(run.iteration)
+    nc = getattr(molly, "native_corpus", None)
+    if nc is not None:
+        out.native_corpus = _CorpusRowView(nc, rows)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the intermediate
+# ---------------------------------------------------------------------------
+
+
+class _JsonEvent:
+    """A MissingEvent read back from a cached partial: only its to_json is
+    consumed (debugging.json), so the stored JSON is carried as it is."""
+
+    __slots__ = ("_doc",)
+
+    def __init__(self, doc: dict) -> None:
+        self._doc = doc
+
+    def to_json(self) -> dict:
+        return self._doc
+
+
 @dataclass
 class SegmentPartial:
-    """Everything the reduce needs from one set of runs, keyed by
-    iteration."""
+    """Everything the reduce needs from one set of runs, keyed by iteration
+    (in memory the missing events are objects; ``to_json``/``from_json``
+    carry them as their JSON)."""
 
     iters: list[int] = field(default_factory=list)
+    success_iters: list[int] = field(default_factory=list)
+    failed_iters: list[int] = field(default_factory=list)
     #: per success run: ordered qualifying prototype rule tables ([] = run
     #: did not achieve the antecedent)
     proto_ordered: dict[int, list[str]] = field(default_factory=dict)
@@ -67,13 +283,58 @@ class SegmentPartial:
     #: anchor content: the good run's qualifying prototype rule tables (the
     #: left side of the correction anti-join); None without a good run
     good_proto: list[str] | None = None
+    #: figure files (basenames under figures/) of these runs
+    fig_files: list[str] = field(default_factory=list)
+
+    def to_json(self) -> dict:
+        return {
+            "iters": self.iters,
+            "success_iters": self.success_iters,
+            "failed_iters": self.failed_iters,
+            "proto_ordered": {str(k): v for k, v in self.proto_ordered.items()},
+            "present": {str(k): v for k, v in self.present.items()},
+            "missing": {str(k): [m.to_json() for m in v] for k, v in self.missing.items()},
+            "achieved": {str(k): v for k, v in self.achieved.items()},
+            "corrections": self.corrections,
+            "extensions": self.extensions,
+            "ext_candidates": {str(k): v for k, v in self.ext_candidates.items()},
+            "good_proto": self.good_proto,
+            "fig_files": self.fig_files,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "SegmentPartial":
+        return cls(
+            iters=[int(i) for i in d["iters"]],
+            success_iters=[int(i) for i in d["success_iters"]],
+            failed_iters=[int(i) for i in d["failed_iters"]],
+            proto_ordered={int(k): list(v) for k, v in d["proto_ordered"].items()},
+            present={int(k): list(v) for k, v in d["present"].items()},
+            missing={int(k): [_JsonEvent(m) for m in v] for k, v in d["missing"].items()},
+            achieved={int(k): int(v) for k, v in d["achieved"].items()},
+            corrections=d.get("corrections"),
+            extensions=d.get("extensions"),
+            ext_candidates={int(k): list(v) for k, v in d["ext_candidates"].items()},
+            good_proto=d.get("good_proto"),
+            fig_files=list(d.get("fig_files") or []),
+        )
+
+
+def figure_files_for_run(iteration: int, failed: bool, has_diff: bool, selected: bool) -> list[str]:
+    """The figure file basenames of one run (none unless the policy selected
+    it; the diff families only for a failed run with a diff)."""
+    if not selected:
+        return []
+    fams = list(FIG_FAMILIES) + (list(DIFF_FAMILIES) if failed and has_diff else [])
+    return [f"run_{iteration}_{fam}.{ext}" for fam in fams for ext in ("dot", "svg")]
 
 
 @dataclass
 class MapOutput:
-    """The map's per-run artifacts plus the DOT graphs of its
-    figure-selected runs, keyed by iteration."""
+    """The map's per-run artifacts of its owned runs plus the DOT graphs of
+    their figure-selected subset, keyed by iteration."""
 
+    own_iters: list[int] = field(default_factory=list)
     proto_ordered: dict[int, list[str]] = field(default_factory=dict)
     present: dict[int, list[str]] = field(default_factory=dict)
     missing: dict[int, list[MissingEvent]] = field(default_factory=dict)
@@ -92,89 +353,127 @@ class MapOutput:
     diff_failed: dict = field(default_factory=dict)
 
     def as_partial(self, iters: list[int]) -> SegmentPartial:
-        """The reduce's input: this map's artifacts over runs ``iters``."""
+        """The reduce's input: this map's artifacts sliced to runs ``iters``
+        (one segment's, or all)."""
+        succ = [i for i in iters if i in self.proto_ordered]
+        failed = [i for i in iters if i in self.present]
         return SegmentPartial(
             iters=list(iters),
-            proto_ordered=self.proto_ordered,
-            present=self.present,
-            missing=self.missing,
-            achieved=self.achieved,
-            corrections=self.corrections,
-            extensions=self.extensions,
-            ext_candidates=self.ext_candidates,
-            good_proto=self.good_proto,
+            success_iters=succ,
+            failed_iters=failed,
+            proto_ordered={i: self.proto_ordered[i] for i in succ},
+            present={i: self.present[i] for i in failed},
+            missing={i: self.missing[i] for i in failed if i in self.missing},
+            achieved={i: self.achieved[i] for i in iters if i in self.achieved},
+            corrections=list(self.corrections),
+            extensions=list(self.extensions),
+            ext_candidates={i: self.ext_candidates[i] for i in iters if i in self.ext_candidates},
+            good_proto=None if self.good_proto is None else list(self.good_proto),
+            fig_files=[
+                f
+                for i in iters
+                for f in figure_files_for_run(
+                    i, failed=i in self.present, has_diff=i in self.diff, selected=i in self.hazard
+                )
+            ],
         )
 
 
-def map_runs(backend, molly, fault_inj_out: str, good_iter: int | None, fig_set: set, timer) -> MapOutput:
-    """Run the analysis verbs over the whole corpus (already
-    init_graph_db'd into ``backend``) in the reference's phase order
-    (main.go:106-292) and collect the per-run artifacts and the figure DOTs
-    of the runs in ``fig_set``.  The anchor verbs keep the reference's
-    gates: corrections only when a run failed (main.go:166-173), extension
-    suggestions only when some run missed the antecedent."""
+def map_runs(
+    backend,
+    molly_view,
+    fault_inj_out: str,
+    good_iter: int | None,
+    fig_set: set,
+    timer,
+    own_set: set | None = None,
+    publish: bool = False,
+) -> MapOutput:
+    """Run the analysis verbs over ``molly_view`` (already init_graph_db'd
+    into ``backend``) in the reference's phase order (main.go:106-292) and
+    collect the per-run artifacts of the OWNED runs (``own_set``, default
+    all; the anchor runs may ride along as context only) and the figure
+    DOTs of those in ``fig_set``.  ``publish`` says the output will be
+    cached per segment: the anchor verbs then run ungated (a grown corpus
+    may gain its first failure in a new segment and merge this partial);
+    otherwise they keep the reference's gates, corrections only when a run
+    failed (main.go:166-173), extension suggestions only when some run
+    missed the antecedent."""
     from nemo_tpu_torch.backend.base import NoSuccessfulRunError
 
     out = MapOutput()
-    iters = molly.get_runs_iters()
-    failed = molly.get_failed_runs_iters()
+    view_iters = molly_view.get_runs_iters()
+    view_failed = molly_view.get_failed_runs_iters()
+    own = set(view_iters) if own_set is None else own_set
+    out.own_iters = [i for i in view_iters if i in own]
     try:
-        backend_good = backend.good_run_iter()
+        view_good = backend.good_run_iter()
     except NoSuccessfulRunError:
-        backend_good = None
-    if backend_good != good_iter:
-        raise RuntimeError(f"the backend chose good run {backend_good!r}, the pipeline {good_iter!r}")
+        view_good = None
+    if view_good != good_iter:
+        raise RuntimeError(
+            f"the view chose good run {view_good!r}, the corpus {good_iter!r}: the anchor run must be in the view"
+        )
 
-    fig_iters = [i for i in iters if i in fig_set]
-    fig_failed = [f for f in failed if f in fig_set]
+    fig_iters = [i for i in view_iters if i in fig_set]
+    own_fig = [i for i in fig_iters if i in own]
+    own_failed = [f for f in view_failed if f in own]
+    own_fig_failed = [f for f in own_failed if f in fig_set]
 
     with timer.phase("load_raw_provenance"):
         backend.load_raw_provenance()
     with timer.phase("simplify"):
-        backend.simplify_prov(iters)
+        backend.simplify_prov(view_iters)
     with timer.phase("hazard"):
-        out.hazard = dict(zip(fig_iters, backend.create_hazard_analysis(fault_inj_out, fig_iters)))
+        out.hazard = dict(zip(own_fig, backend.create_hazard_analysis(fault_inj_out, own_fig)))
 
-    succ = molly.get_success_runs_iters()
+    own_succ = [i for i in molly_view.get_success_runs_iters() if i in own]
     with timer.phase("prototypes"):
-        ordered, present = backend.proto_tables_by_run(succ, failed)
-        out.proto_ordered = {i: list(ordered.get(i, [])) for i in succ}
-        out.present = {f: sorted(present.get(f, ())) for f in failed}
+        ordered, present = backend.proto_tables_by_run(own_succ, own_failed)
+        out.proto_ordered = {i: list(ordered.get(i, [])) for i in own_succ}
+        out.present = {f: sorted(present.get(f, ())) for f in own_failed}
 
+    # The good run's post dot is the diff overlay's backdrop: pulled even
+    # when the good run is context from a cached segment.
+    pull_iters = list(own_fig)
+    if good_iter is not None and good_iter in fig_set and good_iter not in own:
+        pull_iters = sorted(set(pull_iters) | {good_iter}, key=view_iters.index)
     with timer.phase("pull_prov"):
-        pre_dots, post_dots, pre_clean_dots, post_clean_dots = backend.pull_pre_post_prov(fig_iters)
-    by = dict(zip(fig_iters, zip(pre_dots, post_dots, pre_clean_dots, post_clean_dots)))
-    for i in fig_iters:
+        pre_dots, post_dots, pre_clean_dots, post_clean_dots = backend.pull_pre_post_prov(pull_iters)
+    by = dict(zip(pull_iters, zip(pre_dots, post_dots, pre_clean_dots, post_clean_dots)))
+    for i in own_fig:
         out.pre[i], out.post[i], out.pre_clean[i], out.post_clean[i] = by[i]
 
-    missing_events: list[list[MissingEvent]] = [[] for _ in failed]
+    missing_events: list[list[MissingEvent]] = [[] for _ in own_failed]
     diff_dots: list = []
     failed_dots: list = []
-    if good_iter is not None and failed:
-        # The good run's post dot is the diff overlay's backdrop.
+    if good_iter is not None and own_failed:
         success_post_dot = by[good_iter][1] if good_iter in by else None
         with timer.phase("diff_prov"):
             diff_dots, failed_dots, missing_events = backend.create_naive_diff_prov(
-                False, failed, success_post_dot, dot_iters=fig_failed
+                False, own_failed, success_post_dot, dot_iters=own_fig_failed
             )
-    out.missing = dict(zip(failed, missing_events))
-    out.diff = dict(zip(fig_failed, diff_dots))
-    out.diff_failed = dict(zip(fig_failed, failed_dots))
+    out.missing = dict(zip(own_failed, missing_events))
+    out.diff = dict(zip(own_fig_failed, diff_dots))
+    out.diff_failed = dict(zip(own_fig_failed, failed_dots))
 
-    if good_iter is not None and failed:
+    if good_iter is not None and (view_failed or publish):
         with timer.phase("corrections"):
             out.corrections = backend.generate_corrections()
     with timer.phase("extensions"):
         counts = backend.achieved_pre_goal_counts()
-        out.achieved = {i: int(counts.get(i, 0)) for i in iters}
-        if sum(out.achieved.values()) < len(iters):
+        out.achieved = {i: int(counts.get(i, 0)) for i in out.own_iters}
+        # Unpublished, the map is the whole corpus, so its achieved sum is
+        # the reduce's all-achieved gate.
+        if publish or sum(out.achieved.values()) < len(view_iters):
             out.extensions = backend.extension_suggestions()
 
     # Corpus-ranked repair candidates: per-run extension candidates plus the
-    # good run's prototype tables (the correction anti-join's left side).
+    # good run's prototype tables (the correction anti-join's left side),
+    # anchor content every partial carries alike.
     with timer.phase("synthesis"):
-        ext = backend.synth_candidates(iters)
-        out.ext_candidates = {i: list(ext.get(i, [])) for i in iters}
+        ext = backend.synth_candidates(out.own_iters)
+        out.ext_candidates = {i: list(ext.get(i, [])) for i in out.own_iters}
         if good_iter is not None:
             g_ordered, _ = backend.proto_tables_by_run([good_iter], [])
             out.good_proto = list(g_ordered.get(good_iter, []))
@@ -182,15 +481,19 @@ def map_runs(backend, molly, fault_inj_out: str, good_iter: int | None, fig_set:
 
 
 def merge_partials(parts: list[SegmentPartial]) -> SegmentPartial:
-    """Fold partials left to right.  Per-run dicts are keyed by iteration
-    and disjoint across partials; the anchor content (corrections,
-    extensions, good_proto) is taken together from the last partial that
-    carries it."""
+    """Fold partials left to right (the JAX package folds the same node as
+    a k-ary tree; the results are equal).  Per-run dicts are keyed by
+    iteration and disjoint across partials; the anchor content
+    (corrections, extensions, good_proto) is taken together from the last
+    partial that carries it: every carrier holds the same values."""
     if len(parts) == 1:
         return parts[0]
     out = SegmentPartial()
     for p in parts:
         out.iters.extend(p.iters)
+        out.success_iters.extend(p.success_iters)
+        out.failed_iters.extend(p.failed_iters)
+        out.fig_files.extend(p.fig_files)
         out.proto_ordered.update(p.proto_ordered)
         out.present.update(p.present)
         out.missing.update(p.missing)
@@ -211,7 +514,7 @@ class Reduced:
     union: list[str]
     inter_miss: dict[int, list[str]]  # per failed iteration
     union_miss: dict[int, list[str]]
-    missing: dict[int, list[MissingEvent]]  # per failed iteration
+    missing: dict[int, list]  # per failed iteration: MissingEvent-likes
     corrections: list[str]
     extensions: list[str]
     all_achieved: bool

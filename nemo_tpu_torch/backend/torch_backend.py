@@ -20,6 +20,14 @@ numpy; everything else runs on the executor's device.
 The report verbs (``pull_pre_post_prov``, ``create_naive_diff_prov``'s
 overlays, the trigger queries) build host property graphs lazily, only for
 the runs a caller asks for, from rows gathered off the device in one batch.
+
+Every corpus reaches the device as packed corpus arrays.  A packed-first
+ingest's (``molly.native_corpus``: the C++ engine's arrays or a
+corpus-store load) is read in place; the Python loader's run objects are
+packed once into the same arrays (``store/npack.py:payload_from_molly``).
+The vocabulary is the corpus's, per-run graphs are lazy array views, the
+buckets are sliced from the corpus arrays and the linear-chain gate is the
+per-graph flags; no graph is repacked.
 """
 
 from __future__ import annotations
@@ -36,16 +44,16 @@ from nemo_tpu_torch.backend.base import GraphBackend, NoSuccessfulRunError  # no
 from nemo_tpu_torch.device import resolve_device
 from nemo_tpu_torch.graphs.packed import (
     TYPE_NAMES,
+    CorpusGraphs,
     CorpusVocab,
     PackedBatch,
     bucket_size,
-    bucketize_pairs,
+    bucketize_pairs_corpus,
     pack_batch,
-    pack_graph,
     rewrite_run_prefix,
     unpack_to_pgraph,
 )
-from nemo_tpu_torch.graphs.pgraph import PGraph, build_pgraph
+from nemo_tpu_torch.graphs.pgraph import PGraph, PNode
 from nemo_tpu_torch.ingest.datatypes import Goal, MissingEvent, Rule
 from nemo_tpu_torch.ingest.molly import MollyOutput
 from nemo_tpu_torch.models.pipeline_model import (
@@ -57,7 +65,6 @@ from nemo_tpu_torch.models.pipeline_model import (
 from nemo_tpu_torch.ops.adjacency import build_adjacency
 from nemo_tpu_torch.ops.diff import diff_masks
 from nemo_tpu_torch.ops.proto import DEPTH_INF
-from nemo_tpu_torch.ops.simplify import pair_chains_linear
 from nemo_tpu_torch.ops.sparse_device import (
     CsrAdjRows,
     diff_masks_sparse_device,
@@ -321,6 +328,19 @@ def _wrap_sparse_clean(res: dict, v: int) -> dict:
     return out
 
 
+class _CorpusPacked:
+    """(run iteration, cond) -> PackedGraph over a packed corpus: each graph
+    is a lazy array view, built on first access instead of repacked."""
+
+    def __init__(self, graphs: CorpusGraphs, row_by_iter: dict[int, int]) -> None:
+        self._graphs = graphs
+        self._row_by_iter = row_by_iter
+
+    def __getitem__(self, key: tuple[int, str]):
+        rid, cond = key
+        return self._graphs.get(cond, self._row_by_iter[rid])
+
+
 #: Analysis routes a caller may ask for: per-bucket auto routing, or one
 #: route forced for every bucket and the diff (giant runs always take the
 #: sparse step: the port has no dense giant path).
@@ -338,6 +358,10 @@ class TorchBackend(GraphBackend):
     ``sparse_device_mem_bytes`` (dense footprint watermark; 0 disables),
     ``sparse_device_density`` and ``sparse_device_min_v`` (the density
     crossover; density 0 disables).  Buckets run serially in bucket order."""
+
+    #: run_debug's ingest policy reads this: the backend consumes packed
+    #: corpus arrays, so ``ingest="auto"`` takes the native loader.
+    supports_packed_ingest = True
 
     def __init__(
         self,
@@ -366,35 +390,60 @@ class TorchBackend(GraphBackend):
         """Drop every per-corpus state and attach ``molly``."""
         self.molly = molly
         self.vocab = CorpusVocab()
-        self.packed: dict[tuple[int, str], object] = {}
+        self.packed: _CorpusPacked | None = None
         self.simplified: dict[str, list] = {}
         self._simplified_row: dict[tuple[int, str], tuple[int, int]] = {}
         self._fused_out: list[tuple[PackedBatch, PackedBatch, dict]] | None = None
         self._row_of: dict[int, tuple[int, int]] = {}
         self._proto_tables_cache = None
-        self._run_by_iter = {r.iteration: r for r in molly.runs} if molly is not None else {}
         #: host property graphs, built on first use: (run, cond) -> PGraph
         self._raw: dict[tuple[int, str], PGraph] = {}
         self._clean: dict[tuple[int, str], PGraph] = {}
         #: (run, cond) -> host (alive, adj, type) rows of the simplify outputs
         self._clean_rows: dict[tuple[int, str], tuple] = {}
+        #: the packed corpus, its graph views, iteration -> corpus row, and
+        #: iteration -> per-graph linearity
+        self._corpus = None
+        self._corpus_graphs: CorpusGraphs | None = None
+        self._row_by_iter: dict[int, int] = {}
+        self._lin_by_iter: dict[int, bool] = {}
 
     # ---------------------------------------------------------------- ingest
 
     def init_graph_db(self, conn: str, molly: MollyOutput) -> None:
-        """Pack every run's two provenance graphs against one corpus
-        vocabulary (``conn`` is the reference's graph-store address; the
+        """Take a packed-first corpus's vocabulary and arrays as they are,
+        or pack the Python loader's run objects once into a corpus of the
+        same arrays (``conn`` is the reference's graph-store address; the
         port keeps the signature and needs none)."""
         self._release(molly)
         self.analysis_routes = []
-        for run in molly.runs:
-            for cond, prov in (("pre", run.pre_prov), ("post", run.post_prov)):
-                self.packed[(run.iteration, cond)] = pack_graph(prov, self.vocab)
+        nc = getattr(molly, "native_corpus", None)
+        if nc is None:
+            from nemo_tpu_torch.store.npack import corpus_from_payload, payload_from_molly
+
+            nc = corpus_from_payload(payload_from_molly(molly))
+        # Every corpus interns "pre"/"post" first (ids 0/1), so re-interning
+        # its strings in order gives the same ids.
+        for part in ("tables", "labels", "times"):
+            vocab = getattr(self.vocab, part)
+            for text in getattr(nc, part):
+                vocab.intern(text)
+        self._corpus = nc
+        self._corpus_graphs = CorpusGraphs(nc)
+        self._row_by_iter = {int(it): i for i, it in enumerate(nc.iteration)}
+        self.packed = _CorpusPacked(self._corpus_graphs, self._row_by_iter)
+        # Built by position, so runs that share an iteration AND their flags:
+        # a collision can only cost the fast path, never take it wrongly.
+        for i, it in enumerate(nc.iteration.tolist()):
+            flag = bool(nc.pre.chain_linear[i] and nc.post.chain_linear[i])
+            self._lin_by_iter[it] = self._lin_by_iter.get(it, True) and flag
 
     def close_db(self) -> None:
         """Release everything init_graph_db and the verbs allocated (the
         reference's CloseDB, graphing/helpers.go:58-86); the route records
-        and the executor's counts stay, and the backend stays reusable."""
+        and the executor's counts stay, and the backend stays reusable.  A
+        packed corpus's native handle stays open: the molly owns it, and
+        the report writer splices its prov JSON after close_db."""
         self._release(None)
 
     # ---------------------------------------------------------------- routes
@@ -442,22 +491,19 @@ class TorchBackend(GraphBackend):
         giant run; cached.  Results are in bucket order, giants last."""
         if self._fused_out is None:
             assert self.molly is not None
-            run_ids, giant_ids = [], []
-            for r in self.molly.runs:
-                n = max(self.packed[(r.iteration, c)].n_nodes for c in ("pre", "post"))
-                (giant_ids if n > self.giant_v else run_ids).append(r.iteration)
+            nc = self._corpus
+            # Node counts straight from the corpus arrays: no graph view is
+            # built just to split off the giants.
+            nmax = np.maximum(nc.pre.n_nodes, nc.post.n_nodes)
+            rows = np.nonzero(nmax <= self.giant_v)[0].tolist()
+            giant_ids = [int(nc.iteration[i]) for i in np.nonzero(nmax > self.giant_v)[0]]
+            n_dense = len(rows)
             # Size floors: at corpus scale, pad every family to one bucket
             # shape (the JAX backend's compile-sharing floors, kept so both
             # backends bucket identically).  Only the bucketed runs count.
-            big = len(run_ids) >= 512
+            big = n_dense >= 512
             min_v, min_e, min_t, min_d = (64, 256, 32, 32) if big else (16, 16, 8, 4)
-            batches = bucketize_pairs(
-                run_ids,
-                [self.packed[(i, "pre")] for i in run_ids],
-                [self.packed[(i, "post")] for i in run_ids],
-                min_v=min_v,
-                min_e=min_e,
-            )
+            batches = bucketize_pairs_corpus(self._corpus_graphs, rows, nc.iteration, min_v=min_v, min_e=min_e)
             tids = dict(
                 pre_tid=self.vocab.tables.lookup("pre"),
                 post_tid=self.vocab.tables.lookup("post"),
@@ -468,7 +514,9 @@ class TorchBackend(GraphBackend):
                 rows = len(pre_b.run_ids)
                 route, reason = self._analysis_route(rows, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
                 self._record_route("fused", route, rows, pre_b.v, pre_b.e, reason)
-                linear = int(pair_chains_linear(pre_b, post_b))
+                # The linear-chain fast path must hold for every run of the
+                # bucket: the AND of its graphs' flags.
+                linear = int(all(self._lin_by_iter[i] for i in pre_b.run_ids))
                 if route == "sparse_device":
                     res = self._sparse_fused(pre_b, post_b, linear, tids)
                 else:
@@ -547,13 +595,35 @@ class TorchBackend(GraphBackend):
         key = (rid, cond)
         g = self._raw.get(key)
         if g is None:
-            run = self._run_by_iter[rid]
-            g = build_pgraph(run.pre_prov if cond == "pre" else run.post_prov)
-            holds = self.cond_holds(rid, cond).tolist()
-            pg = self.packed[key]
-            for slot in range(pg.n_goals):
-                g.nodes[pg.node_ids[slot]].cond_holds = bool(holds[slot])
-            self._raw[key] = g
+            g = self._raw[key] = self._corpus_pgraph(key, self.cond_holds(rid, cond).tolist())
+        return g
+
+    def _corpus_pgraph(self, key: tuple[int, str], holds: list) -> PGraph:
+        """graphs/pgraph.py:build_pgraph over the packed corpus arrays: the
+        same node order (goals, then rules, in provenance order), edge order
+        and duplicate-edge merge as building it from the provenance objects,
+        so figures and queries see the same graph."""
+        pg = self.packed[key]
+        tables, labels, times = self.vocab.tables, self.vocab.labels, self.vocab.times
+        ids = [pg.node_ids[s] for s in range(pg.n_nodes)]
+        table_l, label_l = pg.table_id.tolist(), pg.label_id.tolist()
+        time_l, type_l = pg.time_id.tolist(), pg.type_id.tolist()
+        g = PGraph()
+        for s in range(pg.n_nodes):
+            is_goal = s < pg.n_goals
+            g.add_node(
+                PNode(
+                    id=ids[s],
+                    is_goal=is_goal,
+                    label=labels[label_l[s]],
+                    table=tables[table_l[s]],
+                    time=times[time_l[s]] if is_goal else "",
+                    type="" if is_goal else TYPE_NAMES.get(type_l[s], ""),
+                    cond_holds=bool(holds[s]) if is_goal else False,
+                )
+            )
+        for s, d in pg.edges.tolist():
+            g.add_edge(ids[s], ids[d])
         return g
 
     def clean_graph(self, rid: int, cond: str) -> PGraph:
@@ -688,9 +758,13 @@ class TorchBackend(GraphBackend):
         num_labels = bucket_size(max(1, len(self.vocab.labels)), 8)
         gb = pack_batch([g], [good])
         bits = np.zeros((bucket_size(max(1, len(failed_iters)), 8), num_labels), dtype=bool)
-        for j, f in enumerate(failed_iters):
-            pg = self.packed[(f, "post")]
-            bits[j, pg.label_id[: pg.n_goals]] = True
+        # One scatter over the corpus rows (is_goal is exactly the slots
+        # below n_goals) instead of a graph view per failed run.
+        rows = np.asarray([self._row_by_iter[f] for f in failed_iters], dtype=np.int64)
+        isg = self._corpus.post.is_goal[rows]
+        lab = self._corpus.post.label_id[rows]
+        j_idx, s_idx = np.nonzero(isg)
+        bits[j_idx, lab[j_idx, s_idx]] = True
         route, reason = self._diff_route(good.n_nodes, bits.shape[0], gb.v)
         self._record_route("diff", route, len(failed_iters), good.n_nodes, len(good.edges), reason)
         arrays = {

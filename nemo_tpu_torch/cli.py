@@ -3,13 +3,23 @@ device.
 
     python -m nemo_tpu_torch.cli -faultInjOut <dir> [--device cuda|cpu]
         [--results-dir DIR] [--figures all|failed|sample:N|none]
-        [--analysis-impl auto|dense|sparse_device] [--out analysis.json]
+        [--analysis-impl auto|dense|sparse_device]
+        [--ingest auto|native|python] [--corpus-cache DIR|off]
+        [--result-cache DIR|off] [--out analysis.json]
 
 Writes the report tree ``DIR/<corpus>/`` (default ``./results``):
 debugging.json, repairs.json, the figures as .dot and .svg and the HTML/JS
 frontend, byte-equal to the JAX package's report of the same corpus, and
 telemetry.json with the phase walls.  ``--figures`` picks the runs that get
-figures (analysis/pipeline.py:select_figure_iters).
+figures (analysis/pipeline.py:select_figure_iters).  ``--ingest`` picks
+the loader of the report: ``native`` (the C++ engine, packed arrays only),
+``python`` (the object loader), ``auto`` (native on this backend; a build
+failure raises).  ``--corpus-cache`` and ``--result-cache`` are the roots
+of the memory-mapped corpus store and the result cache (default
+``$NEMO_CORPUS_CACHE`` / ``$NEMO_RESULT_CACHE``, else
+``~/.cache/nemo_tpu_torch/corpus`` and ``.../results``; ``off`` disables):
+a repeated request restores the report with no kernel launch, a grown
+corpus maps only its new runs.
 
 With ``--out FILE`` it writes instead one JSON analysis document (analyze):
 the success and failed iterations, the good run, per-run achieved-antecedent
@@ -31,7 +41,7 @@ import time
 
 import torch
 
-from nemo_tpu_torch.analysis.pipeline import run_debug
+from nemo_tpu_torch.analysis.pipeline import INGEST_MODES, run_debug
 from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.molly import load_molly_output
 
@@ -100,6 +110,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--figures", default="all", metavar="POLICY",
                     help="figure policy: all, failed (failed runs + the good run), "
                          "sample:N (N failed + N other runs + the good run) or none")
+    ap.add_argument("--ingest", default="auto", choices=INGEST_MODES,
+                    help="report loader: native C++ engine, Python objects, or auto (native here)")
+    ap.add_argument("--corpus-cache", default=None, metavar="DIR|off",
+                    help="corpus store root (default $NEMO_CORPUS_CACHE or "
+                         "~/.cache/nemo_tpu_torch/corpus; 'off' disables)")
+    ap.add_argument("--result-cache", default=None, metavar="DIR|off",
+                    help="result cache root (default $NEMO_RESULT_CACHE or "
+                         "~/.cache/nemo_tpu_torch/results; 'off' disables)")
     ap.add_argument("--out", default=None,
                     help="write the JSON analysis document to this file instead of the report")
     args = ap.parse_args(argv)
@@ -110,8 +128,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
         return 0
     backend = TorchBackend(device=args.device, analysis_impl=args.analysis_impl)
-    res = run_debug(args.fault_inj_out, args.results_dir, backend, figures=args.figures)
-    print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {backend.executor.device} -> {res.report_dir}")
+    res = run_debug(args.fault_inj_out, args.results_dir, backend, figures=args.figures, ingest=args.ingest,
+                    corpus_cache=args.corpus_cache, result_cache=args.result_cache)
+    print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {backend.executor.device} -> {res.report_dir}"
+          f" (ingest {res.ingest}, result cache {res.result_cache['state']})")
     print("timings (s): " + ", ".join(f"{k} {v:.3f}" for k, v in res.timings.items()))
     fs = res.figure_stats
     if fs and fs["figures"]:

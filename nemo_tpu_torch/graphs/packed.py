@@ -233,40 +233,180 @@ def _pad_run_axis(n_runs: int, max_batch: int | None) -> int:
     return b_pad
 
 
-def bucketize_pairs(
+# ---------------------------------------------------------------------------
+# Packed-first corpus views: native ETL (or corpus store) arrays to batches
+# with no per-graph Python repack.
+# ---------------------------------------------------------------------------
+
+
+class LazyNodeIds:
+    """list-like slot -> namespaced-id view, fetched from the corpus on first
+    index: only the runs a figure or a missing-event list needs (and the
+    good run) ever materialize their id strings."""
+
+    __slots__ = ("_corpus", "_cond", "_row", "_ids")
+
+    def __init__(self, corpus, cond: str, row: int) -> None:
+        self._corpus = corpus
+        self._cond = cond
+        self._row = row
+        self._ids: list[str] | None = None
+
+    def _materialize(self) -> list[str]:
+        if self._ids is None:
+            self._ids = self._corpus.lazy_node_ids(self._cond, self._row)
+        return self._ids
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def __len__(self) -> int:
+        return len(self._materialize())
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+
+class CorpusGraphs:
+    """Cache of per-(cond, row) PackedGraph views over a packed corpus: node
+    arrays are numpy slices of the corpus's batch arrays (the edge pairs one
+    stack), node ids are LazyNodeIds."""
+
+    def __init__(self, corpus) -> None:
+        self.corpus = corpus
+        self._cache: dict[tuple[str, int], PackedGraph] = {}
+
+    def get(self, cond: str, row: int) -> PackedGraph:
+        key = (cond, row)
+        g = self._cache.get(key)
+        if g is None:
+            cb = self.corpus.cond(cond)
+            n = int(cb.n_nodes[row])
+            ne = int(cb.edge_mask[row].sum())  # a contiguous True prefix
+            edges = np.stack([cb.edge_src[row, :ne], cb.edge_dst[row, :ne]], axis=1).astype(
+                np.int32, copy=False
+            )
+            g = self._cache[key] = PackedGraph(
+                n_goals=int(cb.n_goals[row]),
+                n_nodes=n,
+                node_ids=LazyNodeIds(self.corpus, cond, row),
+                table_id=cb.table_id[row, :n],
+                label_id=cb.label_id[row, :n],
+                time_id=cb.time_id[row, :n],
+                type_id=cb.type_id[row, :n],
+                edges=edges,
+            )
+        return g
+
+
+class BatchGraphs:
+    """PackedBatch.graphs of a corpus-built batch: batch row -> lazy view."""
+
+    __slots__ = ("_cg", "_cond", "_rows")
+
+    def __init__(self, cg: CorpusGraphs, cond: str, rows: list[int]) -> None:
+        self._cg = cg
+        self._cond = cond
+        self._rows = rows
+
+    def __getitem__(self, i: int) -> PackedGraph:
+        return self._cg.get(self._cond, self._rows[i])
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+
+def pack_batch_corpus(
+    cg: CorpusGraphs,
+    cond: str,
+    rows: list[int],
     run_ids: list[int],
-    pre_graphs: list[PackedGraph],
-    post_graphs: list[PackedGraph],
+    v: int,
+    e: int,
+    b_pad: int,
+    max_depth: int,
+) -> PackedBatch:
+    """pack_batch over corpus rows by vectorized slicing, no per-graph loop.
+    Cutting the columns to the bucket's (v, e) is exact: every selected row
+    has n_nodes <= v and n_edges <= e (its bucket key), so the dropped
+    columns are padding."""
+    cb = cg.corpus.cond(cond)
+    k = len(rows)
+    idx = np.asarray(rows, dtype=np.int64)
+
+    def window(src: np.ndarray, width: int, fill) -> np.ndarray:
+        # The bucket may be narrower (sub-bucket) or wider (a size floor
+        # above the corpus dim) than the source; outside the copied window
+        # everything is padding.  src[idx, :w] gathers only the window.
+        w = min(width, src.shape[1])
+        out = np.full((b_pad, width), fill, dtype=src.dtype)
+        out[:k, :w] = src[idx, :w]
+        return out
+
+    n_nodes = np.zeros(b_pad, dtype=np.int32)
+    n_goals = np.zeros(b_pad, dtype=np.int32)
+    n_nodes[:k] = cb.n_nodes[idx]
+    n_goals[:k] = cb.n_goals[idx]
+    return PackedBatch(
+        run_ids=list(run_ids),
+        graphs=BatchGraphs(cg, cond, list(rows)),
+        v=v,
+        e=e,
+        max_depth=min(v, max(1, max_depth)),
+        n_nodes=n_nodes,
+        n_goals=n_goals,
+        is_goal=window(cb.is_goal, v, False),
+        node_mask=window(cb.node_mask, v, False),
+        table_id=window(cb.table_id, v, -1),
+        label_id=window(cb.label_id, v, -1),
+        type_id=window(cb.type_id, v, 0),
+        edge_src=window(cb.edge_src, e, 0),
+        edge_dst=window(cb.edge_dst, e, 0),
+        edge_mask=window(cb.edge_mask, e, False),
+    )
+
+
+def bucketize_pairs_corpus(
+    cg: CorpusGraphs,
+    rows: list[int],
+    iterations: np.ndarray,
     max_batch: int | None = None,
     min_v: int = 16,
     min_e: int = 16,
 ) -> list[tuple[PackedBatch, PackedBatch]]:
-    """Joint size-bucketing over (pre, post) graph pairs: both conditions of
-    a run share one bucket, padded to the pair's common (V, E) — the shape
-    contract of the fused analysis step (models/pipeline_model.py), which
-    takes the pre and post batches of the same runs in one dispatch.
-    Preserves run order within each bucket.  min_v/min_e floor the bucket
-    dims."""
-    groups: dict[tuple[int, int], tuple[list[int], list[PackedGraph], list[PackedGraph]]] = {}
-    for rid, gpre, gpost in zip(run_ids, pre_graphs, post_graphs):
-        key = (
-            bucket_size(max(gpre.n_nodes, gpost.n_nodes), min_v),
-            bucket_size(max(1, len(gpre.edges), len(gpost.edges)), min_e),
-        )
-        groups.setdefault(key, ([], [], []))
-        groups[key][0].append(rid)
-        groups[key][1].append(gpre)
-        groups[key][2].append(gpost)
+    """Joint size-bucketing of corpus rows, built by array slicing: both
+    conditions of a run share one bucket, padded to the pair's common
+    (V, E) — the shape contract of the fused analysis step
+    (models/pipeline_model.py), which takes the pre and post batches of the
+    same runs in one dispatch.  Run order is kept within a bucket, the run
+    axis is padded to a power of two, and min_v/min_e floor the bucket dims.
+    max_depth is the corpus-wide DAG bound rather than each bucket's:
+    relaxation past the longest path changes nothing."""
+    corpus = cg.corpus
+    pre_cb, post_cb = corpus.pre, corpus.post
+    idx = np.asarray(rows, dtype=np.int64)
+    nmax = np.maximum(pre_cb.n_nodes[idx], post_cb.n_nodes[idx])
+    emax = np.maximum(1, np.maximum(pre_cb.edge_mask[idx].sum(1), post_cb.edge_mask[idx].sum(1)))
+
+    def vbucket(x: np.ndarray, floor: int) -> np.ndarray:
+        x = np.maximum(x, floor).astype(np.float64)
+        return (2 ** np.ceil(np.log2(x))).astype(np.int64)
+
+    groups: dict[tuple[int, int], list[int]] = {}
+    for r, vv, ee in zip(rows, vbucket(nmax, min_v).tolist(), vbucket(emax, min_e).tolist()):
+        groups.setdefault((vv, ee), []).append(r)
+    depth = int(corpus.max_depth)
     batches = []
-    for (v, e), (rids, pres, posts) in sorted(groups.items()):
-        step = max_batch or len(rids)
-        for s in range(0, len(rids), step):
-            chunk = rids[s : s + step]
+    for (v, e), rws in sorted(groups.items()):
+        step = max_batch or len(rws)
+        for s in range(0, len(rws), step):
+            chunk = rws[s : s + step]
             b_pad = _pad_run_axis(len(chunk), max_batch)
+            run_ids = [int(iterations[r]) for r in chunk]
             batches.append(
                 (
-                    pack_batch(chunk, pres[s : s + step], v, e, b_pad),
-                    pack_batch(chunk, posts[s : s + step], v, e, b_pad),
+                    pack_batch_corpus(cg, "pre", chunk, run_ids, v, e, b_pad, depth),
+                    pack_batch_corpus(cg, "post", chunk, run_ids, v, e, b_pad, depth),
                 )
             )
     return batches

@@ -101,11 +101,16 @@ class MollyOutput:
             return f.read()
 
 
-def attach_run_metadata(out: MollyOutput, run) -> None:
-    """Holds-maps + success/failure classification for one parsed run.
-    Holds-maps are keyed by the string timestep in the last column of each
-    'pre'/'post' model-table row (molly.go:38-48)."""
-    tables = run.model.tables if run.model else {}
+def attach_run_metadata(out: MollyOutput, run, tables: dict | None = None) -> None:
+    """Holds-maps + success/failure classification for one parsed run,
+    shared by this loader and the packed-first one
+    (ingest/native.py:load_molly_output_packed).  Holds-maps are keyed by
+    the string timestep in the last column of each 'pre'/'post' model-table
+    row (molly.go:38-48).  ``tables`` supplies the model tables directly
+    (the packed loader passes the raw dict, so the Model objects stay
+    unbuilt); by default they are read from ``run.model``."""
+    if tables is None:
+        tables = run.model.tables if run.model else {}
     run.time_pre_holds = {row[-1]: True for row in tables.get("pre", []) if row}
     run.time_post_holds = {row[-1]: True for row in tables.get("post", []) if row}
     out.runs_iters.append(run.iteration)
@@ -116,7 +121,8 @@ def attach_run_metadata(out: MollyOutput, run) -> None:
 
 
 def quarantine_record(position: int, iteration, file: str, ex: BaseException) -> dict:
-    """One quarantined run's record."""
+    """One quarantined run's record: the one shape shared by this loader,
+    the corpus store's header and the report's quarantine.json."""
     return {
         "position": int(position),
         "iteration": None if iteration is None else int(iteration),

@@ -464,3 +464,26 @@ def write_corpus(spec: SynthSpec, out_dir: str) -> str:
             else:
                 f.write(content)
     return corpus_dir
+
+
+def grow_corpus_dir(full_dir: str, dst_dir: str, n_runs: int) -> None:
+    """Materialize the first ``n_runs`` runs of an already-written corpus
+    (synth or case-study layout: run_<i>_{pre,post}_provenance.json,
+    run_<i>_spacetime.dot, runs.json) into ``dst_dir``.  Monotonic: call
+    again with a larger ``n_runs`` to grow the directory the way a
+    still-running Molly sweep appends runs.  Existing run files are left
+    untouched (their mtimes, and so the corpus store's fingerprints, stay);
+    only runs.json is rewritten.  A copy of the JAX package's
+    ``models/synth.py:grow_corpus_dir``."""
+    import shutil
+
+    os.makedirs(dst_dir, exist_ok=True)
+    with open(os.path.join(full_dir, "runs.json"), encoding="utf-8") as fh:
+        raw = json.load(fh)
+    for i in range(n_runs):
+        for name in (f"run_{i}_pre_provenance.json", f"run_{i}_post_provenance.json", f"run_{i}_spacetime.dot"):
+            src, dst = os.path.join(full_dir, name), os.path.join(dst_dir, name)
+            if os.path.exists(src) and not os.path.exists(dst):
+                shutil.copy2(src, dst)
+    with open(os.path.join(dst_dir, "runs.json"), "w", encoding="utf-8") as fh:
+        json.dump(raw[:n_runs], fh, indent=1)

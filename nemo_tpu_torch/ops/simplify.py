@@ -136,8 +136,13 @@ def collapse_chains(
 
 
 def chains_linear_host(is_goal, node_mask, type_id, edge_src, edge_dst, edge_mask) -> bool:
+    """chains_linear_rows of every run: True iff all hold."""
+    return bool(chains_linear_rows(is_goal, node_mask, type_id, edge_src, edge_dst, edge_mask).all())
+
+
+def chains_linear_rows(is_goal, node_mask, type_id, edge_src, edge_dst, edge_mask):
     """Host-side (numpy) linearity check over [B,V]/[B,E] packed batch
-    arrays: True iff EVERY run's @next chain-member
+    arrays, one bool per run: True iff the run's @next chain-member
     subgraph (after the clean_masks restriction) has member in/out degree
     <= 1 — the precondition for the O(V log V) pointer-doubling labels in
     collapse_chains(comp_doubling=True).
@@ -195,7 +200,7 @@ def chains_linear_host(is_goal, node_mask, type_id, edge_src, edge_dst, edge_mas
     )
     succ = np.bincount(flat_src[member_edge.ravel()], minlength=b * v).reshape(b, v)
     pred = np.bincount(flat_dst[member_edge.ravel()], minlength=b * v).reshape(b, v)
-    return bool(((succ <= 1) | ~member).all() and ((pred <= 1) | ~member).all())
+    return ((succ <= 1) | ~member).all(axis=1) & ((pred <= 1) | ~member).all(axis=1)
 
 
 def pair_chains_linear(pre, post) -> bool:

@@ -1,0 +1,50 @@
+"""Environment knobs read by the port's ingest, corpus store and result
+cache: a trimmed copy of the JAX package's ``utils/env.py``.
+
+A junk value warns and falls back to the default: these knobs gate caches
+and degraded operation, never which algorithm analyzes the corpus.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+_log = logging.getLogger("nemo_tpu_torch.env")
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+def env_flag(name: str, default: bool) -> bool:
+    """Boolean knob accepting 1/true/yes/on and 0/false/no/off."""
+    raw = os.environ.get(name, "").strip().lower()
+    if not raw:
+        return default
+    if raw in _TRUE:
+        return True
+    if raw in _FALSE:
+        return False
+    _log.warning("%s=%r is not a recognized boolean; using %r", name, raw, default)
+    return default
+
+
+def quarantine_enabled() -> bool:
+    """``NEMO_QUARANTINE`` (default on): a malformed run is quarantined
+    (the report's "Degraded runs") instead of failing the whole corpus."""
+    return env_flag("NEMO_QUARANTINE", True)
+
+
+def cache_root(arg: str | None, env_name: str, leaf: str) -> str | None:
+    """Root of one of the port's caches: an explicit argument wins (``off``,
+    ``0``, ``none``, ``false`` or empty disables -> None), else the
+    environment variable ``env_name`` (same spellings), else
+    ``~/.cache/nemo_tpu_torch/<leaf>`` — the port's own default roots, apart
+    from the JAX package's."""
+    raw = arg if arg is not None else os.environ.get(env_name)
+    if raw is not None:
+        raw = raw.strip()
+        if raw.lower() in ("", "0", "off", "none", "false"):
+            return None
+        return os.path.expanduser(raw)
+    return os.path.join(os.path.expanduser("~"), ".cache", "nemo_tpu_torch", leaf)

@@ -7,7 +7,10 @@
   CPU: the backend, the analysis document and the report;
 * a CPU tensor into a kernel wrapper (closure, edge_wave) takes the plain
   version and never loads the kernel library; a tensor on any other
-  non-CUDA device raises.
+  non-CUDA device raises;
+* the new ingest and cache flags leave the device at cuda, ``ingest="auto"``
+  on TorchBackend resolves to the native engine, and the port's engine is
+  its own copy, built into the port's build directory.
 """
 
 import os
@@ -137,3 +140,36 @@ def test_edge_wave_other_devices_raise():
     e = torch.zeros(2, 4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         k2.edge_wave(z, e, e, torch.zeros(2, 4, dtype=torch.bool, device="meta"), None)
+
+
+def test_cache_flags_keep_cuda_default(monkeypatch, corpus_dir, tmp_path):
+    from nemo_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flags in (["--ingest", "native"], ["--corpus-cache", "off", "--result-cache", str(tmp_path / "rc")],
+                  ["--ingest", "python", "--corpus-cache", str(tmp_path / "cc")]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(["-faultInjOut", corpus_dir, "--results-dir", str(tmp_path / "R"), *flags])
+    assert not (tmp_path / "R").exists()
+    out = tmp_path / "cpu"
+    assert cli.main(["-faultInjOut", corpus_dir, "--device", "cpu", "--results-dir", str(out), "--figures", "none",
+                     "--ingest", "native", "--corpus-cache", "off", "--result-cache", "off"]) == 0
+    assert (out / os.path.basename(corpus_dir) / "debugging.json").exists()
+
+
+@pytest.mark.parametrize(
+    "mode, packed", [("auto", True), ("native", True), ("python", False)]
+)
+def test_ingest_mode_on_torch_backend(mode, packed):
+    from nemo_tpu_torch.analysis.pipeline import _resolve_ingest_mode
+
+    assert _resolve_ingest_mode(TorchBackend(device="cpu"), mode) is packed
+
+
+def test_engine_is_the_ports_own_copy():
+    from nemo_tpu_torch.ingest.native import NATIVE
+
+    lib = NATIVE.load()
+    assert NATIVE.src == PORT / "csrc" / "host" / "nemo_native.cpp"
+    assert Path(lib._name).parent == PORT / "build"
+    assert lib.nemo_abi_version() == 5

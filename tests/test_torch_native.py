@@ -1,0 +1,198 @@
+"""The port's native C++ ingest against the JAX package's and its own
+Python loader, on the CPU.
+
+* ``nemo_tpu_torch.ingest.native.ingest_native`` equals
+  ``nemo_tpu.ingest.native.ingest_native`` on the six case-study families
+  at 60 runs, a synthetic corpus and a small corpus of giant runs: dims,
+  vocabularies, every packed array, node ids, prov JSON and head fragments.
+* It equals the port's own Python pack (``load_molly_output`` +
+  ``pack_graph``, all pre graphs interned first), and its strings equal
+  the Python objects' serializations.
+* A dozen malformed corpora, from the classes of
+  ``tests/test_native_malformed.py``, raise RuntimeError in both engines
+  with the same message.
+* A source that cannot be built or loaded raises; nothing falls back.
+
+Tolerance: none (integers, booleans and bytes).
+"""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+
+from nemo_tpu.ingest.native import ingest_native as jax_ingest_native
+from nemo_tpu.models.case_studies import CASE_STUDIES, write_case_study
+from nemo_tpu.models.synth import SynthSpec, write_corpus
+from nemo_tpu_torch.graphs.packed import CorpusVocab, pack_batch, pack_graph
+from nemo_tpu_torch.ingest import native
+from nemo_tpu_torch.ingest.molly import load_molly_output
+from nemo_tpu_torch.store.npack import head_bytes
+from nemo_tpu_torch.utils.cbuild import BUILD_DIR, NativeLib
+
+FAMILY_RUNS = 60
+CORPORA = sorted(CASE_STUDIES) + ["synth", "giant"]
+ARRAYS = (
+    "table_id", "label_id", "time_id", "type_id", "is_goal", "node_mask",
+    "edge_src", "edge_dst", "edge_mask", "n_nodes", "n_goals", "chain_linear",
+)
+
+
+@pytest.fixture(scope="module")
+def corpora(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("torch_native"))
+    out = {name: write_case_study(name, FAMILY_RUNS, 0, root) for name in sorted(CASE_STUDIES)}
+    out["synth"] = write_corpus(SynthSpec(n_runs=12, seed=5, eot=7, name="synth"), root)
+    # Two runs of ~4,200 nodes: above TorchBackend's giant threshold.
+    out["giant"] = write_corpus(SynthSpec(n_runs=2, seed=2, eot=1200, name="giant"), root)
+    return out
+
+
+@pytest.mark.parametrize("name", CORPORA)
+def test_ingest_equals_jax_engine(corpora, name):
+    cd = corpora[name]
+    port = native.ingest_native(cd, keep_handle=True)
+    ref = jax_ingest_native(cd, keep_handle=True)
+    for f in ("n_runs", "v", "e", "tables", "labels", "times", "pre_tid", "post_tid", "max_depth"):
+        assert getattr(port, f) == getattr(ref, f), f
+    np.testing.assert_array_equal(port.iteration, ref.iteration)
+    np.testing.assert_array_equal(port.success, ref.success)
+    for cond in ("pre", "post"):
+        for f in ARRAYS:
+            a, b = getattr(port.cond(cond), f), getattr(ref.cond(cond), f)
+            assert a.dtype == b.dtype, (cond, f)
+            np.testing.assert_array_equal(a, b, err_msg=f"{cond}.{f}")
+    assert port.node_ids_pre == ref.node_ids_pre and port.node_ids_post == ref.node_ids_post
+    for row in range(port.n_runs):
+        assert port.run_head_json(row) == ref.run_head_json(row)
+        for cond in ("pre", "post"):
+            assert port.prov_json(cond, row) == ref.prov_json(cond, row)
+    assert port.static_kwargs == ref.static_kwargs
+
+
+@pytest.mark.parametrize("name", CORPORA)
+def test_ingest_equals_python_pack(corpora, name):
+    cd = corpora[name]
+    nat = native.ingest_native(cd, keep_handle=True)
+    molly = load_molly_output(cd)
+    vocab = CorpusVocab()
+    graphs = {
+        "pre": [pack_graph(r.pre_prov, vocab) for r in molly.runs],
+        "post": [pack_graph(r.post_prov, vocab) for r in molly.runs],
+    }
+    assert (nat.tables, nat.labels, nat.times) == (vocab.tables.strings, vocab.labels.strings, vocab.times.strings)
+    assert nat.iteration.tolist() == molly.runs_iters
+    assert nat.success.tolist() == [r.succeeded for r in molly.runs]
+    for cond, gs in graphs.items():
+        py = pack_batch(molly.runs_iters, gs, nat.v, nat.e)
+        nc = nat.cond(cond)
+        for f in ("table_id", "label_id", "type_id", "is_goal", "node_mask", "edge_src", "edge_dst",
+                  "edge_mask", "n_nodes", "n_goals"):
+            np.testing.assert_array_equal(getattr(nc, f), getattr(py, f), err_msg=f"{cond}.{f}")
+        for i, g in enumerate(gs):
+            np.testing.assert_array_equal(nc.time_id[i, : g.n_nodes], g.time_id)
+            assert nat.lazy_node_ids(cond, i) == g.node_ids
+    for i, run in enumerate(molly.runs):
+        assert nat.run_head_json(i) == head_bytes(run)
+        assert nat.prov_json("pre", i).decode() == json.dumps(run.pre_prov.to_json())
+        assert nat.prov_json("post", i).decode() == json.dumps(run.post_prov.to_json())
+
+
+def test_packed_loader_matches_object_loader(corpora):
+    """load_molly_output_packed: the same run bookkeeping and holds maps as
+    the object loader, RawProv placeholders that splice the same JSON."""
+    cd = corpora["synth"]
+    packed, objs = native.load_molly_output_packed(cd), load_molly_output(cd)
+    for f in ("runs_iters", "success_runs_iters", "failed_runs_iters"):
+        assert getattr(packed, f) == getattr(objs, f)
+    for p, o in zip(packed.runs, objs.runs):
+        assert (p.time_pre_holds, p.time_post_holds) == (o.time_pre_holds, o.time_post_holds)
+        assert p.pre_prov.json_str() == json.dumps(o.pre_prov.to_json())
+        with pytest.raises(AttributeError, match="RawProv"):
+            p.pre_prov.goals
+    assert native.corpus_step_static(packed.native_corpus)["comp_linear"] in (True, False)
+
+
+def _malformed_cases(cd: str) -> list[tuple[str, str, bytes]]:
+    """(label, file, content): one or two of each corruption class."""
+    with open(os.path.join(cd, "runs.json"), "rb") as fh:
+        runs = fh.read()
+    with open(os.path.join(cd, "run_0_pre_provenance.json"), "rb") as fh:
+        prov = fh.read()
+    runs_doc, prov_doc = json.loads(runs), json.loads(prov)
+    brace = prov.find(b"{")
+
+    def swap(doc, path, value):
+        d = json.loads(json.dumps(doc))
+        tgt = d[0] if isinstance(d, list) else d
+        for key in path[:-1]:
+            tgt = tgt[key]
+        tgt[path[-1]] = value
+        return json.dumps(d).encode()
+
+    return [
+        ("truncate", "run_0_pre_provenance.json", prov[: len(prov) // 2]),
+        ("empty", "runs.json", b""),
+        ("bad-bytes", "run_0_post_provenance.json", prov[:10] + b"\xff" + prov[10:]),
+        ("bom", "runs.json", b"\xef\xbb\xbf" + runs),
+        ("trailing-garbage", "run_0_pre_provenance.json", prov + b"} extra ["),
+        ("deep-array", "run_0_pre_provenance.json", b"[" * 5000),
+        ("unterminated-string", "runs.json", runs[: len(runs) - 4] + b'"abc'),
+        ("lenient-number", "run_0_pre_provenance.json", prov[: brace + 1] + b'"__bad": 01, ' + prov[brace + 1 :]),
+        ("iteration-type", "runs.json", swap(runs_doc, ("iteration",), "x")),
+        ("goals-type", "run_0_pre_provenance.json", swap(prov_doc, ("goals",), 42)),
+        ("edge-from-type", "run_0_pre_provenance.json", swap(prov_doc, ("edges",), [{"from": None, "to": "x"}])),
+        ("iteration-int32", "runs.json", swap(runs_doc, ("iteration",), 2**40)),
+    ]
+
+
+def test_malformed_corpora_raise_alike(tmp_path):
+    base = write_case_study("pb_asynchronous", 2, 11, str(tmp_path / "base"))
+    cases = _malformed_cases(base)
+    assert len(cases) == 12
+    for k, (label, fname, content) in enumerate(cases):
+        d = str(tmp_path / f"c{k}")
+        shutil.copytree(base, d)
+        with open(os.path.join(d, fname), "wb") as fh:
+            fh.write(content)
+        with pytest.raises(RuntimeError) as port_err:
+            native.ingest_native(d, keep_handle=True)
+        with pytest.raises(RuntimeError) as jax_err:
+            jax_ingest_native(d, keep_handle=True)
+        assert str(port_err.value) == str(jax_err.value), label
+
+
+def test_unbuildable_source_raises(monkeypatch, tmp_path, corpus_dir):
+    from nemo_tpu_torch.analysis.pipeline import run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+
+    missing = NativeLib(tmp_path / "missing.cpp", native._bind, "nemo_abi_version", native.ABI_VERSION)
+    monkeypatch.setattr(native, "NATIVE", missing)
+    with pytest.raises(RuntimeError, match="missing.cpp"):
+        native.ingest_native(corpus_dir)
+    for mode in ("native", "auto"):
+        with pytest.raises(RuntimeError, match="missing.cpp"):
+            run_debug(corpus_dir, str(tmp_path / "R"), TorchBackend(device="cpu"), ingest=mode)
+    assert not (tmp_path / "R").exists()
+    # The object loader needs no engine.
+    res = run_debug(corpus_dir, str(tmp_path / "R"), TorchBackend(device="cpu"), ingest="python", figures="none")
+    assert res.ingest == "python"
+
+
+def test_compile_error_raises_with_compiler_output(monkeypatch, tmp_path):
+    src = tmp_path / "broken_engine.cpp"
+    src.write_text("int nemo_abi_version() { return 5 }\n")
+    broken = NativeLib(src, native._bind, "nemo_abi_version", native.ABI_VERSION)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed for broken_engine.cpp") as err:
+        broken.load()
+    assert "error" in str(err.value)
+    assert not any(p.name.startswith("libbroken_engine") for p in BUILD_DIR.iterdir())
+
+
+def test_abi_mismatch_raises(tmp_path):
+    src = tmp_path / "old_engine.cpp"
+    src.write_text('extern "C" int nemo_abi_version() { return 4; }\n')
+    with pytest.raises(RuntimeError, match="ABI 4, expected 5"):
+        NativeLib(src, native._bind, "nemo_abi_version", native.ABI_VERSION).load()
