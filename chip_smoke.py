@@ -24,6 +24,11 @@ each fatal (non-zero exit, no result line) on failure:
      waves) beside the plain version, a torch.sparse CSR block-diagonal
      matrix-vector product (the yardstick) and the launch floor (an empty
      kernel timed the same way);
+  Phases 5-6 run their reports on the device lanes (DEVICE_LANES: no
+  host-lane budget), the routes these reports took before the host lane
+  was ported, so that their launches and plan variants stay comparable; a
+  giant good run's diff goes to the host lane whatever the budgets, first
+  in the JAX package's diff order.
   5. drive the dense main path — the debugging report (analysis/pipeline.py
      run_debug over TorchBackend) of all six case-study families at 1,700
      runs each (seed 0), figures sample:8, and of ZK-1270 with every
@@ -36,8 +41,9 @@ each fatal (non-zero exit, no result line) on failure:
      kernel functions, which must show those variants where the profiler
      saw the device);
   5b. drive the host ingest paths, each report with the launch counts
-     zeroed just before and read just after: every family through four
-     legs (the Python loader; the native engine cold, populating a fresh
+     zeroed just before and read just after: every family through the legs
+     (the Python loader, on the first PYTHON_LEG_FAMILIES families; the
+     native engine cold, populating a fresh
      corpus store; a warm store hit; a whole-report result-cache hit, which
      must launch neither kernel), each report equal to the cpu report and
      each leg's ingest wall (the store populate and the cache lookup and
@@ -53,13 +59,31 @@ each fatal (non-zero exit, no result line) on failure:
      (write, stat, link, rename; {"host_file_ops_ms": {...}});
   6. drive the reports that take the sparse tier, each with the launch
      counts zeroed just before and read just after: (a) two giant-V
-     corpora on the auto route (every giant run on sparse_fused; a giant
-     good run's diff on sparse_diff; giant10k without figures, sd_giantv
-     with every figure), (b) a long-horizon sweep of 1,700 runs whose
+     corpora (every giant run on sparse_fused; a giant good run's diff on
+     the host lane, no K2 launch from it; giant10k without figures,
+     sd_giantv with every figure), (b) a long-horizon sweep of 1,700 runs whose
      buckets split between the dense and the sparse tier (both kernels
      launch), each report equal to the cpu one, and (c) ZK-1270 forced
      onto the sparse tier, whose report must equal the dense one; each
      with its plan variants checked and profiled as in phase 5;
+  6d. the six families' and giant10k's reports on the default routes (the
+     JAX package's host-lane budgets: the families' diffs and giant10k's go
+     to the host lane, no K2 launch from the latter), each equal to the cpu
+     report, with their route records ({"default_routes": ...}); then
+     both lanes timed at every shape the defaults route ({"lanes": [...]}:
+     the families' and giant10k's diffs, grown ZK-1270's new-segment
+     buckets, a family's synth bucket), each lane's output equal to the
+     other's, the device lane's checked call counted (giant10k's diff
+     there is the only shared-list K2 launch at its shape);
+  6e. run_debug_dirs over the six families, prefetch off, then on: the
+     total wall, each corpus's ingest on the critical path, the prefetched
+     parses' walls and the shared render drain ({"run_debug_dirs": [...]}),
+     every report equal to the cpu report;
+  6f. ZK-1270 in the corpus store in three appends, reported (figures
+     failed, fresh result caches) streamed and in memory, each with three
+     checkpoints, equal to each other and to the cpu report, then again as
+     a whole-report hit with no launch ({"stream": {...}}: staged_bytes,
+     peak RSS, checkpoints, walls);
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -132,10 +156,30 @@ REPORT_FIGURES = "sample:8"
 #: Runs the grown ZK-1270 sweep of phase 5b appends to its first ones.
 INGEST_GROWN_RUNS = 200
 GIANT_FIGURES = {"giant10k": "none", "sd_giantv": "all"}
+#: The backend knobs that keep every bucket, diff and synth pass off the
+#: host lane: the routes phases 5-6 took before the host lane was ported,
+#: kept so that their launches and plan variants stay comparable.  The
+#: route phases (6d-6f) run the defaults.
+DEVICE_LANES = dict(analysis_host_work=0, diff_host_work=0, synth_host_work=0)
+#: The streamed corpus of phase 6f: ZK-1270 put in the store in three
+#: appends of these run counts.
+STREAM_APPENDS = (600, 1200, FAMILY_RUNS)
+#: Calls per lane at each routed shape of phase 6d.
+LANE_ITERS = 3
+#: Families that phase 5b also reports through the Python loader (the other
+#: legs take all six): kept so that the smoke ends well inside its time
+#: limit on the card's slower hosts.
+PYTHON_LEG_FAMILIES = 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _lanes(default_routes: bool, backend_kw: dict) -> dict:
+    """TorchBackend knobs: the defaults, or the device lanes (DEVICE_LANES)
+    under ``backend_kw``."""
+    return dict(backend_kw) if default_routes else {**DEVICE_LANES, **backend_kw}
 
 
 def gpu_line() -> str:
@@ -708,10 +752,12 @@ LAUNCH_LOG = LaunchLog()
 
 
 def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, report_name: str,
-                   ingest: str = "auto", corpus_cache: str = "off", result_cache: str = "off", **backend_kw):
+                   ingest: str = "auto", corpus_cache: str = "off", result_cache: str = "off",
+                   default_routes: bool = False, **backend_kw):
     """One debugging report on cuda through run_debug, with every kernel's
     launch count set to 0 just before and read just after; the corpus store
-    and the result cache are off unless roots are given.  Returns (the
+    and the result cache are off unless roots are given.  The backend takes
+    the device lanes (DEVICE_LANES) unless ``default_routes``.  Returns (the
     DebugResult, the backend, the report tree's bytes, launches by kernel
     name) and logs the report wall, runs/s, which ingest served it, every
     phase wall, the figures against their unique renders, the report's
@@ -720,7 +766,7 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.ops.sparse_device import LOOP_STATS
 
-    backend = TorchBackend(device="cuda", **backend_kw)
+    backend = TorchBackend(device="cuda", **_lanes(default_routes, backend_kw))
     LOOP_STATS.clear()
     for k in kernels:
         k.launches = 0
@@ -736,28 +782,30 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     tree = report_tree_bytes(res.report_dir)
     runs = len(res.molly.runs)
     fs = res.figure_stats or {"figures": 0, "unique_figures": 0, "render_s": 0, "render_wall_s": 0}
-    routes = [(r["verb"], r["route"], r["rows"], r["v"], r["e"], r["reason"]) for r in backend.analysis_routes]
+    routes = [(r["verb"], r["route"], r["rows"], r["v"], r["e"], r["work"], r["reason"])
+              for r in backend.analysis_routes]
     loops = {n: (r["calls"], r["iters"], round(r["wall_s"], 4)) for n, r in LOOP_STATS.items()}
     log(f"{label}: {runs} runs, {len(res.molly.failed_runs_iters)} failed, figures={figures}, report wall "
         f"{wall:.3f} s, {runs / wall:.1f} runs/s; ingest {res.ingest}, result cache {res.result_cache}; phase wall "
         f"{json.dumps({k: round(v, 4) for k, v in res.timings.items()})}; figures {fs['figures']} written from "
         f"{fs['unique_figures']} unique renders (render {fs['render_s']} s, drain wall {fs['render_wall_s']} s); "
         f"report {sum(map(len, tree.values()))} bytes in {len(tree)} files; launches {counts}, dispatches "
-        f"{backend.executor.dispatches}, routes (verb, route, rows, v, e, reason) {routes}, plain fix-point "
-        f"loops (calls, iters, wall s) {loops}")
+        f"{backend.executor.dispatches}, host-lane runs {backend.executor.host_runs}, routes (verb, route, rows, v, "
+        f"e, work, reason) {routes}, plain fix-point loops (calls, iters, wall s) {loops}"
+        + (f"; stream {res.stream}" if res.stream else ""))
     res.report_wall_s = wall
     return res, backend, tree, counts
 
 
 def check_report_cpu_equal(label: str, cd: str, tree: dict, out_root: str, figures: str, report_name: str,
-                           ingest: str = "auto", **backend_kw) -> None:
-    """The same report on the CPU, caches off, must have the same bytes,
-    file for file."""
+                           ingest: str = "auto", default_routes: bool = False, **backend_kw) -> None:
+    """The same report on the CPU, caches off, the same routes, must have the
+    same bytes, file for file."""
     from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
 
     t = time.perf_counter()
-    res = run_debug(cd, out_root, TorchBackend(device="cpu", **backend_kw), figures=figures,
+    res = run_debug(cd, out_root, TorchBackend(device="cpu", **_lanes(default_routes, backend_kw)), figures=figures,
                     report_name=report_name, ingest=ingest, corpus_cache="off", result_cache="off")
     cpu_tree = report_tree_bytes(res.report_dir)
     log(f"{label} on cpu: {time.perf_counter() - t:.3f} s")
@@ -839,9 +887,10 @@ def main_path(work: str, kernels) -> tuple[dict, dict, dict]:
 
 def ingest_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     """Phase 5b: the host ingest paths.  Each family (1,700 runs,
-    sample:8) is reported on cuda four times, each leg into its own report
-    root, with the corpus store and the result cache under fresh roots of
-    this phase: the Python loader (caches off), the native engine cold
+    sample:8) is reported on cuda by each leg, into its own report root,
+    with the corpus store and the result cache under fresh roots of this
+    phase: the Python loader (caches off; the first PYTHON_LEG_FAMILIES
+    families only), the native engine cold
     (populating the store), a warm store hit (populating the result cache)
     and a whole-report result-cache hit, which must launch neither kernel.
     Every leg's report must equal the family's cpu report (trees).  Then
@@ -865,6 +914,8 @@ def ingest_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     for name, cd in dirs.items():
         row = {"family": name}
         for leg, kw in legs:
+            if leg == "python" and name not in list(dirs)[:PYTHON_LEG_FAMILIES]:
+                continue
             label = f"ingest {leg} {name}"
             res, _backend, tree, counts = report_counted(
                 label, cd, kernels, os.path.join(root, "reports", leg.replace(" ", "-")), REPORT_FIGURES, name, **kw)
@@ -960,21 +1011,27 @@ def host_file_ops(root: str, n: int = 2000) -> dict:
 
 
 def cli_report(label: str, argv: list[str], kernels, report_dir: str):
-    """One report through the CLI's entry point (nemo_tpu_torch.cli.main)
-    with every kernel's launch count set to 0 just before and read just
-    after.  Returns (the wall, the report's telemetry.json, its tree,
+    """One report through the CLI's entry point (nemo_tpu_torch.cli.main),
+    its backend on the device lanes (DEVICE_LANES), with every kernel's
+    launch count set to 0 just before and read just after.  Returns (the wall, the report's telemetry.json, its tree,
     launches by kernel name)."""
+    import functools
+
     from nemo_tpu_torch import cli
     from nemo_tpu_torch.analysis.pipeline import report_tree_bytes
 
     for k in kernels:
         k.launches = 0
     LAUNCH_LOG.label = label
+    backend_cls = cli.TorchBackend
+    # The CLI's backend on the device lanes, like the other reports of 5b.
+    cli.TorchBackend = functools.partial(backend_cls, **DEVICE_LANES)
     t = time.perf_counter()
     try:
         if cli.main(argv) != 0:
             raise AssertionError(f"{label}: the CLI failed")
     finally:
+        cli.TorchBackend = backend_cls
         LAUNCH_LOG.label = None
     wall = time.perf_counter() - t
     counts = {k.__name__: k.launches for k in kernels}
@@ -1030,9 +1087,10 @@ def cli_grown(root: str, kernels, zk_dir: str) -> dict:
     return launches
 
 
-def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> dict:
+def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> tuple[dict, dict]:
     """Phase 6: the reports that take the sparse-CSR device tier on cuda.
-    Returns the launches by kernel over them."""
+    Returns the launches by kernel over them and the giant corpora's
+    directories by name."""
     from nemo_tpu_torch.models.synth import SynthSpec, write_corpus
 
     launches = {k.__name__: 0 for k in kernels}
@@ -1042,11 +1100,12 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> dict:
         for k, n in counts.items():
             launches[k] += n
 
-    # (a) Giant-V corpora on the auto route: every run above GIANT_V nodes
+    # (a) Giant-V corpora on the device lanes: every run above GIANT_V nodes
     # leaves the buckets for its own sparse_fused dispatch (the buckets left
     # hold only runs of at most GIANT_V nodes, as their V bucket shows), and
-    # a giant good run's diff goes to sparse_diff.
-    sparse_diffs = 0
+    # a giant good run's diff goes to the host lane, first in the JAX
+    # package's diff order, whatever the budgets: no K2 launch comes from it.
+    host_giant_diffs = 0
     giant_dirs = []
     for name, n_runs, seed, eot in GIANT_SPECS:
         t = time.perf_counter()
@@ -1070,17 +1129,21 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> dict:
         ):
             raise AssertionError(f"{name}: giant runs not each on sparse_fused: {routes}")
         if diff["v"] > GIANT_V:  # the good run's node count
-            if (diff["route"], diff["reason"]) != ("sparse_device", "giant") or dispatches.get("sparse_diff") != 1:
-                raise AssertionError(f"{name}: a giant good run's diff not on sparse_diff: {diff}")
-            sparse_diffs += 1
+            shared = [key for (k, key), rec in LAUNCH_LOG.shapes.items()
+                      if k == "edge_wave" and key[3] and f"report {name}" in rec["launches"]]
+            if ((diff["route"], diff["reason"]) != ("sparse", "giant") or "sparse_diff" in dispatches
+                    or backend.executor.host_runs.get("sparse_diff") != 1 or shared):
+                raise AssertionError(f"{name}: a giant good run's diff not on the host lane: {diff}, "
+                                     f"shared-list K2 launches {shared}")
+            host_giant_diffs += 1
         if counts["edge_wave"] <= 0:
             raise AssertionError(f"{name}: edge_wave never launched")
         if figures == "all" and not any("diff_post_prov-diff" in k for k in tree):
             raise AssertionError(f"{name}: no diff overlay in the report")
         check_report_content(name, res)
         check_report_cpu_equal(f"report {name}", cd, tree, cpu_root, figures, name)
-    if not sparse_diffs:
-        raise AssertionError("no giant corpus drove sparse_diff")
+    if not host_giant_diffs:
+        raise AssertionError("no giant corpus had a giant good run")
     for cd in giant_dirs:
         name = os.path.basename(cd)
         label, profile = f"report {name}", profile_family(cd, cuda_root, GIANT_FIGURES[name])
@@ -1128,6 +1191,310 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> dict:
     # worklist, the diff's shared V = 32 list the staged waves.
     expect_variants(label, "edge_wave", {"worklist_warp", "waves_staged"},
                     profile_family(zk_dir, cuda_root, REPORT_FIGURES, analysis_impl="sparse_device"))
+    return launches, {os.path.basename(cd): cd for cd in giant_dirs}
+
+
+def lane_ms(fn, iters: int = LANE_ITERS) -> float:
+    """Wall ms per call of one lane, the card synchronized after each: the
+    host lane's numpy, or a device lane's executor call (upload, kernels,
+    the copy of its outputs back)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def _same_lane_outputs(label: str, host: dict, dev: dict, keys, rows: int) -> None:
+    for k in keys:
+        a, b = host[k], dev[k]
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        if not np.array_equal(a[:rows], b[:rows]):
+            raise AssertionError(f"lanes {label}: the host lane's {k} differs from the device lane's")
+
+
+def _lane_backend(molly):
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+
+    tb = TorchBackend(device="cuda")
+    tb.init_graph_db("", molly)
+    return tb
+
+
+def route_lanes(kernels, dirs: dict, giant_dirs: dict) -> tuple[list[dict], dict]:
+    """Phase 6d's lane timings: at every shape the default routes send to
+    one lane or the other, both lanes on the same inputs, in one call, each
+    checked equal to the other: the families' diffs (host against the dense
+    diff), giant10k's diff (host against sparse_diff, the shared-list K2
+    launches no report makes since the giant diff takes the host lane), the
+    buckets of grown ZK-1270's new segment (the host step against the dense
+    fused step) and one family's synth bucket (host against synth_ext).
+    The device lane's checked call at each shape is counted like a report
+    (the launch counts zeroed just before, read just after, the LaunchLog
+    labelled), so phase 7 times its kernels at these shapes; the timing
+    loops' launches are not.  Returns the rows and the counted launches by
+    kernel."""
+    from nemo_tpu_torch.analysis import delta
+    from nemo_tpu_torch.backend.torch_backend import _verb_arrays
+    from nemo_tpu_torch.graphs.packed import bucket_size
+    from nemo_tpu_torch.ingest.native import load_molly_output_packed
+    from nemo_tpu_torch.ops.sparse_host import sparse_analysis_step, synth_ext_host
+
+    rows_out = []
+    launches = {k.__name__: 0 for k in kernels}
+
+    def counted(label, fn):
+        for k in kernels:
+            k.launches = 0
+        LAUNCH_LOG.label = label
+        try:
+            out = fn()
+        finally:
+            LAUNCH_LOG.label = None
+        for k in kernels:
+            launches[k.__name__] += k.launches
+        log(f"{label}: launches {({k.__name__: k.launches for k in kernels})}")
+        return out
+
+    def add(label, route, work, shape, host_fn, dev_fn, dev_lane, iters=LANE_ITERS):
+        row = {"shape": label, "default_route": route, "work": int(work), **shape, "iters": iters,
+               "host_ms": lane_ms(host_fn, iters), f"{dev_lane}_ms": lane_ms(dev_fn, iters)}
+        rows_out.append(row)
+        log(f"lanes {label}: {json.dumps(row)}")
+
+    diff_keys = ("node_keep", "frontier_rule", "missing_goal")
+    for name, cd in list(dirs.items()) + [("giant10k", giant_dirs["giant10k"])]:
+        molly = load_molly_output_packed(cd)
+        tb = _lane_backend(molly)
+        failed = molly.get_failed_runs_iters()
+        _g, good, gb, bits = tb._diff_batch(failed)
+        n = len(failed)
+        route, reason, work = tb._diff_route(good.n_nodes, len(good.edges), n, bits.shape[0], gb.v)
+        dev_route = "sparse_device" if name == "giant10k" else "dense"
+        host = tb._diff_dispatch("sparse", good, gb, bits, n)
+        dev = counted(f"lanes diff {name}", lambda: tb._diff_dispatch(dev_route, good, gb, bits, n))
+        _same_lane_outputs(f"diff {name}", host, dev, diff_keys, n)
+        if name == "giant10k":  # the shared-list worklist of a giant good run's device-lane diff
+            expect_variants(f"lanes diff {name}", "edge_wave", {"worklist_block"}, {})
+        else:  # the [V,V] diff closure of the families' device-lane reports
+            expect_variants(f"lanes diff {name}", "closure", {"warp"}, {})
+        add(f"diff {name}", f"{route}/{reason}", work,
+            {"F": n, "V": gb.v, "good_nodes": good.n_nodes, "good_edges": len(good.edges)},
+            lambda: tb._diff_dispatch("sparse", good, gb, bits, n),
+            lambda: tb._diff_dispatch(dev_route, good, gb, bits, n), dev_route,
+            iters=2 if name == "giant10k" else LANE_ITERS)
+        tb.close_db()
+
+    # Grown ZK-1270's new segment, as the grown report maps it: its last
+    # INGEST_GROWN_RUNS runs and the good run as context.
+    zk = "ZK-1270-racing-sent-flag"
+    molly = load_molly_output_packed(dirs[zk])
+    good = delta.choose_good_run(molly)
+    pos = {r.iteration: i for i, r in enumerate(molly.runs)}
+    rows = sorted(set(range(FAMILY_RUNS - INGEST_GROWN_RUNS, FAMILY_RUNS)) | {pos[good]})
+    tb = _lane_backend(delta.subset_molly(molly, rows))
+    plan = tb._plan_fused_inputs()
+    summary = ("pre_holds", "post_holds", "pre_alive", "post_alive", "pre_type", "post_type", "proto_bits",
+               "proto_min_depth", "proto_present")
+    for pre_b, post_b in plan["batches"]:
+        b = len(pre_b.run_ids)
+        route, reason, work = tb._analysis_route(b, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
+        linear = all(tb._lin_by_iter[i] for i in pre_b.run_ids)
+        params = dict(v=pre_b.v, max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), plan["min_d"]),
+                      comp_linear=int(linear), num_labels=8, with_diff=0, **plan["tids"])
+
+        def host_fn(pre_b=pre_b, post_b=post_b, linear=linear):
+            return sparse_analysis_step(pre_b, post_b, v=pre_b.v, comp_linear=linear, **plan["tids"])
+
+        def dev_fn(pre_b=pre_b, post_b=post_b, params=params):
+            return tb.executor.run("fused", _verb_arrays(pre_b, post_b), params, rows=len(pre_b.run_ids))
+
+        _same_lane_outputs(f"fused grown {zk} ({b}, {pre_b.v}, {pre_b.e})", host_fn(),
+                           counted(f"lanes fused grown {zk} ({b}, {pre_b.v}, {pre_b.e})", dev_fn), summary, b)
+        add(f"fused grown {zk} new segment", f"{route}/{reason}", work, {"B": b, "V": pre_b.v, "E": pre_b.e},
+            host_fn, dev_fn, "dense")
+    tb.close_db()
+
+    # One family's synth bucket (1,700 runs: past the synth budget).
+    tb = _lane_backend(molly)
+    pre_b, _post_b, res = tb._fused()[0]
+    b = len(pre_b.run_ids)
+    holds = np.asarray(res["pre_holds"])
+    nt = int(np.asarray(res["proto_bits"]).shape[1])
+    arrays = {f: getattr(pre_b, f) for f in ("edge_src", "edge_dst", "edge_mask", "is_goal", "node_mask",
+                                             "type_id", "table_id")}
+    arrays["holds"] = holds
+    route, reason, work = tb._synth_route(b, pre_b.v, pre_b.e)
+    host = {"ext_bits": synth_ext_host(pre_b, holds, nt)}
+    dev = counted(f"lanes synth {zk}",
+                  lambda: tb.executor.run("synth_ext", arrays, {"v": pre_b.v, "num_tables": nt}, rows=b))
+    _same_lane_outputs(f"synth {zk}", host, dev, ("ext_bits",), b)
+    add(f"synth {zk}", f"{route}/{reason}", work, {"B": b, "V": pre_b.v, "E": pre_b.e},
+        lambda: synth_ext_host(pre_b, holds, nt),
+        lambda: tb.executor.run("synth_ext", arrays, {"v": pre_b.v, "num_tables": nt}, rows=b), "sparse_device")
+    tb.close_db()
+    return rows_out, launches
+
+
+def routes_path(work: str, kernels, dirs: dict, trees: dict, giant_dirs: dict) -> dict:
+    """Phase 6d: the six families' reports on the default routes (the host
+    budgets of the JAX package), each into a fresh root with the launch
+    counts zeroed just before and read just after, each equal to the
+    family's cpu report (``trees``, the cuda reports of phase 5 that equal
+    it); then giant10k on the default routes, its diff on the host lane by
+    "giant" with no K2 launch from it, equal to its cpu report; their route
+    records as a JSON line {"default_routes": {...}}.  Returns the launches
+    by kernel."""
+    launches = {k.__name__: 0 for k in kernels}
+    root = os.path.join(work, "routes")
+    table = {}
+    for name, cd in dirs.items():
+        label = f"routes {name}"
+        res, backend, tree, counts = report_counted(label, cd, kernels, root, REPORT_FIGURES, name,
+                                                    default_routes=True)
+        for k, n in counts.items():
+            launches[k] += n
+        if tree != trees[name]:
+            differ = sorted(k for k in set(tree) | set(trees[name]) if tree.get(k) != trees[name].get(k))
+            raise AssertionError(f"{label}: the default-route report differs from the cpu report in {differ[:10]}")
+        (diff,) = [r for r in backend.analysis_routes if r["verb"] == "diff"]
+        if (diff["route"], diff["reason"]) != ("sparse", "crossover"):
+            raise AssertionError(f"{label}: the families' diff is not on the host lane: {diff}")
+        # The bucket closure only: the diff no longer launches the warp variant.
+        expect_variants(label, "closure", {"block"}, {})
+        table[name] = backend.analysis_routes
+        shutil.rmtree(res.report_dir)
+    name = "giant10k"
+    label = f"routes {name}"
+    res, backend, tree, counts = report_counted(label, giant_dirs[name], kernels, root, GIANT_FIGURES[name], name,
+                                                default_routes=True)
+    for k, n in counts.items():
+        launches[k] += n
+    (diff,) = [r for r in backend.analysis_routes if r["verb"] == "diff"]
+    shared = [key for (k, key), rec in LAUNCH_LOG.shapes.items() if k == "edge_wave" and key[3] and label in rec["launches"]]
+    if (diff["route"], diff["reason"]) != ("sparse", "giant") or shared or counts["edge_wave"] <= 0:
+        raise AssertionError(f"{label}: diff {diff}, shared-list K2 launches {shared}, launches {counts}")
+    check_report_cpu_equal(label, giant_dirs[name], tree, os.path.join(root, "cpu"), GIANT_FIGURES[name], name,
+                           default_routes=True)
+    table[name] = backend.analysis_routes
+    shutil.rmtree(res.report_dir)
+    print(json.dumps({"default_routes": table}))
+    return launches
+
+
+def dirs_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
+    """Phase 6e: run_debug_dirs over the six families (native ingest, caches
+    off, default routes), prefetch off, then on, in one call, each with
+    the launch counts zeroed before and read after, every report equal to
+    its cpu report (``trees``).  Prints the total wall, each corpus's
+    ``ingest`` on the critical path, the prefetched parses' walls on the
+    worker thread and the shared scheduler's drain wall
+    ({"run_debug_dirs": [...]}).  Returns the launches by kernel."""
+    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug_dirs
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+
+    launches = {k.__name__: 0 for k in kernels}
+    rows = []
+    for i, prefetch in enumerate((False, True)):
+        label = f"dirs prefetch {'on' if prefetch else 'off'} #{i}"
+        out_root = os.path.join(work, "dirs", str(i))
+        for k in kernels:
+            k.launches = 0
+        LAUNCH_LOG.label = label
+        t = time.perf_counter()
+        try:
+            results = run_debug_dirs(list(dirs.values()), out_root, lambda: TorchBackend(device="cuda"),
+                                     prefetch=prefetch, figures=REPORT_FIGURES, ingest="native", corpus_cache="off",
+                                     result_cache="off")
+        finally:
+            LAUNCH_LOG.label = None
+        wall = time.perf_counter() - t
+        counts = {k.__name__: k.launches for k in kernels}
+        for k, n in counts.items():
+            launches[k] += n
+        for r in results:
+            name = os.path.basename(r.report_dir)
+            if report_tree_bytes(r.report_dir) != trees[name]:
+                raise AssertionError(f"{label}: the report of {name} differs from the cpu report")
+        row = {"prefetch": prefetch, "wall_s": round(wall, 4),
+               "ingest_s": {os.path.basename(r.report_dir): round(r.timings["ingest"], 4) for r in results},
+               "ingest_prefetch_s": {os.path.basename(r.report_dir): round(r.timings["ingest_prefetch"], 4)
+                                     for r in results if "ingest_prefetch" in r.timings},
+               "drain_wall_s": results[0].figure_stats["drain_wall_s"], "launches": counts}
+        rows.append(row)
+        log(f"{label}: {json.dumps(row)}; every report equals the cpu report")
+        shutil.rmtree(out_root)
+    print(json.dumps({"run_debug_dirs": rows}))
+    return launches
+
+
+def stream_path(work: str, kernels, zk_dir: str) -> dict:
+    """Phase 6f: ZK-1270 put in the corpus store in three appends
+    (STREAM_APPENDS runs), then reported on the default routes with
+    figures=failed and a fresh result cache, streamed (NEMO_STREAM=on) and
+    in memory (off), each mapping the three segments and publishing three
+    checkpoints; the two reports equal each other and the cpu report; then
+    the streamed one again as a whole-report hit with no launch.  Prints
+    staged_bytes, the peak RSS and the checkpoints ({"stream": {...}}).
+    Returns the launches by kernel."""
+    from nemo_tpu_torch.analysis import delta, pipeline
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
+    from nemo_tpu_torch.store import resolve_store
+
+    launches = {k.__name__: 0 for k in kernels}
+    root = os.path.join(work, "stream")
+    zk = os.path.basename(zk_dir)
+    d, cc = os.path.join(root, "corpus", zk), os.path.join(root, "corpus-cache")
+    store = resolve_store(cc)
+    for n in STREAM_APPENDS:
+        grow_corpus_dir(zk_dir, d, n)
+        molly, _kind, snap = pipeline._ingest(d, True, store)
+        if snap is not None:
+            pipeline._populate(store, d, molly, snap)
+    segs = [s.n_runs for s in delta.corpus_segments(store.load_packed(d))]
+    if len(segs) != len(STREAM_APPENDS):
+        raise AssertionError(f"stream {zk}: the store holds segments {segs}")
+    out, trees = {"segments": segs}, {}
+    saved = os.environ.get("NEMO_STREAM")
+    try:
+        for mode in ("on", "off"):
+            os.environ["NEMO_STREAM"] = mode
+            label = f"stream {mode} {zk}"
+            res, _backend, trees[mode], counts = report_counted(
+                label, d, kernels, os.path.join(root, "reports", mode), "failed", zk, ingest="native",
+                corpus_cache=cc, result_cache=os.path.join(root, f"rc-{mode}"), default_routes=True)
+            for k, n in counts.items():
+                launches[k] += n
+            st = res.stream
+            if (st.get("streamed") != (mode == "on") or st.get("segments_mapped") != len(segs)
+                    or st.get("checkpoints") != len(segs) or (mode == "on") != (st.get("staged_bytes", 0) > 0)):
+                raise AssertionError(f"{label}: stream record {st}")
+            out[mode] = {"report_s": round(res.report_wall_s, 4), "phases": {k: round(v, 4) for k, v in
+                                                                              res.timings.items()},
+                         "stream": st, "result_cache": res.result_cache, "launches": counts}
+            shutil.rmtree(res.report_dir)
+        os.environ["NEMO_STREAM"] = "on"
+        label = f"stream hit {zk}"
+        res, _backend, hit_tree, counts = report_counted(
+            label, d, kernels, os.path.join(root, "reports", "hit"), "failed", zk, ingest="native",
+            corpus_cache=cc, result_cache=os.path.join(root, "rc-on"), default_routes=True)
+        if res.result_cache != {"state": "report_hit"} or any(counts.values()) or hit_tree != trees["on"]:
+            raise AssertionError(f"{label}: result cache {res.result_cache}, launches {counts}")
+        out["hit"] = {"report_s": round(res.report_wall_s, 4), "launches": counts}
+    finally:
+        if saved is None:
+            os.environ.pop("NEMO_STREAM", None)
+        else:
+            os.environ["NEMO_STREAM"] = saved
+    if trees["on"] != trees["off"]:
+        raise AssertionError(f"stream {zk}: the streamed report differs from the in-memory one")
+    check_report_cpu_equal(f"stream {zk}", d, trees["on"], os.path.join(root, "cpu"), "failed", zk,
+                           ingest="python", default_routes=True)
+    print(json.dumps({"stream": out}))
+    shutil.rmtree(root)
     return launches
 
 
@@ -1143,7 +1510,7 @@ def profile_family(cd: str, out_root: str, figures: str, **kw) -> dict[str, dict
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        res = run_debug(cd, out_root, TorchBackend(device="cuda", **kw), figures=figures,
+        res = run_debug(cd, out_root, TorchBackend(device="cuda", **_lanes(False, kw)), figures=figures,
                         report_name="profile-" + os.path.basename(cd), corpus_cache="off", result_cache="off")
         wall = time.perf_counter() - t
     shutil.rmtree(res.report_dir)
@@ -1215,8 +1582,8 @@ def expect_variants(label: str, kernel: str, want: set[str], profile: dict) -> N
         raise AssertionError(f"{label}: {kernel} launched by variants {got}, expected {sorted(want)}")
     functions = {VARIANT_FUNCTIONS[kernel][v] for v in want}
     if not profile:
-        log(f"{label}: {kernel} variants {got} by the launches; the profile recorded no device time, so the "
-            f"kernel functions were not checked against it")
+        log(f"{label}: {kernel} variants {got} by the launches; no profile with device time, so the kernel "
+            f"functions were not checked against one")
         return
     missing = functions - set(profile.get(kernel, {}))
     if missing:
@@ -1270,15 +1637,29 @@ def main() -> int:
         ingest = ingest_path(work, kernels, dirs, trees)
         log(f"phase 5b wall {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        sparse = sparse_path(work, kernels, dirs[zk], trees[zk])
+        sparse, giant_dirs = sparse_path(work, kernels, dirs[zk], trees[zk])
         log(f"phase 6 wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        routes = routes_path(work, kernels, dirs, trees, giant_dirs)
+        lane_rows, lanes = route_lanes(kernels, dirs, giant_dirs)
+        print(json.dumps({"lanes": lane_rows}))
+        log(f"phase 6d wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        several = dirs_path(work, kernels, dirs, trees)
+        log(f"phase 6e wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        streamed = stream_path(work, kernels, dirs[zk])
+        log(f"phase 6f wall {time.perf_counter() - t:.1f} s")
         del trees
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
-    log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}")
+    log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}, "
+        f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
+        f"on the streamed map {streamed}")
     for record in records:
-        record["launches"] = dense[record["name"]] + ingest[record["name"]] + sparse[record["name"]]
+        record["launches"] = sum(part[record["name"]]
+                                 for part in (dense, ingest, sparse, routes, lanes, several, streamed))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

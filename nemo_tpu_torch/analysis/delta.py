@@ -1,5 +1,5 @@
 """The analysis as a map per corpus-store segment plus a reduce, a copy of
-the JAX package's ``analysis/delta.py`` without the streamed tree reduce.
+the JAX package's ``analysis/delta.py``.
 
   * **map** (:func:`map_runs`): the per-run verbs (condition marking,
     simplification, hazard and provenance figures, per-run prototype rule
@@ -11,7 +11,9 @@ the JAX package's ``analysis/delta.py`` without the streamed tree reduce.
     prototype intersection and union (analysis/protos.py set algebra over
     the per-run tables), per-failed-run missing lists, the achieved-
     antecedent count, the ranked repairs.  It imposes the corpus's run
-    order itself, so it does not depend on the order of its partials.
+    order itself, so it does not depend on the order of its partials.  The
+    partials merge as a k-ary tree (:func:`merge_partials`); the streamed
+    map pushes them into a :class:`TreeReducer` as its segments finish.
 
 A :class:`SegmentPartial` is the intermediate: one segment's per-run
 artifacts as plain strings and ints (no vocabulary ids, so it survives the
@@ -352,6 +354,27 @@ class MapOutput:
     diff: dict = field(default_factory=dict)
     diff_failed: dict = field(default_factory=dict)
 
+    def merge(self, other: "MapOutput") -> None:
+        """Fold another map's artifacts in (a map of several groups, one
+        segment each).  Per-run dicts are keyed by iteration and disjoint
+        across segments; the anchor content is a function of the anchor
+        runs, which ride in every view, so any group's copy is the
+        corpus's."""
+        self.merge_figures(other)
+        for name in ("proto_ordered", "present", "missing", "achieved", "ext_candidates"):
+            getattr(self, name).update(getattr(other, name))
+        self.corrections = list(other.corrections)
+        self.extensions = list(other.extensions)
+        self.good_proto = other.good_proto
+
+    def merge_figures(self, other: "MapOutput") -> None:
+        """Fold in only what the report phase reads: the owned runs and the
+        figure DOTs (the streamed map: every per-run artifact travels in the
+        segment partials instead)."""
+        self.own_iters.extend(other.own_iters)
+        for name in ("hazard", "pre", "post", "pre_clean", "post_clean", "diff", "diff_failed"):
+            getattr(self, name).update(getattr(other, name))
+
     def as_partial(self, iters: list[int]) -> SegmentPartial:
         """The reduce's input: this map's artifacts sliced to runs ``iters``
         (one segment's, or all)."""
@@ -480,16 +503,34 @@ def map_runs(
     return out
 
 
-def merge_partials(parts: list[SegmentPartial]) -> SegmentPartial:
-    """Fold partials left to right (the JAX package folds the same node as
-    a k-ary tree; the results are equal).  Per-run dicts are keyed by
-    iteration and disjoint across partials; the anchor content
-    (corrections, extensions, good_proto) is taken together from the last
-    partial that carries it: every carrier holds the same values."""
-    if len(parts) == 1:
-        return parts[0]
+#: Merge arity of the tree reduce (the JAX package's NEMO_REDUCE_ARITY
+#: default; the port reads no knob for it).  The reduce state stays at
+#: O(arity * log_arity(S)) live partials instead of all S.
+REDUCE_ARITY = 8
+
+
+def merge_partials(parts: list[SegmentPartial], arity: int | None = None) -> SegmentPartial:
+    """Merge partials into one as a k-ary tree (pairwise at arity 2).  Per-run
+    dicts are keyed by iteration and disjoint across partials; the anchor
+    content (corrections, extensions, good_proto) is taken together from the
+    later carrier of a merge, the flat left fold's last-wins: every carrier
+    holds the same values, so the tree equals the flat fold for any arity
+    and any order."""
+    if not parts:
+        return SegmentPartial()
+    k = arity or REDUCE_ARITY
+    items = list(parts)
+    while len(items) > 1:
+        items = [_merge_group(items[i : i + k]) for i in range(0, len(items), k)]
+    return items[0]
+
+
+def _merge_group(group: list[SegmentPartial]) -> SegmentPartial:
+    """One merge node: fold a group of at most arity partials left to right."""
+    if len(group) == 1:
+        return group[0]
     out = SegmentPartial()
-    for p in parts:
+    for p in group:
         out.iters.extend(p.iters)
         out.success_iters.extend(p.success_iters)
         out.failed_iters.extend(p.failed_iters)
@@ -504,6 +545,45 @@ def merge_partials(parts: list[SegmentPartial]) -> SegmentPartial:
             out.extensions = list(p.extensions or [])
             out.good_proto = None if p.good_proto is None else list(p.good_proto)
     return out
+
+
+class TreeReducer:
+    """The streamed reduce: partials are pushed as their segments finish and
+    fold like a binary counter: level 0 buffers up to ``arity`` partials, a
+    full buffer merges into one level-1 partial, and so on, so at most
+    ``arity * ceil(log_arity(S))`` partials are live.  ``partials()`` is the
+    live frontier in push order (deepest level first), which
+    :func:`reduce_partials` finishes: equal to reducing the flat list."""
+
+    def __init__(self, arity: int | None = None) -> None:
+        self.arity = arity or REDUCE_ARITY
+        self._levels: list[list[SegmentPartial]] = []
+        self.pushed = 0
+
+    def push(self, p: SegmentPartial) -> None:
+        self.pushed += 1
+        lvl = 0
+        while True:
+            if len(self._levels) <= lvl:
+                self._levels.append([])
+            buf = self._levels[lvl]
+            buf.append(p)
+            if len(buf) < self.arity:
+                return
+            p = _merge_group(buf)
+            self._levels[lvl] = []
+            lvl += 1
+
+    def live(self) -> int:
+        return sum(len(b) for b in self._levels)
+
+    def partials(self) -> list[SegmentPartial]:
+        """The live frontier, in push order (a level-N item was pushed
+        before any surviving lower-level item)."""
+        out: list[SegmentPartial] = []
+        for lvl in reversed(range(len(self._levels))):
+            out.extend(self._levels[lvl])
+        return out
 
 
 @dataclass

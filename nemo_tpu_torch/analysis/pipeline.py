@@ -1,9 +1,10 @@
 """End-to-end debugging pipeline: one corpus in, one report tree out.
 
-A copy of the JAX package's ``analysis/pipeline.py`` trimmed to what
-``run_debug`` needs on one corpus: packed-first native ingest, the corpus
-store and the two-tier result cache, without streaming, checkpoints or
-several corpora at once.  The stage order mirrors the reference's main()
+A copy of the JAX package's ``analysis/pipeline.py``: ``run_debug`` on one
+corpus (packed-first native ingest, the corpus store, the two-tier result
+cache, the segment-streamed map and per-segment checkpoints) and
+``run_debug_dirs`` over several, each corpus parsed while the one before
+it is analysed.  The stage order mirrors the reference's main()
 (main.go:106-292): ingest -> init backend -> load raw provenance ->
 simplify -> hazard analysis -> prototypes -> pull provenance DOTs ->
 differential provenance -> corrections (only when failures exist) ->
@@ -17,6 +18,7 @@ import json
 import logging
 import os
 import shutil
+import time
 import uuid
 from dataclasses import dataclass, field
 
@@ -63,6 +65,11 @@ class DebugResult:
     #: the result cache's part: "off", "report_hit" or "computed", and the
     #: segments and runs served from cached partials or mapped
     result_cache: dict = field(default_factory=dict)
+    #: a map of several segments: whether it streamed, the segments mapped,
+    #: the bytes staged on the card ahead of their dispatches, the staging
+    #: seconds, the process's peak RSS after the last segment and the
+    #: checkpoints published; empty for a map of one group
+    stream: dict = field(default_factory=dict)
 
 
 def report_tree_bytes(root: str) -> dict[str, bytes]:
@@ -81,16 +88,19 @@ def report_tree_bytes(root: str) -> dict[str, bytes]:
 
 
 def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, ingest: str,
-                     result_cache: dict) -> None:
+                     result_cache: dict, stream: dict | None = None) -> None:
     """telemetry.json next to debugging.json: the phase walls, the figure
     pipeline's stats (the frontend's "Run telemetry" section), which ingest
-    served the corpus and what the result cache did."""
+    served the corpus, what the result cache did and, for a map of several
+    segments, the stream's and the checkpoints' record."""
     doc = {
         "timings": {k: round(v, 6) for k, v in timings.items()},
         "figure_stats": figure_stats,
         "ingest": ingest,
         "result_cache": result_cache,
     }
+    if stream:
+        doc["stream"] = stream
     with open(os.path.join(report_dir, "telemetry.json"), "w", encoding="utf-8") as fh:
         json.dump(doc, fh, indent=1)
 
@@ -261,6 +271,141 @@ def _populate(store, fault_inj_out: str, molly: MollyOutput, snap: dict) -> None
             attach_store_provenance(nc, sd, header)
 
 
+def _attach_ingest_dir(ex: BaseException, d: str) -> BaseException:
+    """Name the corpus directory in an ingest exception, in place, keeping
+    its type: the first string argument gains the suffix (an OSError its
+    strerror, which is what str() shows); an exception without a string
+    argument gains one."""
+    note = f"(while ingesting {d})"
+    if isinstance(ex, OSError) and isinstance(getattr(ex, "strerror", None), str):
+        if note not in ex.strerror:
+            ex.strerror = f"{ex.strerror} {note}"
+        return ex
+    args = list(ex.args)
+    for i, a in enumerate(args):
+        if isinstance(a, str):
+            if note not in a:
+                args[i] = f"{a} {note}"
+            break
+    else:
+        args.append(note)
+    ex.args = tuple(args)
+    return ex
+
+
+def corpus_report_names(dirs: list[str]) -> list[str]:
+    """Report directory names for several corpora under one results root:
+    the directory's basename where it is unique among ``dirs``, else
+    basename-<first 8 hex of the sha256 of its realpath>, stable across
+    runs.  Raises when two entries are the same directory: both reports
+    would write one tree."""
+    import hashlib
+
+    basenames = [os.path.basename(os.path.normpath(d)) for d in dirs]
+    dupes = {b for b in basenames if basenames.count(b) > 1}
+    names = [
+        f"{b}-{hashlib.sha256(os.path.realpath(d).encode()).hexdigest()[:8]}" if b in dupes else b
+        for d, b in zip(dirs, basenames)
+    ]
+    clashes = {n for n in names if names.count(n) > 1}
+    if clashes:
+        raise ValueError(
+            f"corpus directories resolve to the same report name(s) {sorted(clashes)}: the same directory was "
+            "listed more than once; each -faultInjOut must name a distinct corpus"
+        )
+    return names
+
+
+def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefetch: bool = False,
+                   **kwargs) -> list[DebugResult]:
+    """run_debug over several corpus directories; with ``prefetch``, corpus
+    k+1's ingest runs on a worker thread while corpus k is analysed and
+    reported (the C++ engine's parse runs in a ctypes call that releases
+    the GIL).  The JAX package prefetches by default; the port does not,
+    because on an H100 host the six families took longer with the thread
+    than without it (PERF.md).  One
+    RenderScheduler serves every report and is drained once at the end
+    (its wall is ``figure_stats["drain_wall_s"]``, the aggregate stats
+    every result's ``figure_stats``); each report's result-cache publish
+    waits for that drain, and its telemetry.json is written again after it,
+    with ``ingest_prefetch``: the wall of a prefetched corpus's parse on the
+    worker thread (its ``ingest`` phase, on the critical path, is ~0).
+
+    ``make_backend()`` makes one backend per directory (default a
+    TorchBackend on cuda); kwargs go to run_debug.  Reports go to
+    results_root/<corpus_report_names>.  Without prefetch, or on a one-core
+    host, every ingest runs inline: the sequential loop."""
+    import threading
+
+    from nemo_tpu_torch.report.render import RenderScheduler
+    from nemo_tpu_torch.store import resolve_store
+    from nemo_tpu_torch.utils import effective_cpu_count
+
+    if make_backend is None:
+        from nemo_tpu_torch.backend.torch_backend import TorchBackend
+
+        make_backend = TorchBackend
+    report_names = corpus_report_names(dirs)
+    if not dirs:
+        return []
+    prefetch = prefetch and effective_cpu_count() > 1
+    use_packed = _resolve_ingest_mode(make_backend(), kwargs.get("ingest", "auto"))
+    store = resolve_store(kwargs.get("corpus_cache"))
+
+    prefetched: list = [None, None]  # (molly, exception) of the next directory
+
+    def prefetch_next(d: str) -> None:
+        try:
+            t = time.perf_counter()
+            molly, kind, snap = _ingest(d, use_packed, store)
+            if snap is not None:
+                _populate(store, d, molly, snap)
+            molly.ingest_kind = kind
+            molly.ingest_prefetch_s = time.perf_counter() - t
+            prefetched[0] = molly
+        except BaseException as ex:  # re-raised on the consuming thread
+            prefetched[1] = _attach_ingest_dir(ex, d)
+
+    results: list[DebugResult] = []
+    scheduler = RenderScheduler()
+    th: threading.Thread | None = None
+    molly = None
+    try:
+        for k, d in enumerate(dirs):
+            if th is not None:
+                th.join()
+                th = None
+                if prefetched[1] is not None:
+                    raise prefetched[1]
+                molly, prefetched[0] = prefetched[0], None
+            if prefetch and k + 1 < len(dirs):
+                th = threading.Thread(target=prefetch_next, args=(dirs[k + 1],), daemon=True,
+                                      name="nemo-ingest-prefetch")
+                th.start()
+            results.append(run_debug(d, results_root, make_backend(), molly=molly, render_scheduler=scheduler,
+                                     report_name=report_names[k], **kwargs))
+            if molly is not None:
+                # The parse's wall on the worker thread, off the critical path.
+                results[-1].timings["ingest_prefetch"] = molly.ingest_prefetch_s
+            molly = None
+        t0 = time.perf_counter()
+        stats = scheduler.drain()
+        stats["drain_wall_s"] = round(time.perf_counter() - t0, 3)
+    except BaseException:
+        # The reports already written keep their figures; the error that
+        # stopped the loop is the one raised.
+        if th is not None:
+            th.join()
+        scheduler.drain()
+        raise
+    scheduler.close()
+    for r in results:
+        r.figure_stats = stats
+        _flush_result_cache(r)
+        _write_telemetry(r.report_dir, r.timings, stats, r.ingest, r.result_cache, r.stream)
+    return results
+
+
 def run_debug(
     fault_inj_out: str,
     results_root: str,
@@ -270,6 +415,8 @@ def run_debug(
     ingest: str = "auto",
     corpus_cache: str | None = None,
     result_cache: str | None = None,
+    molly: MollyOutput | None = None,
+    render_scheduler=None,
 ) -> DebugResult:
     """The full debug pipeline over one Molly directory; writes
     ``results_root/<report_name or corpus name>/``.  ``backend`` defaults to
@@ -278,29 +425,44 @@ def run_debug(
     (``_resolve_ingest_mode``).  ``corpus_cache`` and ``result_cache`` are
     the roots of the corpus store and the result cache (``off`` disables;
     default ``NEMO_CORPUS_CACHE``/``NEMO_RESULT_CACHE``, else
-    ``~/.cache/nemo_tpu_torch/{corpus,results}``).
+    ``~/.cache/nemo_tpu_torch/{corpus,results}``).  ``molly``: the corpus
+    already ingested (run_debug_dirs parses it ahead; its ``ingest_kind``
+    says by what), so the ``ingest`` phase is ~0.  ``render_scheduler``: a
+    RenderScheduler shared with other reports, which its owner drains; the
+    SVGs land then, and the result-cache publish waits for
+    ``_flush_result_cache``.
 
     With a store-served corpus and the result cache on, a repeated request
     restores the whole report tree without initializing the backend (no
     kernel launch), and a grown corpus maps only the segments no cached
-    partial serves, then reduces cached and fresh partials together.  On
-    the card every phase ends with ``torch.cuda.synchronize``, so the phase
-    walls cover the device work."""
+    partial serves, then reduces cached and fresh partials together.
+    Several segments to map are mapped one at a time where ``NEMO_STREAM``
+    asks for it (streamed behind a prefetch, analysis/stream.py) or the
+    result cache is on; then each segment's partial is published as a checkpoint as soon as
+    it is mapped (``NEMO_CHECKPOINT``, default on), so a crash loses only
+    the segment in flight.  On the card every phase ends by synchronizing
+    the current stream, so the phase walls cover the device work."""
+    from nemo_tpu_torch.analysis import stream as stream_mod
     from nemo_tpu_torch.store import resolve_store
     from nemo_tpu_torch.store.rcache import resolve_result_cache
+    from nemo_tpu_torch.utils.env import env_flag
 
     if backend is None:
         from nemo_tpu_torch.backend.torch_backend import TorchBackend
 
         backend = TorchBackend()
     dev = getattr(getattr(backend, "executor", None), "device", None)
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev is not None and dev.type == "cuda" else None
+    sync = (lambda: torch.cuda.current_stream(dev).synchronize()) if dev is not None and dev.type == "cuda" else None
     timer = PhaseTimer(sync=sync)
     use_packed = _resolve_ingest_mode(backend, ingest)
     store = resolve_store(corpus_cache)
 
+    snap = None
     with timer.phase("ingest"):
-        molly, ingest_kind, snap = _ingest(fault_inj_out, use_packed, store)
+        if molly is None:
+            molly, ingest_kind, snap = _ingest(fault_inj_out, use_packed, store)
+        else:
+            ingest_kind = getattr(molly, "ingest_kind", "prefetched")
     if snap is not None:
         with timer.phase("store_populate"):
             _populate(store, fault_inj_out, molly, snap)
@@ -333,10 +495,10 @@ def run_debug(
     fig_set = set(fig_iters)
 
     # Tier 2: a cached partial per store segment; only the segments none
-    # serves are mapped, in one group, then cached and fresh partials
-    # reduce together.  A cached partial's figure files are staged at
-    # lookup (one that cannot be staged whole is a miss), and the staging
-    # directory becomes the report's figures/.
+    # serves are mapped, then cached and fresh partials reduce together.  A
+    # cached partial's figure files are staged at lookup (one that cannot
+    # be staged whole is a miss), and the staging directory becomes the
+    # report's figures/.
     segments = delta.attach_positions(delta.corpus_segments(molly), molly)
     cached: list[tuple[delta.Segment, delta.SegmentPartial]] = []
     partial_keys: dict[str, str] = {}
@@ -366,31 +528,95 @@ def run_debug(
             if cached:
                 _log.info("delta plan for %s: %s", fault_inj_out, cache_doc)
 
+        def seg_iters(seg: delta.Segment) -> list[int]:
+            return [r.iteration for r in molly.runs[seg.start : seg.stop]]
+
+        # mo: what the report phase renders (and, for a map of one group,
+        # every artifact).  Each segment mapped alone leaves its partial:
+        # those whose figures were rendered into the staging directory with
+        # their checkpoint (on_disk), and the others (to_render).
         mo = delta.MapOutput()
+        on_disk: dict[str, delta.SegmentPartial] = {}
+        to_render: dict[str, delta.SegmentPartial] = {}
+        published: set[str] = set()
+        stream_doc: dict = {}
+        reducer = None
         if to_map:
-            own_rows = sorted(r for s in to_map for r in range(s.start, s.stop))
-            own_set = {molly.runs[r].iteration for r in own_rows}
-            # The anchor runs ride along as context when a cached segment holds
-            # them: the diff is against the good run's graph, the extensions
-            # read the baseline run's antecedent.
-            pos_of = segments[0]._pos_by_iter
-            view_rows = sorted(
-                set(own_rows) | {pos_of[it] for it in (good_iter, baseline_iter) if it is not None}
-            )
-            view = molly if len(view_rows) == len(molly.runs) else delta.subset_molly(molly, view_rows)
-            with timer.phase("init"):
-                backend.init_graph_db("", view)
-            try:
-                mo = delta.map_runs(
-                    backend, view, fault_inj_out, good_iter, fig_set, timer, own_set=own_set,
-                    publish=bool(partial_keys),
+            streamed = stream_mod.use_streaming(molly, backend, to_map)
+            incremental = (len(to_map) > 1 and bool(partial_keys) and rcache is not None
+                           and env_flag("NEMO_CHECKPOINT", True))
+            map_groups = [[s] for s in to_map] if (incremental or streamed) else [to_map]
+            # A streamed segment's anchor verbs run ungated even with nothing
+            # to cache, so every partial carries the same anchor content and
+            # the tree merge does not depend on the order.
+            publish = streamed or bool(partial_keys)
+            if len(map_groups) > 1:
+                stream_doc = {"streamed": streamed, "segments_mapped": len(map_groups), "staged_bytes": 0,
+                              "stage_s": 0.0, "checkpoints": 0}
+            pos_by_iter = segments[0]._pos_by_iter
+
+            def build_view(group):
+                own_rows = sorted(r for s in group for r in range(s.start, s.stop))
+                own_set = {molly.runs[r].iteration for r in own_rows}
+                # The anchor runs ride along as context when another segment
+                # holds them: the diff is against the good run's graph, the
+                # extensions read the baseline run's antecedent.
+                view_rows = sorted(
+                    set(own_rows) | {pos_by_iter[it] for it in (good_iter, baseline_iter) if it is not None}
                 )
-            finally:
-                backend.close_db()
+                view = molly if len(view_rows) == len(molly.runs) else delta.subset_molly(molly, view_rows)
+                return view, own_set
+
+            if streamed:
+                reducer = delta.TreeReducer()
+                for _seg, p in cached:
+                    reducer.push(p)
+                group_iter = stream_mod.stream_groups(map_groups, build_view, backend, timer)
+            else:
+                group_iter = _serial_groups(map_groups, build_view, backend, timer)
+            for staged in group_iter:
+                try:
+                    group_mo = delta.map_runs(staged.backend, staged.view, fault_inj_out, good_iter, fig_set, timer,
+                                              own_set=staged.own_set, publish=publish)
+                finally:
+                    staged.backend.close_db()
+                    staged.release()
+                if stream_doc:
+                    stream_doc["staged_bytes"] += staged.staged_bytes
+                    stream_doc["stage_s"] += staged.stage_s
+                if len(staged.group) > 1:
+                    mo.merge(group_mo)
+                    continue
+                seg = staged.group[0]
+                partial = group_mo.as_partial(seg_iters(seg))
+                key = partial_keys.get(seg.name)
+                if incremental and key is not None:
+                    with timer.phase("checkpoint"):
+                        if _publish_segment_checkpoint(rcache, key, partial, group_mo, fig_iters, stage_dir):
+                            published.add(seg.name)
+                            _log.info("checkpoint of %s: segment %s published (%d of %d)", fault_inj_out,
+                                      seg.name, len(published), len(to_map))
+                    on_disk[seg.name] = partial
+                else:
+                    to_render[seg.name] = partial
+                    mo.merge_figures(group_mo)
+                if reducer is not None:
+                    reducer.push(partial)
+                if stream_doc:
+                    stream_mod.note_segment_done(stream_doc)
+            if stream_doc:
+                stream_doc["checkpoints"] = len(published)
+                stream_doc["stage_s"] = round(stream_doc["stage_s"], 6)
 
         with timer.phase("reduce"):
-            fresh = {s.name: mo.as_partial([r.iteration for r in molly.runs[s.start : s.stop]]) for s in to_map}
-            red = delta.reduce_partials([p for _, p in cached] + list(fresh.values()), molly, good_iter)
+            if to_map and not on_disk and not to_render:
+                # One group: the map output holds every mapped segment.
+                to_render = {s.name: mo.as_partial(seg_iters(s)) for s in to_map}
+            if reducer is not None:
+                partials = reducer.partials()
+            else:
+                partials = [p for _, p in cached] + list(on_disk.values()) + list(to_render.values())
+            red = delta.reduce_partials(partials, molly, good_iter)
 
         # Recommendation assembly, 4-way priority (main.go:190-217), resolved by
         # iteration (the reference indexes its runs slice with iteration
@@ -420,8 +646,9 @@ def run_debug(
             run.union_proto_missing = red.union_miss.get(f, [])
 
         # Reporting (main.go:239-292).
+        fig_stats = None
         with timer.phase("report"):
-            reporter = Reporter()
+            reporter = Reporter(scheduler=render_scheduler)
             reporter.prepare(results_root, this_results_dir)
             # Each run entry carries the chosen good-run iteration, so the
             # frontend points its diff layers at the right run.  Written entry
@@ -439,38 +666,104 @@ def run_debug(
             if molly.quarantined:
                 with open(os.path.join(this_results_dir, "quarantine.json"), "w", encoding="utf-8") as fh:
                     json.dump(sorted(molly.quarantined, key=lambda r: r["position"]), fh, indent=1)
-            # Cached segments' figures come in with their staging directory
-            # (same renderer version, part of the key), then mapped runs
-            # render into it.  A name both would write (an iteration in two
-            # segments) is rendered, never written through a cached file.
-            if cached:
-                staged = {f for _, p in cached for f in p.fig_files}
-                for name in staged & {f for p in fresh.values() for f in p.fig_files}:
+            # Cached segments' figures and those rendered with a checkpoint
+            # come in with the staging directory (same renderer version, part
+            # of the key), then the rest render into it.  A name both would
+            # write (an iteration in two segments) is rendered, never written
+            # through a staged file.
+            staged_parts = [p for _, p in cached] + list(on_disk.values())
+            if staged_parts:
+                rendered = {f for p in to_render.values() for f in p.fig_files}
+                for name in {f for p in staged_parts for f in p.fig_files} & rendered:
                     os.remove(os.path.join(stage_dir, name))
                 os.makedirs(stage_dir, exist_ok=True)
                 os.rmdir(reporter.figures_dir)
                 os.rename(stage_dir, reporter.figures_dir)
             _generate_map_figures(reporter, fig_iters, mo)
-            fig_stats = reporter.scheduler.drain()
+            if render_scheduler is None:
+                fig_stats = reporter.scheduler.drain()
 
+        timings = timer.as_dict()
+        result = DebugResult(molly=molly, report_dir=this_results_dir, timings=timings, figure_stats=fig_stats,
+                             ingest=ingest_kind, result_cache=cache_doc, stream=stream_doc)
         if rcache is not None:
             # Published with every figure on disk (telemetry.json, written
-            # after, is never cached).  The report entry names the published
-            # partials instead of holding their figure files again.
-            with timer.phase("cache_publish"):
-                figures_dir = os.path.join(this_results_dir, "figures")
-                published = {partial_keys[seg.name]: p.fig_files for seg, p in cached}
-                for name, p in fresh.items():
-                    if name in partial_keys and rcache.put_partial(partial_keys[name], p, figures_dir):
-                        published[partial_keys[name]] = p.fig_files
-                if report_key is not None:
-                    rcache.put_report(report_key, this_results_dir, NONDETERMINISTIC_REPORT_FILES, published)
-        timings = timer.as_dict()
-        _write_telemetry(this_results_dir, timings, fig_stats, ingest_kind, cache_doc)
-        return DebugResult(molly=molly, report_dir=this_results_dir, timings=timings, figure_stats=fig_stats,
-                           ingest=ingest_kind, result_cache=cache_doc)
+            # after, is never cached): now, or, when a shared scheduler still
+            # holds this report's SVGs, by its owner after the drain.  The
+            # report entry names the published partials instead of holding
+            # their figure files again.
+            result._rcache_pending = (
+                rcache,
+                report_key,
+                {partial_keys[seg.name]: p.fig_files for seg, p in cached}
+                | {partial_keys[n]: on_disk[n].fig_files for n in published},
+                [(partial_keys[n], p) for n, p in (to_render | on_disk).items()
+                 if n in partial_keys and n not in published],
+            )
+            if render_scheduler is None:
+                with timer.phase("cache_publish"):
+                    _flush_result_cache(result)
+                result.timings = timings = timer.as_dict()
+        _write_telemetry(this_results_dir, timings, fig_stats, ingest_kind, cache_doc, stream_doc)
+        return result
     finally:
         shutil.rmtree(stage_dir, ignore_errors=True)
+
+
+def _serial_groups(map_groups, build_view, backend, timer):
+    """The map groups on the caller's own backend, one after the other."""
+    from nemo_tpu_torch.analysis.stream import StagedGroup
+
+    for group in map_groups:
+        view, own_set = build_view(group)
+        with timer.phase("init"):
+            backend.init_graph_db("", view)
+        yield StagedGroup(group=group, view=view, own_set=own_set, backend=backend, shared_backend=True)
+
+
+def _publish_segment_checkpoint(rcache, key: str, partial: delta.SegmentPartial, seg_mo: delta.MapOutput,
+                                fig_iters: list[int], stage_dir: str) -> bool:
+    """Publish one freshly mapped segment's partial to the result cache at
+    once, figures included, so a crashed run resumes from it.  The
+    segment's figures render into a directory beside ``stage_dir``, are
+    published from there, then move into ``stage_dir``, the report's
+    figures/ to be: the report phase does not render them again.  True when
+    the partial was published; False (logged by the cache) leaves it for
+    the end-of-run publish, its figures on disk either way."""
+    import tempfile
+
+    parent = os.path.dirname(stage_dir)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=os.path.basename(stage_dir) + ".ckpt-", dir=parent)
+    try:
+        rep = Reporter()
+        rep.figures_dir = tmp
+        _generate_map_figures(rep, fig_iters, seg_mo)
+        rep.scheduler.drain()
+        ok = rcache.put_partial(key, partial, tmp)
+        os.makedirs(stage_dir, exist_ok=True)
+        for name in partial.fig_files:
+            os.replace(os.path.join(tmp, name), os.path.join(stage_dir, name))
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _flush_result_cache(result: DebugResult) -> None:
+    """Publish a report's result-cache entries: the fresh segment partials,
+    then the report tree, which names every published partial.  Every
+    figure must be on disk: a caller that shares a RenderScheduler calls
+    this after its drain."""
+    pending = result.__dict__.pop("_rcache_pending", None)
+    if not pending:
+        return
+    rcache, report_key, published, puts = pending
+    figures_dir = os.path.join(result.report_dir, "figures")
+    for key, p in puts:
+        if rcache.put_partial(key, p, figures_dir):
+            published[key] = p.fig_files
+    if report_key is not None:
+        rcache.put_report(report_key, result.report_dir, NONDETERMINISTIC_REPORT_FILES, published)
 
 
 def _generate_map_figures(reporter: Reporter, fig_iters: list[int], mo: delta.MapOutput) -> None:

@@ -38,6 +38,15 @@ class GraphBackend(abc.ABC):
 
     molly: MollyOutput | None
 
+    def stream_clone(self):
+        """A fresh backend for the segment-streamed map (analysis/stream.py):
+        the prefetch thread initializes segment k+1's instance while segment
+        k's dispatches run, so one instance cannot serve both.  None (the
+        default) means this backend does not stream; an override shares
+        what is expensive (the executor) and returns an instance whose
+        init_graph_db is safe on another thread."""
+        return None
+
     def good_run_iter(self) -> int:
         """Iteration of the baseline successful run used for differential
         provenance and the trigger queries: the first successful run that

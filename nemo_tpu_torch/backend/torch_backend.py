@@ -1,4 +1,4 @@
-"""TorchBackend: the analysis path on one device, dense and sparse tiers.
+"""TorchBackend: the analysis path on one device, with the host lane.
 
 The device boundary is ``TorchExecutor.run(verb, arrays, params)``, the
 contract of the JAX package's ``LocalExecutor`` (backend/jax_backend.py):
@@ -9,13 +9,19 @@ same analysis as gather/scatter waves over the [B,E] edge planes),
 ``diff`` and ``sparse_diff`` (one good-run-anchored dispatch over all failed
 runs, dense or sparse) and ``synth_ext`` (per-run extension candidates).
 
-Routes follow the JAX package's device order: runs above ``giant_v`` nodes
-leave the buckets and go to ``sparse_fused`` one at a time; each bucket
-goes to ``sparse_fused`` when its dense footprint crosses the memory
-watermark (reason ``mem``) or it is large and very sparse (``density``),
-else ``fused``; the diff goes sparse for a giant good run or past the
-watermark.  Packing, bucketing and the report-facing extraction are host
-numpy; everything else runs on the executor's device.
+Beside them runs the host lane, the JAX package's exact numpy engine
+(ops/sparse_host.py, ops/diff.py:diff_masks_host,
+parallel/giant.py:giant_analysis_host), route ``sparse``.  Routes follow
+the JAX package's device-backend auto (its ``crossover``): a bucket whose
+work ``B x (V + E)`` is within ``analysis_host_work`` goes to the host
+lane; past the dense memory watermark (reason ``mem``) or large and very
+sparse (``density``) to ``sparse_device``; else ``dense``.  Runs above
+``giant_v`` nodes leave the buckets for ``sparse_device`` one at a time.
+The diff goes to the host for a giant good run or within
+``diff_host_work``, else sparse past the watermark, else dense; the synth
+pass to the host within ``synth_host_work``.  A lane is chosen by the
+recorded route only: a device-lane failure raises, nothing falls back.
+Packing, bucketing and the report-facing extraction are host numpy.
 
 The report verbs (``pull_pre_post_prov``, ``create_naive_diff_prov``'s
 overlays, the trigger queries) build host property graphs lazily, only for
@@ -63,7 +69,7 @@ from nemo_tpu_torch.models.pipeline_model import (
     analysis_step,
 )
 from nemo_tpu_torch.ops.adjacency import build_adjacency
-from nemo_tpu_torch.ops.diff import diff_masks
+from nemo_tpu_torch.ops.diff import diff_masks, diff_masks_host
 from nemo_tpu_torch.ops.proto import DEPTH_INF
 from nemo_tpu_torch.ops.sparse_device import (
     CsrAdjRows,
@@ -71,7 +77,8 @@ from nemo_tpu_torch.ops.sparse_device import (
     sparse_device_step,
     synth_ext_candidates,
 )
-from nemo_tpu_torch.parallel.giant import giant_plan
+from nemo_tpu_torch.ops.sparse_host import sparse_analysis_step, synth_ext_host
+from nemo_tpu_torch.parallel.giant import giant_analysis_host, giant_linear, giant_plan, pad_comp_labels
 from nemo_tpu_torch.report.dot import DotGraph
 from nemo_tpu_torch.report.figures import create_diff_dot, create_dot
 
@@ -187,6 +194,14 @@ def _to_host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def _on_device(a, device: torch.device) -> torch.Tensor:
+    """One verb input on the executor's device: a staged tensor as it is, a
+    numpy array copied up."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 class TorchExecutor:
     """The backend's device boundary: named kernels over named numpy arrays
     and integer params, run on one device."""
@@ -256,15 +271,24 @@ class TorchExecutor:
         #: host wall seconds per verb: upload, compute and the copy of the
         #: outputs back (which waits for the device).
         self.wall_s: dict[str, float] = {}
+        #: host-lane runs per verb (the JAX package's metric names:
+        #: sparse_fused, sparse_giant, sparse_diff, synth_host), counted here
+        #: beside the dispatches so that a result-cache hit can be shown to
+        #: compute nothing on either lane.
+        self.host_runs: dict[str, int] = {}
+
+    def count_host(self, verb: str) -> None:
+        self.host_runs[verb] = self.host_runs.get(verb, 0) + 1
 
     def run(
         self, verb: str, arrays: dict, params: dict, rows: int | None = None
     ) -> dict[str, np.ndarray]:
         """Returns a dict of numpy arrays, except the verb's ON_DEVICE bulk
-        outputs, which stay tensors on the device.  ``rows`` is the caller's
-        real-run count (the batches carry padding rows); the dense verbs
-        compute every row regardless, so it is accepted for the contract
-        only."""
+        outputs, which stay tensors on the device.  An input may already be
+        a tensor on the device (staged by ``stage_fused_inputs``).  ``rows``
+        is the caller's real-run count (the batches carry padding rows); the
+        dense verbs compute every row regardless, so it is accepted for the
+        contract only."""
         if verb not in self.VERBS:
             raise ValueError(f"unknown kernel verb {verb!r}")
         fn, array_names, param_names, out_names = self.VERBS[verb]
@@ -279,7 +303,7 @@ class TorchExecutor:
         self.dispatches[verb] = self.dispatches.get(verb, 0) + 1
         t0 = time.perf_counter()
         try:
-            args = [torch.from_numpy(np.array(arrays[n])).to(self.device) for n in array_names]
+            args = [_on_device(arrays[n], self.device) for n in array_names]
             return self._materialize(verb, fn(*args, *statics), arrays, params, out_names)
         finally:
             self.wall_s[verb] = self.wall_s.get(verb, 0.0) + time.perf_counter() - t0
@@ -292,7 +316,7 @@ class TorchExecutor:
                 res.update(
                     unpack_summary(
                         res.pop("packed_summary"),
-                        b=int(np.shape(arrays["pre_is_goal"])[0]),
+                        b=int(arrays["pre_is_goal"].shape[0]),
                         v=int(params["v"]),
                         t=int(params["num_tables"]),
                         with_diff=bool(params.get("with_diff", 0)),
@@ -342,22 +366,51 @@ class _CorpusPacked:
 
 
 #: Analysis routes a caller may ask for: per-bucket auto routing, or one
-#: route forced for every bucket and the diff (giant runs always take the
-#: sparse step: the port has no dense giant path).
-ANALYSIS_IMPLS = ("auto", "dense", "sparse_device")
+#: lane forced for every verb: ``dense`` (the fused dense step and diff),
+#: ``sparse`` (the host lane, giants and synth included) or
+#: ``sparse_device``.  Giant runs never take the dense step: the port has no
+#: dense giant path, so under ``dense`` they take ``sparse_device``.
+ANALYSIS_IMPLS = ("auto", "dense", "sparse", "sparse_device")
+
+
+def _stage_arrays(arrays: dict[str, np.ndarray], device: torch.device, stream) -> tuple[dict, object, int]:
+    """Copy one bucket's verb arrays into pinned host memory and send them
+    to ``device`` on the side ``stream`` without blocking; returns (the
+    device tensors, the event recorded after the copies, the bytes)."""
+    pinned = {k: torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for k, a in arrays.items()}
+    with torch.cuda.stream(stream):
+        on_dev = {k: p.to(device, non_blocking=True) for k, p in pinned.items()}
+        event = torch.cuda.Event()
+        event.record(stream)
+    return on_dev, event, sum(p.numel() * p.element_size() for p in pinned.values())
+
+
+def _adopt_staged(on_dev: dict, event, device: torch.device) -> dict:
+    """Staged tensors for a dispatch on the current stream: it waits for the
+    side stream's copies, and each tensor is marked used by it, so the
+    caching allocator does not hand its memory out before the dispatch is
+    done."""
+    cur = torch.cuda.current_stream(device)
+    cur.wait_event(event)
+    for t in on_dev.values():
+        t.record_stream(cur)
+    return on_dev
 
 
 class TorchBackend(GraphBackend):
-    """The device analysis path of the JAX package's ``JaxBackend`` on one
-    device: fused buckets (dense or sparse), giant runs on the sparse step,
-    the good-run-anchored diff and the synth_ext extension pass, with the
-    same host-side extraction and report verbs.
+    """The analysis path of the JAX package's ``JaxBackend`` on one device:
+    fused buckets (dense, sparse on the device, or the host lane), giant
+    runs, the good-run-anchored diff and the synth_ext extension pass, with
+    the same host-side extraction and report verbs.
 
     Route knobs, with the JAX package's defaults: ``analysis_impl`` (see
-    ANALYSIS_IMPLS), ``giant_v`` (runs with more nodes leave the buckets),
+    ANALYSIS_IMPLS), the host-lane work budgets ``analysis_host_work``,
+    ``diff_host_work`` and ``synth_host_work`` (0 sends no work to the
+    host), ``giant_v`` (runs with more nodes leave the buckets),
     ``sparse_device_mem_bytes`` (dense footprint watermark; 0 disables),
     ``sparse_device_density`` and ``sparse_device_min_v`` (the density
-    crossover; density 0 disables).  Buckets run serially in bucket order."""
+    crossover; density 0 disables).  ``auto`` resolves the same on cpu and
+    cuda.  Buckets run serially in bucket order."""
 
     #: run_debug's ingest policy reads this: the backend consumes packed
     #: corpus arrays, so ``ingest="auto"`` takes the native loader.
@@ -371,20 +424,43 @@ class TorchBackend(GraphBackend):
         sparse_device_mem_bytes: int = 256_000_000,
         sparse_device_density: float = 1.0 / 256.0,
         sparse_device_min_v: int = 1024,
+        analysis_host_work: int = 100_000,
+        diff_host_work: int = 2_000_000,
+        synth_host_work: int = 100_000,
+        executor: TorchExecutor | None = None,
     ) -> None:
         if analysis_impl not in ANALYSIS_IMPLS:
             raise ValueError(f"analysis_impl {analysis_impl!r} (expected one of {ANALYSIS_IMPLS})")
-        self.executor = TorchExecutor(device)
+        self.executor = executor if executor is not None else TorchExecutor(device)
         self.analysis_impl = analysis_impl
         self.giant_v = int(giant_v)
         self.sparse_device_mem_bytes = int(sparse_device_mem_bytes)
         self.sparse_device_density = float(sparse_device_density)
         self.sparse_device_min_v = int(sparse_device_min_v)
+        self.analysis_host_work = int(analysis_host_work)
+        self.diff_host_work = int(diff_host_work)
+        self.synth_host_work = int(synth_host_work)
         #: one record per routed dispatch of the current corpus: verb,
-        #: route, rows, v, e, reason (the JAX package's analysis_routes);
-        #: kept past close_db for the caller to read.
+        #: route, rows, v, e, work, reason (the JAX package's
+        #: analysis_routes); kept past close_db for the caller to read.
         self.analysis_routes: list[dict] = []
         self._release(None)
+
+    def stream_clone(self) -> "TorchBackend":
+        """A fresh backend with the same knobs for the segment-streamed map,
+        sharing the executor (its device and counts): only the per-corpus
+        state is the clone's own."""
+        return type(self)(
+            analysis_impl=self.analysis_impl,
+            giant_v=self.giant_v,
+            sparse_device_mem_bytes=self.sparse_device_mem_bytes,
+            sparse_device_density=self.sparse_device_density,
+            sparse_device_min_v=self.sparse_device_min_v,
+            analysis_host_work=self.analysis_host_work,
+            diff_host_work=self.diff_host_work,
+            synth_host_work=self.synth_host_work,
+            executor=self.executor,
+        )
 
     def _release(self, molly: MollyOutput | None) -> None:
         """Drop every per-corpus state and attach ``molly``."""
@@ -394,6 +470,8 @@ class TorchBackend(GraphBackend):
         self.simplified: dict[str, list] = {}
         self._simplified_row: dict[tuple[int, str], tuple[int, int]] = {}
         self._fused_out: list[tuple[PackedBatch, PackedBatch, dict]] | None = None
+        #: the fused plan that stage_fused_inputs made ahead of _fused
+        self._staged_plan: dict | None = None
         self._row_of: dict[int, tuple[int, int]] = {}
         self._proto_tables_cache = None
         #: host property graphs, built on first use: (run, cond) -> PGraph
@@ -414,7 +492,8 @@ class TorchBackend(GraphBackend):
         """Take a packed-first corpus's vocabulary and arrays as they are,
         or pack the Python loader's run objects once into a corpus of the
         same arrays (``conn`` is the reference's graph-store address; the
-        port keeps the signature and needs none)."""
+        port keeps the signature and needs none).  Host work only: the
+        streamed map calls it on its prefetch thread."""
         self._release(molly)
         self.analysis_routes = []
         nc = getattr(molly, "native_corpus", None)
@@ -448,84 +527,159 @@ class TorchBackend(GraphBackend):
 
     # ---------------------------------------------------------------- routes
 
-    def _analysis_route(self, rows: int, v: int, e: int, rows_dispatch: int) -> tuple[str, str]:
-        """(route, reason) of one fused bucket.  ``rows_dispatch`` is the
-        padded batch width the dense step would allocate, which the memory
-        watermark prices.  Auto: past the dense memory watermark (rows x
-        V^2 x ~4 bytes: the bool adjacency and its closure copies) -> sparse
-        by "mem"; large and very sparse -> sparse by "density"; else dense."""
+    def _analysis_route(self, rows: int, v: int, e: int, rows_dispatch: int) -> tuple[str, str, int]:
+        """(route, reason, work) of one fused bucket, in the order of the
+        JAX package's ``_analysis_route``.  ``work`` is the host engine's
+        cost model B x (V + E); ``rows_dispatch`` is the padded batch width
+        the dense step would allocate, which the memory watermark prices.
+        Auto: work within the host budget -> the host lane ("sparse",
+        "crossover"); past the dense memory watermark (rows x V^2 x ~4
+        bytes: the bool adjacency and its closure copies) -> sparse on the
+        device by "mem"; large and very sparse -> by "density"; else dense."""
+        work = rows * (v + e)
         if self.analysis_impl != "auto":
-            return self.analysis_impl, "forced"
+            return self.analysis_impl, "forced", work
+        if work <= self.analysis_host_work:
+            return "sparse", "crossover", work
         mem = self.sparse_device_mem_bytes
         if mem and max(rows_dispatch, rows) * v * v * 4 > mem:
-            return "sparse_device", "mem"
+            return "sparse_device", "mem", work
         if (
             self.sparse_device_density
             and v >= self.sparse_device_min_v
             and e <= v * v * self.sparse_device_density
         ):
-            return "sparse_device", "density"
-        return "dense", "default"
+            return "sparse_device", "density", work
+        return "dense", "crossover", work
 
-    def _diff_route(self, good_nodes: int, f_pad: int, v: int) -> tuple[str, str]:
-        """(route, reason) of the diff: a giant good run -> sparse by
-        "giant"; a forced route; past the watermark (F_pad x V^2 bytes of
-        dense edge_keep planes) -> sparse by "mem"; else dense."""
+    def _diff_route(self, good_nodes: int, good_edges: int, n_failed: int, f_pad: int, v: int) -> tuple[str, str, int]:
+        """(route, reason, work) of the diff, in the order of the JAX
+        package's ``create_naive_diff_prov``: a giant good run -> the host
+        lane by "giant"; a forced route; work n_failed x (V + E) of the good
+        run within the host budget -> the host by "crossover"; past the
+        watermark (F_pad x V^2 bytes of dense edge_keep planes) -> sparse on
+        the device by "mem"; else dense."""
+        work = n_failed * (good_nodes + good_edges)
         if good_nodes > self.giant_v:
-            return "sparse_device", "giant"
+            return "sparse", "giant", work
         if self.analysis_impl != "auto":
-            return self.analysis_impl, "forced"
+            return self.analysis_impl, "forced", work
+        if work <= self.diff_host_work:
+            return "sparse", "crossover", work
         if self.sparse_device_mem_bytes and f_pad * v * v > self.sparse_device_mem_bytes:
-            return "sparse_device", "mem"
-        return "dense", "default"
+            return "sparse_device", "mem", work
+        return "dense", "crossover", work
 
-    def _record_route(self, verb: str, route: str, rows: int, v: int, e: int, reason: str) -> None:
+    def _synth_route(self, rows: int, v: int, e: int) -> tuple[str, str, int]:
+        """(route, reason, work) of one synth bucket: the host twin
+        ("sparse") or the synth_ext verb ("sparse_device"; it has no dense
+        form).  A forced analysis route forces it too: "sparse" to the host,
+        "dense" and "sparse_device" to the device.  Auto: the host budget
+        decides (the JAX package's ``_synth_route``)."""
+        work = rows * (v + e)
+        if self.analysis_impl == "sparse":
+            return "sparse", "forced", work
+        if self.analysis_impl != "auto":
+            return "sparse_device", "forced", work
+        if work <= self.synth_host_work:
+            return "sparse", "crossover", work
+        return "sparse_device", "crossover", work
+
+    def _record_route(self, verb: str, route: str, rows: int, v: int, e: int, work: int, reason: str) -> None:
         self.analysis_routes.append(
-            {"verb": verb, "route": route, "rows": int(rows), "v": int(v), "e": int(e), "reason": reason}
+            {"verb": verb, "route": route, "rows": int(rows), "v": int(v), "e": int(e), "work": int(work),
+             "reason": reason}
         )
 
     # ------------------------------------------------------------------ fused
 
-    def _fused(self) -> list[tuple[PackedBatch, PackedBatch, dict]]:
-        """Run the analysis step once per joint size bucket and once per
-        giant run; cached.  Results are in bucket order, giants last."""
-        if self._fused_out is None:
-            assert self.molly is not None
-            nc = self._corpus
-            # Node counts straight from the corpus arrays: no graph view is
-            # built just to split off the giants.
-            nmax = np.maximum(nc.pre.n_nodes, nc.post.n_nodes)
-            rows = np.nonzero(nmax <= self.giant_v)[0].tolist()
-            giant_ids = [int(nc.iteration[i]) for i in np.nonzero(nmax > self.giant_v)[0]]
-            n_dense = len(rows)
-            # Size floors: at corpus scale, pad every family to one bucket
-            # shape (the JAX backend's compile-sharing floors, kept so both
-            # backends bucket identically).  Only the bucketed runs count.
-            big = n_dense >= 512
-            min_v, min_e, min_t, min_d = (64, 256, 32, 32) if big else (16, 16, 8, 4)
-            batches = bucketize_pairs_corpus(self._corpus_graphs, rows, nc.iteration, min_v=min_v, min_e=min_e)
-            tids = dict(
+    def _plan_fused_inputs(self) -> dict:
+        """The host half of the fused step: the giant split, the size
+        floors and the joint (pre, post) buckets.  A pure function of the
+        initialized corpus, so the streamed map's prefetch thread can run it
+        for segment k+1 (stage_fused_inputs) while segment k dispatches."""
+        assert self.molly is not None
+        nc = self._corpus
+        # Node counts straight from the corpus arrays: no graph view is
+        # built just to split off the giants.
+        nmax = np.maximum(nc.pre.n_nodes, nc.post.n_nodes)
+        rows = np.nonzero(nmax <= self.giant_v)[0].tolist()
+        giant_ids = [int(nc.iteration[i]) for i in np.nonzero(nmax > self.giant_v)[0]]
+        # Size floors: at corpus scale, pad every family to one bucket shape
+        # (the JAX backend's compile-sharing floors, kept so both backends
+        # bucket identically).  Only the bucketed runs count.
+        big = len(rows) >= 512
+        min_v, min_e, min_t, min_d = (64, 256, 32, 32) if big else (16, 16, 8, 4)
+        return {
+            "batches": bucketize_pairs_corpus(self._corpus_graphs, rows, nc.iteration, min_v=min_v, min_e=min_e),
+            "giant_ids": giant_ids,
+            "min_d": min_d,
+            "tids": dict(
                 pre_tid=self.vocab.tables.lookup("pre"),
                 post_tid=self.vocab.tables.lookup("post"),
                 num_tables=bucket_size(len(self.vocab.tables), min_t),
-            )
+            ),
+            "staged": {},
+            "staged_bytes": 0,
+        }
+
+    def stage_fused_inputs(self) -> dict:
+        """Plan the fused step ahead of it (_plan_fused_inputs) and, on the
+        card, send each device-lane bucket's verb arrays up ahead of the
+        dispatch: into pinned host memory, then to the card without
+        blocking on a side stream, with an event the dispatch waits on.  On
+        the CPU staging is the plan alone.  Called on the streamed map's
+        prefetch thread after init_graph_db; never synchronizes the device.
+        The next _fused adopts the plan.  Returns it (``staged_bytes``: the
+        bytes sent up)."""
+        plan = self._plan_fused_inputs()
+        dev = self.executor.device
+        if dev.type == "cuda":
+            side = torch.cuda.Stream(device=dev)
+            for bi, (pre_b, post_b) in enumerate(plan["batches"]):
+                route, _, _ = self._analysis_route(len(pre_b.run_ids), pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
+                if route == "sparse":
+                    continue
+                on_dev, event, nbytes = _stage_arrays(_verb_arrays(pre_b, post_b), dev, side)
+                plan["staged"][bi] = (on_dev, event)
+                plan["staged_bytes"] += nbytes
+        self._staged_plan = plan
+        return plan
+
+    def _fused(self) -> list[tuple[PackedBatch, PackedBatch, dict]]:
+        """Run the analysis step once per joint size bucket and once per
+        giant run, each on its routed lane; cached.  Results are in bucket
+        order, giants last."""
+        if self._fused_out is None:
+            assert self.molly is not None
+            plan, self._staged_plan = self._staged_plan, None
+            if plan is None:
+                plan = self._plan_fused_inputs()
+            tids = plan["tids"]
             out = []
-            for pre_b, post_b in batches:
+            for bi, (pre_b, post_b) in enumerate(plan["batches"]):
                 rows = len(pre_b.run_ids)
-                route, reason = self._analysis_route(rows, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
-                self._record_route("fused", route, rows, pre_b.v, pre_b.e, reason)
+                route, reason, work = self._analysis_route(rows, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
+                self._record_route("fused", route, rows, pre_b.v, pre_b.e, work, reason)
                 # The linear-chain fast path must hold for every run of the
                 # bucket: the AND of its graphs' flags.
                 linear = int(all(self._lin_by_iter[i] for i in pre_b.run_ids))
-                if route == "sparse_device":
-                    res = self._sparse_fused(pre_b, post_b, linear, tids)
+                staged = plan["staged"].get(bi)
+                arrays = (_adopt_staged(*staged, self.executor.device) if staged is not None
+                          else _verb_arrays(pre_b, post_b))
+                if route == "sparse":
+                    self.executor.count_host("sparse_fused")
+                    res = _wrap_sparse_clean(
+                        sparse_analysis_step(pre_b, post_b, v=pre_b.v, comp_linear=bool(linear), **tids), pre_b.v)
+                elif route == "sparse_device":
+                    res = self._sparse_fused(arrays, pre_b.v, rows, linear, tids)
                 else:
                     res = self.executor.run(
                         "fused",
-                        _verb_arrays(pre_b, post_b),
+                        arrays,
                         dict(
                             v=pre_b.v,
-                            max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), min_d),
+                            max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), plan["min_d"]),
                             comp_linear=linear,
                             num_labels=8,  # unused without the diff tail
                             with_diff=0,
@@ -534,32 +688,49 @@ class TorchBackend(GraphBackend):
                         rows=rows,
                     )
                 out.append((pre_b, post_b, res))
-            if giant_ids:
-                # Each giant packs alone at corpus-common (V, E) buckets.
-                graphs = [self.packed[(rid, c)] for rid in giant_ids for c in ("pre", "post")]
-                v_g = bucket_size(max(g.n_nodes for g in graphs))
-                e_g = bucket_size(max(1, *(len(g.edges) for g in graphs)))
-                for rid in giant_ids:
-                    gpre, gpost = self.packed[(rid, "pre")], self.packed[(rid, "post")]
-                    pre_b = pack_batch([rid], [gpre], v_g, e_g)
-                    post_b = pack_batch([rid], [gpost], v_g, e_g)
-                    self._record_route("giant", "sparse_device", 1, v_g, e_g, "giant")
-                    linear = int(giant_plan(gpre) and giant_plan(gpost))
-                    out.append((pre_b, post_b, self._sparse_fused(pre_b, post_b, linear, tids)))
+            if plan["giant_ids"]:
+                out.extend(self._giants(plan["giant_ids"], tids))
             for bi, (pre_b, _post_b, _res) in enumerate(out):
                 for row, rid in enumerate(pre_b.run_ids):
                     self._row_of[rid] = (bi, row)
             self._fused_out = out
         return self._fused_out
 
-    def _sparse_fused(self, pre_b: PackedBatch, post_b: PackedBatch, linear: int, tids: dict) -> dict:
-        res = self.executor.run(
-            "sparse_fused",
-            _verb_arrays(pre_b, post_b),
-            dict(v=pre_b.v, comp_linear=linear, **tids),
-            rows=len(pre_b.run_ids),
-        )
-        return _wrap_sparse_clean(res, pre_b.v)
+    def _giants(self, giant_ids: list[int], tids: dict) -> list[tuple[PackedBatch, PackedBatch, dict]]:
+        """Each giant run alone, packed at corpus-common (V, E) buckets: on
+        the host lane under ``analysis_impl="sparse"`` (with giant_plan's
+        union-find labels), else on the sparse device step.  Recorded as the
+        JAX package records them (reason ``giant_impl``, work V + E)."""
+        graphs = [self.packed[(rid, c)] for rid in giant_ids for c in ("pre", "post")]
+        v_g = bucket_size(max(g.n_nodes for g in graphs))
+        e_g = bucket_size(max(1, *(len(g.edges) for g in graphs)))
+        route = "sparse" if self.analysis_impl == "sparse" else "sparse_device"
+        out = []
+        for rid in giant_ids:
+            gpre, gpost = self.packed[(rid, "pre")], self.packed[(rid, "post")]
+            pre_b = pack_batch([rid], [gpre], v_g, e_g)
+            post_b = pack_batch([rid], [gpost], v_g, e_g)
+            self._record_route("giant", route, 1, v_g, e_g, v_g + e_g, "giant_impl")
+            if route == "sparse":
+                _, _, lab_pre = giant_plan(gpre)
+                _, _, lab_post = giant_plan(gpost)
+                self.executor.count_host("sparse_giant")
+                res = _wrap_sparse_clean(
+                    giant_analysis_host(
+                        pre_b, post_b, tids["pre_tid"], tids["post_tid"], tids["num_tables"],
+                        pad_comp_labels(lab_pre, gpre.n_nodes, v_g), pad_comp_labels(lab_post, gpost.n_nodes, v_g),
+                    ),
+                    v_g,
+                )
+            else:
+                linear = int(giant_linear(gpre) and giant_linear(gpost))
+                res = self._sparse_fused(_verb_arrays(pre_b, post_b), v_g, 1, linear, tids)
+            out.append((pre_b, post_b, res))
+        return out
+
+    def _sparse_fused(self, arrays: dict, v: int, rows: int, linear: int, tids: dict) -> dict:
+        res = self.executor.run("sparse_fused", arrays, dict(v=v, comp_linear=linear, **tids), rows=rows)
+        return _wrap_sparse_clean(res, v)
 
     def load_raw_provenance(self) -> None:
         """Condition marking for every run (the fused dispatches)."""
@@ -733,28 +904,13 @@ class TorchBackend(GraphBackend):
 
     # ------------------------------------------------------------------ diff
 
-    def create_naive_diff_prov(
-        self,
-        symmetric: bool,
-        failed_iters: list[int],
-        success_post_dot: DotGraph | None,
-        dot_iters: list[int] | None = None,
-    ) -> tuple[list[DotGraph], list[DotGraph], list[list[MissingEvent]]]:
-        """One ``diff`` or ``sparse_diff`` dispatch over all failed runs
-        against the good run: every failed run's missing events, and the
-        overlay DOTs of the runs in ``dot_iters`` (None = every failed run).
-        The dense diff's [F,V,V] edge_keep planes stay on the device: the
-        missing events read the kept-child rows of the frontier rules, and
-        the overlays the planes of the ``dot_iters`` runs, each in one
-        gather."""
-        assert self.molly is not None
-        if not failed_iters:
-            return [], [], []
-        dot_set = set(failed_iters if dot_iters is None else dot_iters)
+    def _diff_batch(self, failed_iters: list[int]) -> tuple[int, object, PackedBatch, np.ndarray]:
+        """The diff's inputs: (the good run, its packed graph, its one-row
+        batch, the [F_pad, L] label bitsets of the failed runs).  The
+        failed-run axis and the label dim pad to powers of two (all-false
+        padding rows)."""
         g = self.good_run_iter()
         good = self.packed[(g, "post")]
-        # Pad the failed-run axis and the label dim to powers of two (all-false
-        # padding rows are sliced away below).
         num_labels = bucket_size(max(1, len(self.vocab.labels)), 8)
         gb = pack_batch([g], [good])
         bits = np.zeros((bucket_size(max(1, len(failed_iters)), 8), num_labels), dtype=bool)
@@ -765,8 +921,12 @@ class TorchBackend(GraphBackend):
         lab = self._corpus.post.label_id[rows]
         j_idx, s_idx = np.nonzero(isg)
         bits[j_idx, lab[j_idx, s_idx]] = True
-        route, reason = self._diff_route(good.n_nodes, bits.shape[0], gb.v)
-        self._record_route("diff", route, len(failed_iters), good.n_nodes, len(good.edges), reason)
+        return g, good, gb, bits
+
+    def _diff_dispatch(self, route: str, good, gb: PackedBatch, bits: np.ndarray, n_failed: int) -> dict:
+        """The diff on one lane: node_keep, edge_keep (dense [F,V,V] planes
+        left on the device by ``diff``; a mask over the good run's edge list
+        on the host lane and ``sparse_diff``), frontier_rule, missing_goal."""
         arrays = {
             "edge_src": gb.edge_src,
             "edge_dst": gb.edge_dst,
@@ -776,12 +936,49 @@ class TorchBackend(GraphBackend):
             "label_id": gb.label_id[0],
             "fail_bits": bits,
         }
-        dot_js = [j for j, f in enumerate(failed_iters) if f in dot_set]
+        if route == "sparse":
+            # The host lane takes only the real failed-run rows: the padding
+            # rows exist for the device dispatch.
+            goal = np.zeros(gb.v, dtype=bool)
+            goal[: good.n_goals] = True
+            label = np.full(gb.v, -1, dtype=np.int64)
+            label[: good.n_nodes] = good.label_id
+            self.executor.count_host("sparse_diff")
+            return dict(zip(("node_keep", "edge_keep", "frontier_rule", "missing_goal"),
+                            diff_masks_host(good.edges, gb.v, goal, label, bits[:n_failed])))
         if route == "sparse_device":
             for name in ("edge_src", "edge_dst", "edge_mask"):
                 arrays[name] = arrays[name][0]
-            out = self.executor.run("sparse_diff", arrays, {"v": gb.v}, rows=len(failed_iters))
-            # edge_keep is a mask over the good run's padded edge list.
+            return self.executor.run("sparse_diff", arrays, {"v": gb.v}, rows=n_failed)
+        return self.executor.run("diff", arrays, {"v": gb.v, "max_depth": bucket_size(gb.max_depth, 4)},
+                                 rows=n_failed)
+
+    def create_naive_diff_prov(
+        self,
+        symmetric: bool,
+        failed_iters: list[int],
+        success_post_dot: DotGraph | None,
+        dot_iters: list[int] | None = None,
+    ) -> tuple[list[DotGraph], list[DotGraph], list[list[MissingEvent]]]:
+        """One diff over all failed runs against the good run, on the lane
+        ``_diff_route`` records (the host lane, ``sparse_diff`` or the dense
+        ``diff``): every failed run's missing events, and the overlay DOTs
+        of the runs in ``dot_iters`` (None = every failed run).  The dense
+        diff's [F,V,V] edge_keep planes stay on the device: the
+        missing events read the kept-child rows of the frontier rules, and
+        the overlays the planes of the ``dot_iters`` runs, each in one
+        gather."""
+        assert self.molly is not None
+        if not failed_iters:
+            return [], [], []
+        dot_set = set(failed_iters if dot_iters is None else dot_iters)
+        g, good, gb, bits = self._diff_batch(failed_iters)
+        route, reason, work = self._diff_route(good.n_nodes, len(good.edges), len(failed_iters), bits.shape[0], gb.v)
+        self._record_route("diff", route, len(failed_iters), good.n_nodes, len(good.edges), work, reason)
+        out = self._diff_dispatch(route, good, gb, bits, len(failed_iters))
+        dot_js = [j for j, f in enumerate(failed_iters) if f in dot_set]
+        if route in ("sparse", "sparse_device"):
+            # edge_keep is a mask over the good run's (padded) edge list.
             edge_keep = out["edge_keep"][:, : len(good.edges)]
 
             def children(j: int):
@@ -790,10 +987,6 @@ class TorchBackend(GraphBackend):
             def plane(j: int) -> np.ndarray:
                 return _dense_of_edges(good.edges[edge_keep[j]], gb.v)
         else:
-            out = self.executor.run(
-                "diff", arrays, {"v": gb.v, "max_depth": bucket_size(gb.max_depth, 4)},
-                rows=len(failed_iters),
-            )
             ek = out["edge_keep"]
             fj, fr = np.nonzero(out["frontier_rule"][: len(failed_iters)])
             kept_rows = _to_host(
@@ -908,8 +1101,8 @@ class TorchBackend(GraphBackend):
 
     def synth_candidates(self, iters: list[int]) -> dict[int, list[str]]:
         """Per run in ``iters``: the sorted distinct extension-candidate rule
-        tables of its antecedent provenance — one ``synth_ext`` dispatch per
-        fused bucket."""
+        tables of its antecedent provenance — one ``synth_ext`` dispatch or
+        one host-twin pass per fused bucket, as ``_synth_route`` records."""
         assert self.molly is not None
         want = set(iters)
         out: dict[int, list[str]] = {i: [] for i in iters}
@@ -917,22 +1110,31 @@ class TorchBackend(GraphBackend):
         for pre_b, _post_b, res in self._fused():
             if not any(rid in want for rid in pre_b.run_ids):
                 continue
-            bits = self.executor.run(
-                "synth_ext",
-                {
-                    "edge_src": pre_b.edge_src,
-                    "edge_dst": pre_b.edge_dst,
-                    "edge_mask": pre_b.edge_mask,
-                    "is_goal": pre_b.is_goal,
-                    "node_mask": pre_b.node_mask,
-                    "type_id": pre_b.type_id,
-                    "table_id": pre_b.table_id,
-                    "holds": np.asarray(res["pre_holds"]),
-                },
-                # The table-bitset width the fused step used for this bucket.
-                {"v": pre_b.v, "num_tables": int(np.asarray(res["proto_bits"]).shape[1])},
-                rows=len(pre_b.run_ids),
-            )["ext_bits"]
+            rows = len(pre_b.run_ids)
+            route, reason, work = self._synth_route(rows, pre_b.v, pre_b.e)
+            self._record_route("synth", route, rows, pre_b.v, pre_b.e, work, reason)
+            holds = np.asarray(res["pre_holds"])
+            # The table-bitset width the fused step used for this bucket.
+            num_tables = int(np.asarray(res["proto_bits"]).shape[1])
+            if route == "sparse":
+                self.executor.count_host("synth_host")
+                bits = synth_ext_host(pre_b, holds, num_tables)
+            else:
+                bits = self.executor.run(
+                    "synth_ext",
+                    {
+                        "edge_src": pre_b.edge_src,
+                        "edge_dst": pre_b.edge_dst,
+                        "edge_mask": pre_b.edge_mask,
+                        "is_goal": pre_b.is_goal,
+                        "node_mask": pre_b.node_mask,
+                        "type_id": pre_b.type_id,
+                        "table_id": pre_b.table_id,
+                        "holds": holds,
+                    },
+                    {"v": pre_b.v, "num_tables": num_tables},
+                    rows=rows,
+                )["ext_bits"]
             nm = names[: bits.shape[1]]
             rows_i, ts = np.nonzero(bits)
             order = np.lexsort((nm[ts], rows_i))

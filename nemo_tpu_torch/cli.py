@@ -1,13 +1,16 @@
-"""Command line: the debugging report of one Molly output directory, on one
-device.
+"""Command line: the debugging report of one or more Molly output
+directories, on one device.
 
-    python -m nemo_tpu_torch.cli -faultInjOut <dir> [--device cuda|cpu]
+    python -m nemo_tpu_torch.cli -faultInjOut <dir> [<dir> ...] [--device cuda|cpu]
         [--results-dir DIR] [--figures all|failed|sample:N|none]
-        [--analysis-impl auto|dense|sparse_device]
+        [--analysis-impl auto|dense|sparse|sparse_device]
         [--ingest auto|native|python] [--corpus-cache DIR|off]
-        [--result-cache DIR|off] [--out analysis.json]
+        [--result-cache DIR|off] [--prefetch] [--out analysis.json]
 
-Writes the report tree ``DIR/<corpus>/`` (default ``./results``):
+Writes the report tree ``DIR/<corpus>/`` (default ``./results``) of each
+directory; several go through ``run_debug_dirs``, which names the reports
+apart when two directories share a basename and, with ``--prefetch``,
+parses each corpus while the one before it is analysed:
 debugging.json, repairs.json, the figures as .dot and .svg and the HTML/JS
 frontend, byte-equal to the JAX package's report of the same corpus, and
 telemetry.json with the phase walls.  ``--figures`` picks the runs that get
@@ -25,10 +28,13 @@ With ``--out FILE`` it writes instead one JSON analysis document (analyze):
 the success and failed iterations, the good run, per-run achieved-antecedent
 goal counts, the four prototype outputs, the missing events of every failed
 run, the extension candidates of every run, the route taken by each
-dispatch, the dispatch counts per verb and the wall time of each phase.  The device defaults to ``cuda``; without a card that
-raises unless ``--device cpu`` is given.  ``--analysis-impl`` forces the
-dense or the sparse tier for every bucket and the diff (giant runs always
-take the sparse tier); ``auto`` routes per bucket.
+dispatch, the dispatch counts per verb and the wall time of each phase
+(one directory only).  The device defaults to ``cuda``; without a card that
+raises unless ``--device cpu`` is given.  ``--analysis-impl`` forces one
+lane for every bucket, the diff and the synth pass: ``dense``, ``sparse``
+(the host lane) or ``sparse_device`` (giant runs take the sparse device
+step unless ``sparse``); ``auto`` routes each by the JAX package's
+device-backend rules, with the host-lane work budgets of TorchBackend.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import time
 
 import torch
 
-from nemo_tpu_torch.analysis.pipeline import INGEST_MODES, run_debug
+from nemo_tpu_torch.analysis.pipeline import INGEST_MODES, run_debug, run_debug_dirs
 from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.molly import load_molly_output
 
@@ -100,11 +106,12 @@ def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto") -> dic
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m nemo_tpu_torch.cli", description=__doc__.split("\n")[0])
-    ap.add_argument("-faultInjOut", dest="fault_inj_out", required=True,
-                    help="Molly output directory to analyze")
+    ap.add_argument("-faultInjOut", dest="fault_inj_out", required=True, nargs="+", metavar="DIR",
+                    help="Molly output directory (or directories) to analyze")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--analysis-impl", default="auto", choices=ANALYSIS_IMPLS,
-                    help="route every bucket and the diff dense or sparse (default: per bucket)")
+                    help="force one lane for every verb: dense, sparse (host) or sparse_device "
+                         "(default auto: per bucket)")
     ap.add_argument("--results-dir", default=os.path.join(os.getcwd(), "results"),
                     help="root directory of the report (default ./results)")
     ap.add_argument("--figures", default="all", metavar="POLICY",
@@ -118,22 +125,35 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--result-cache", default=None, metavar="DIR|off",
                     help="result cache root (default $NEMO_RESULT_CACHE or "
                          "~/.cache/nemo_tpu_torch/results; 'off' disables)")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="with several -faultInjOut directories, parse the next corpus on a worker thread "
+                         "while the current one is analysed (default: one after the other)")
     ap.add_argument("--out", default=None,
                     help="write the JSON analysis document to this file instead of the report")
     args = ap.parse_args(argv)
     if args.out is not None:
-        doc = analyze(args.fault_inj_out, device=args.device, analysis_impl=args.analysis_impl)
+        if len(args.fault_inj_out) != 1:
+            ap.error("--out takes one -faultInjOut directory")
+        doc = analyze(args.fault_inj_out[0], device=args.device, analysis_impl=args.analysis_impl)
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump(doc, f, indent=1)
         print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
         return 0
-    backend = TorchBackend(device=args.device, analysis_impl=args.analysis_impl)
-    res = run_debug(args.fault_inj_out, args.results_dir, backend, figures=args.figures, ingest=args.ingest,
-                    corpus_cache=args.corpus_cache, result_cache=args.result_cache)
-    print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {backend.executor.device} -> {res.report_dir}"
-          f" (ingest {res.ingest}, result cache {res.result_cache['state']})")
-    print("timings (s): " + ", ".join(f"{k} {v:.3f}" for k, v in res.timings.items()))
-    fs = res.figure_stats
+
+    def make_backend():
+        return TorchBackend(device=args.device, analysis_impl=args.analysis_impl)
+
+    kw = dict(figures=args.figures, ingest=args.ingest, corpus_cache=args.corpus_cache,
+              result_cache=args.result_cache)
+    if len(args.fault_inj_out) == 1:
+        results = [run_debug(args.fault_inj_out[0], args.results_dir, make_backend(), **kw)]
+    else:
+        results = run_debug_dirs(args.fault_inj_out, args.results_dir, make_backend, prefetch=args.prefetch, **kw)
+    for res in results:
+        print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {args.device} -> {res.report_dir}"
+              f" (ingest {res.ingest}, result cache {res.result_cache['state']})")
+        print("timings (s): " + ", ".join(f"{k} {v:.3f}" for k, v in res.timings.items()))
+    fs = results[-1].figure_stats
     if fs and fs["figures"]:
         print(f"figures: {fs['figures']} written from {fs['unique_figures']} unique renders "
               f"in {fs['render_wall_s']} s")

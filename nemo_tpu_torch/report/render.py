@@ -76,7 +76,9 @@ class _Entry:
 class RenderScheduler:
     """``submit(dot, svg_path)`` registers a figure; ``drain()`` renders each
     unique key once, in submission order, in this process, writes its SVG
-    to every submitted path and returns ``stats()``."""
+    to every path submitted since the last drain and returns ``stats()``.
+    One scheduler may serve several reports (run_debug_dirs): their figures
+    dedup together and land at its one drain."""
 
     def __init__(self) -> None:
         self._entries: dict[str, _Entry] = {}
@@ -130,6 +132,15 @@ class RenderScheduler:
             ent.pending_paths = []
         self.render_wall_s += time.perf_counter() - t0
         return self.stats()
+
+    def close(self) -> None:
+        """Release the scheduler's renders.  Every figure must have been
+        drained: a figure submitted and never written raises."""
+        pending = sum(len(e.pending_paths) for e in self._entries.values())
+        self._entries.clear()
+        self._order.clear()
+        if pending:
+            raise RuntimeError(f"RenderScheduler closed with {pending} figure(s) never written")
 
     def stats(self) -> dict:
         """The frontend's "Figure pipeline" table (the JAX package's keys):

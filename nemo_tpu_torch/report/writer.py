@@ -24,10 +24,13 @@ ASSETS_DIR = os.path.join(os.path.dirname(__file__), "assets")
 
 
 class Reporter:
-    def __init__(self) -> None:
+    def __init__(self, scheduler: RenderScheduler | None = None) -> None:
+        """``scheduler``: the RenderScheduler the SVGs go to, shared with
+        other reports (run_debug_dirs) and drained by its owner; default a
+        scheduler of this report's own."""
         self.res_dir = ""
         self.figures_dir = ""
-        self.scheduler = RenderScheduler()
+        self.scheduler = scheduler if scheduler is not None else RenderScheduler()
 
     def prepare(self, all_results_dir: str, this_results_dir: str) -> None:
         """Copy the report template and create the figures directory

@@ -1,8 +1,11 @@
-"""Environment knobs read by the port's ingest, corpus store and result
-cache: a trimmed copy of the JAX package's ``utils/env.py``.
+"""Environment knobs read by the port's ingest, corpus store, result cache,
+streamed map and reduce: a trimmed copy of the JAX package's
+``utils/env.py``.
 
-A junk value warns and falls back to the default: these knobs gate caches
-and degraded operation, never which algorithm analyzes the corpus.
+A junk value of a flag or a number warns and falls back to the default:
+these knobs gate caches, degraded operation and the shape of the execution,
+never which algorithm analyzes the corpus.  An enumerated knob
+(``env_choice``) raises on junk, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -27,6 +30,32 @@ def env_flag(name: str, default: bool) -> bool:
         return False
     _log.warning("%s=%r is not a recognized boolean; using %r", name, raw, default)
     return default
+
+
+def env_int(name: str, default: int, minimum: int = 0) -> int:
+    """Integer knob, at least ``minimum``."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        n = int(raw)
+    except ValueError:
+        _log.warning("%s=%r is not an integer; using %r", name, raw, default)
+        return default
+    if n < minimum:
+        _log.warning("%s=%r must be >= %d; using %r", name, raw, minimum, default)
+        return default
+    return n
+
+
+def env_choice(name: str, default: str, choices: tuple) -> str:
+    """Enumerated knob; raises on a value outside ``choices``."""
+    raw = os.environ.get(name, "").strip().lower()
+    if not raw:
+        return default
+    if raw not in choices:
+        raise ValueError(f"{name}={raw!r} (expected one of {', '.join(choices)})")
+    return raw
 
 
 def quarantine_enabled() -> bool:

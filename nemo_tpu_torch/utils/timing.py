@@ -10,8 +10,10 @@ import time
 class PhaseTimer:
     """name -> accumulated wall seconds of every ``phase(name)`` block.
     ``sync``, when given, is called at the end of each phase before the
-    clock is read (``torch.cuda.synchronize`` on the card), so that a
-    phase's wall covers the device work it queued."""
+    clock is read (on the card, a synchronize of the caller's current
+    stream), so that a phase's wall covers the device work it queued.  It
+    waits for that stream only: the streamed map's staging copies run on a
+    side stream and are not waited for here."""
 
     def __init__(self, sync=None) -> None:
         self._timings: dict[str, float] = {}

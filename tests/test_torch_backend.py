@@ -1,8 +1,9 @@
 """TorchBackend (device="cpu") against the JAX package's JaxBackend on the CPU.
 
-The JAX side is pinned to the same dense route the port always takes
-(NEMO_ANALYSIS_IMPL=dense: fused and diff on the device kernels;
-NEMO_SYNTH_IMPL=sparse_device: the synth_ext verb).  Compared: the four
+Both sides are pinned to the dense route (the port's
+``analysis_impl="dense"``; the JAX side's NEMO_ANALYSIS_IMPL=dense: fused
+and diff on the device kernels; NEMO_SYNTH_IMPL=sparse_device: the
+synth_ext verb).  Compared: the four
 create_prototypes outputs, every failed run's missing events (to_json),
 achieved_pre_goal_counts and synth_candidates, over the shared synthetic
 corpus and the six case-study families.  Tolerance: none.
@@ -54,7 +55,7 @@ def _drive(backend, molly):
 def _compare(corpus: str) -> None:
     jm, tm = jax_load(corpus), port_load(corpus)
     assert (jm.success_runs_iters, jm.failed_runs_iters) == (tm.success_runs_iters, tm.failed_runs_iters)
-    jb, tb = JaxBackend(), TorchBackend(device="cpu")
+    jb, tb = JaxBackend(), TorchBackend(device="cpu", analysis_impl="dense")
     _drive(jb, jm)
     _drive(tb, tm)
     succ, failed, runs = jm.success_runs_iters, jm.failed_runs_iters, jm.runs_iters

@@ -183,3 +183,55 @@ def test_sparse_step_on_card_matches_cpu(cuda, tmp_path):
     assert k2.edge_wave.launches == before + 3
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _staging_corpus(tmp_path, n_runs: int = 600):
+    """A corpus with a device-lane bucket at the default budgets."""
+    from nemo_tpu_torch.ingest.molly import load_molly_output
+    from nemo_tpu_torch.models.case_studies import write_case_study
+
+    return load_molly_output(write_case_study("ZK-1270-racing-sent-flag", n_runs, 0, str(tmp_path)))
+
+
+@pytest.mark.cuda
+def test_staged_planes_equal_unstaged(cuda, tmp_path):
+    """stage_fused_inputs sends each device-lane bucket's verb arrays to the
+    card on a side stream; after its event they equal the host arrays."""
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend, _verb_arrays
+
+    molly = _staging_corpus(tmp_path)
+    tb = TorchBackend(device=cuda)
+    tb.init_graph_db("", molly)
+    plan = tb.stage_fused_inputs()
+    assert plan["staged"] and plan["staged_bytes"] > 0
+    for bi, (on_dev, event) in plan["staged"].items():
+        event.synchronize()
+        pre_b, post_b = plan["batches"][bi]
+        host = _verb_arrays(pre_b, post_b)
+        assert set(on_dev) == set(host)
+        for k, t in on_dev.items():
+            assert t.is_cuda and np.array_equal(t.cpu().numpy(), np.asarray(host[k])), k
+
+
+@pytest.mark.cuda
+def test_dispatch_after_staging_equals_one_without(cuda, tmp_path):
+    """The fused step on staged inputs (the streamed map's prefetch) gives
+    the outputs of the same step without staging, bucket for bucket."""
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+
+    molly = _staging_corpus(tmp_path)
+    outs = []
+    for stage in (True, False):
+        tb = TorchBackend(device=cuda)
+        tb.init_graph_db("", molly)
+        if stage:
+            assert tb.stage_fused_inputs()["staged"]
+        outs.append(tb._fused())
+        assert any(r["route"] == "dense" for r in tb.analysis_routes)
+    for (_, _, a), (_, _, b) in zip(*outs):
+        assert set(a) == set(b)
+        for k in a:
+            x, y = a[k], b[k]
+            x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+            assert np.array_equal(x, y), k

@@ -4,7 +4,9 @@
   nothing, the tree is byte-equal to the first and to the JAX package's.
 * A grown corpus (``grow_corpus_dir``) maps only its new segment's runs,
   merges the cached partial of the old one, and its report equals a
-  from-scratch report of the port and the JAX package's report.
+  from-scratch report of the port and the JAX package's report; so it does
+  on the port's device lanes (every host budget 0) against the JAX
+  package's report forced dense.
 * ``sample:N`` skips the per-segment tier but not the whole-report one.
 * The port's cache keys never equal the JAX package's for the same corpus,
   and a result-cache root shared with the JAX package serves the port
@@ -41,6 +43,12 @@ from nemo_tpu_torch.models.synth import grow_corpus_dir
 from nemo_tpu_torch.store import rcache, resolve_store
 
 
+def _work(backend) -> dict:
+    """What the backend computed, on either lane: device dispatches and
+    host-lane runs per verb."""
+    return {**backend.executor.dispatches, **backend.executor.host_runs}
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
@@ -60,8 +68,8 @@ def _jax_report(cd: str, out: str, figures: str) -> dict[str, bytes]:
     return jax_tree(res.report_dir)
 
 
-def _cached_report(cd: str, out: str, tmp_path, figures: str):
-    backend = TorchBackend(device="cpu")
+def _cached_report(cd: str, out: str, tmp_path, figures: str, **backend_kw):
+    backend = TorchBackend(device="cpu", **backend_kw)
     res = run_debug(cd, out, backend, figures=figures, ingest="native", corpus_cache=str(tmp_path / "cc"),
                     result_cache=str(tmp_path / "rc"))
     return res, backend
@@ -70,10 +78,10 @@ def _cached_report(cd: str, out: str, tmp_path, figures: str):
 @pytest.mark.parametrize("figures", ["all", "sample:3"])
 def test_repeat_is_a_report_hit_with_no_dispatch(full_dir, tmp_path, figures):
     first, b1 = _cached_report(full_dir, str(tmp_path / "R0"), tmp_path, figures)
-    assert first.result_cache["state"] == "computed" and b1.executor.dispatches
+    assert first.result_cache["state"] == "computed" and _work(b1)
     again, b2 = _cached_report(full_dir, str(tmp_path / "R1"), tmp_path, figures)
     assert (again.ingest, again.result_cache) == ("store_hit", {"state": "report_hit"})
-    assert b2.executor.dispatches == {} and b2.analysis_routes == []
+    assert _work(b2) == {} and b2.analysis_routes == []
     tree = report_tree_bytes(again.report_dir)
     assert tree == report_tree_bytes(first.report_dir)
     assert tree == _jax_report(full_dir, str(tmp_path / "J"), figures)
@@ -99,7 +107,23 @@ def test_grown_corpus_maps_only_the_new_segment(full_dir, tmp_path, figures):
     assert tree == _jax_report(cd, str(tmp_path / "J"), figures)
     # The merged report is now a whole-report hit.
     again, b2 = _cached_report(cd, str(tmp_path / "R2"), tmp_path, figures)
-    assert again.result_cache["state"] == "report_hit" and b2.executor.dispatches == {}
+    assert again.result_cache["state"] == "report_hit" and _work(b2) == {}
+
+
+def test_grown_corpus_device_lanes_match_jax(full_dir, tmp_path, monkeypatch):
+    """The grown corpus's new segment on the dense lanes: the cached old
+    partial merges with it into the JAX package's dense report."""
+    lanes = {"analysis_host_work": 0, "diff_host_work": 0, "synth_host_work": 0}
+    cd = str(tmp_path / "grow" / "pb_synth")
+    grow_corpus_dir(full_dir, cd, 7)
+    _cached_report(cd, str(tmp_path / "R0"), tmp_path, "failed", **lanes)
+    grow_corpus_dir(full_dir, cd, 10)
+    res, backend = _cached_report(cd, str(tmp_path / "R1"), tmp_path, "failed", **lanes)
+    assert res.result_cache["segments_cached"] == 1 and res.result_cache["runs_mapped"] == 3
+    assert backend.executor.host_runs == {} and backend.executor.dispatches["fused"]
+    assert not [r for r in backend.analysis_routes if r["route"] == "sparse"]
+    monkeypatch.setenv("NEMO_ANALYSIS_IMPL", "dense")
+    assert report_tree_bytes(res.report_dir) == _jax_report(cd, str(tmp_path / "J"), "failed")
 
 
 def test_sample_policy_skips_partials(full_dir, tmp_path):
@@ -142,7 +166,7 @@ def test_keys_never_collide_with_the_jax_package(full_dir, tmp_path):
     res = run_debug(full_dir, str(tmp_path / "P"), backend, figures="all", ingest="native",
                     corpus_cache=str(tmp_path / "pc2"), result_cache=shared)
     assert res.result_cache["state"] == "computed" and res.result_cache["segments_cached"] == 0
-    assert backend.executor.dispatches
+    assert _work(backend)
 
 
 def test_partial_json_round_trip(full_dir, tmp_path):
@@ -191,7 +215,7 @@ def test_partial_lost_before_staging_is_a_miss(full_dir, tmp_path, monkeypatch):
     want = report_tree_bytes(scratch.report_dir)
     assert report_tree_bytes(res.report_dir) == want
     again, b2 = _cached_report(cd, str(tmp_path / "R2"), tmp_path, "failed")
-    assert again.result_cache["state"] == "report_hit" and b2.executor.dispatches == {}
+    assert again.result_cache["state"] == "report_hit" and _work(b2) == {}
     assert report_tree_bytes(again.report_dir) == want
 
 
@@ -200,12 +224,12 @@ def test_report_whose_partial_is_gone_is_a_miss(full_dir, tmp_path):
     want = report_tree_bytes(first.report_dir)
     shutil.rmtree(tmp_path / "rc" / "partial")
     res, backend = _cached_report(full_dir, str(tmp_path / "R1"), tmp_path, "all")
-    assert res.result_cache["state"] == "computed" and backend.executor.dispatches
+    assert res.result_cache["state"] == "computed" and _work(backend)
     assert report_tree_bytes(res.report_dir) == want
     # The partial is published again under its key, and the report entry
     # that names it serves again.
     again, b2 = _cached_report(full_dir, str(tmp_path / "R2"), tmp_path, "all")
-    assert again.result_cache["state"] == "report_hit" and b2.executor.dispatches == {}
+    assert again.result_cache["state"] == "report_hit" and _work(b2) == {}
     assert report_tree_bytes(again.report_dir) == want
 
 
@@ -224,7 +248,7 @@ def test_report_file_edited_in_place_is_not_served(full_dir, tmp_path, victim, m
         fh.write(" ")
     res, backend = _cached_report(full_dir, str(tmp_path / "R1"), tmp_path, "all")
     assert res.result_cache["state"] == "computed" and res.result_cache["segments_mapped"] == mapped
-    assert bool(backend.executor.dispatches) == bool(mapped)
+    assert bool(_work(backend)) == bool(mapped)
     assert report_tree_bytes(res.report_dir) == want
 
 

@@ -7,8 +7,12 @@ with ``TorchBackend(device="cpu")``.  Compared: ``report_tree_bytes`` of
 the two report trees (every file but telemetry.json), on the six case-study
 families, the shared synthetic corpus under every figure policy, an
 all-failed and an all-success corpus and a small giant corpus on both
-tiers; the JAX side on its default route and forced dense.  Then the report
-verbs one by one against ``JaxBackend``: pull_pre_post_prov's DOT strings,
+tiers; the JAX side on its default route and forced dense.  The six
+families and the synthetic corpus again with the port on its device lanes
+(every host budget 0, or the dense lane forced: the K1 path, the dense
+diff's edge_keep overlays, synth_ext) against the JAX side forced dense.
+Then the report verbs one by one against ``JaxBackend``, on the port's
+default routes and on its device lanes: pull_pre_post_prov's DOT strings,
 create_naive_diff_prov's overlay DOTs and missing events,
 generate_corrections and generate_extensions.  Tolerance: none.
 """
@@ -102,6 +106,45 @@ def test_report_matches_jax_synthetic(corpus_dir, tmp_path, jax_route):
     _compare(corpus_dir, tmp_path)
 
 
+#: The port's device lanes: every host budget 0 (auto then routes by the
+#: memory and density steps), or the dense lane forced.
+DEVICE_LANES = {
+    "device_auto": {"analysis_host_work": 0, "diff_host_work": 0, "synth_host_work": 0},
+    "dense": {"analysis_impl": "dense"},
+}
+
+
+def _jax_dense_report(corpus: str, out: str) -> dict[str, bytes]:
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NEMO_ANALYSIS_IMPL", "dense")
+        return _jax_report(corpus, out, "all")
+
+
+def _compare_device_lanes(corpus: str, tmp_path, lanes: str) -> TorchBackend:
+    """The port's report on its device lanes against the JAX package's
+    forced dense; the port ran no verb on the host lane."""
+    want = _jax_dense_report(corpus, str(tmp_path / "jax"))
+    backend = TorchBackend(device="cpu", **DEVICE_LANES[lanes])
+    res = run_debug(corpus, str(tmp_path / "port"), backend, figures="all")
+    _assert_same_tree(report_tree_bytes(res.report_dir), want)
+    assert backend.executor.host_runs == {}
+    assert backend.analysis_routes and not [r for r in backend.analysis_routes if r["route"] == "sparse"]
+    return backend
+
+
+@pytest.mark.parametrize("lanes", sorted(DEVICE_LANES))
+@pytest.mark.parametrize("family", sorted(CASE_STUDIES))
+def test_report_device_lanes_match_jax_case_study(family, lanes, family_root, tmp_path):
+    backend = _compare_device_lanes(write_case_study(family, RUNS, 0, str(family_root)), tmp_path, lanes)
+    assert {"fused", "diff", "synth_ext"} <= set(backend.executor.dispatches)
+
+
+@pytest.mark.parametrize("lanes", sorted(DEVICE_LANES))
+def test_report_device_lanes_match_jax_synthetic(corpus_dir, tmp_path, lanes):
+    backend = _compare_device_lanes(corpus_dir, tmp_path, lanes)
+    assert {"fused", "diff"} <= set(backend.executor.dispatches)
+
+
 @pytest.mark.parametrize("figures", ["failed", "sample:3", "none"])
 def test_report_figure_policies(corpus_dir, tmp_path, figures):
     tree = _compare(corpus_dir, tmp_path, figures)
@@ -139,8 +182,8 @@ def test_report_all_success(tmp_path):
 @pytest.mark.parametrize("impl", ["auto", "sparse_device"])
 def test_report_small_giant(tmp_path, monkeypatch, impl):
     """A giant threshold of 64 nodes on both sides: the runs above it take
-    the sparse step one at a time (and a giant good run's diff the sparse
-    diff), on the port's auto route and forced sparse."""
+    the sparse step one at a time (and a giant good run's diff the host
+    lane), on the port's auto route and forced sparse_device."""
     cd = write_corpus(SynthSpec(n_runs=5, seed=4, eot=40), str(tmp_path / "c"))
     monkeypatch.setenv("NEMO_GIANT_V", "64")
     backend = TorchBackend(device="cpu", analysis_impl=impl, giant_v=64)
@@ -148,7 +191,7 @@ def test_report_small_giant(tmp_path, monkeypatch, impl):
     res = run_debug(cd, str(tmp_path / "port"), backend, figures="all")
     _assert_same_tree(report_tree_bytes(res.report_dir), want)
     verbs = {(r["verb"], r["route"]) for r in backend.analysis_routes}
-    assert ("giant", "sparse_device") in verbs and ("diff", "sparse_device") in verbs
+    assert ("giant", "sparse_device") in verbs and ("diff", "sparse") in verbs
 
 
 def test_cli_writes_the_report(corpus_dir, tmp_path):
@@ -179,11 +222,9 @@ def _dots(dots) -> list[str]:
     return [d.to_string() for d in dots]
 
 
-@pytest.mark.parametrize("corpus", ["synth", "ZK-1270-racing-sent-flag"])
-def test_report_verbs_match_jax(corpus, corpus_dir, family_root, jax_route):
-    cd = corpus_dir if corpus == "synth" else write_case_study(corpus, RUNS, 0, str(family_root))
+def _verbs_match(cd: str, port_backend: TorchBackend) -> TorchBackend:
     jm, tm = jax_load(cd), port_load(cd)
-    jb, tb = _drive(JaxBackend(), jm), _drive(TorchBackend(device="cpu"), tm)
+    jb, tb = _drive(JaxBackend(), jm), _drive(port_backend, tm)
     iters, failed = jm.runs_iters, jm.failed_runs_iters
     assert failed, "the corpus must have failed runs"
 
@@ -206,6 +247,22 @@ def test_report_verbs_match_jax(corpus, corpus_dir, family_root, jax_route):
     assert tb.extension_suggestions() == jb.extension_suggestions()
     tb.close_db()
     assert tb.molly is None and tb.analysis_routes
+    return tb
+
+
+@pytest.mark.parametrize("corpus", ["synth", "ZK-1270-racing-sent-flag"])
+def test_report_verbs_match_jax(corpus, corpus_dir, family_root, jax_route):
+    cd = corpus_dir if corpus == "synth" else write_case_study(corpus, RUNS, 0, str(family_root))
+    _verbs_match(cd, TorchBackend(device="cpu"))
+
+
+@pytest.mark.parametrize("lanes", sorted(DEVICE_LANES))
+@pytest.mark.parametrize("corpus", ["synth", "ZK-1270-racing-sent-flag"])
+def test_report_verbs_device_lanes_match_jax(corpus, lanes, corpus_dir, family_root, monkeypatch):
+    monkeypatch.setenv("NEMO_ANALYSIS_IMPL", "dense")
+    cd = corpus_dir if corpus == "synth" else write_case_study(corpus, RUNS, 0, str(family_root))
+    tb = _verbs_match(cd, TorchBackend(device="cpu", **DEVICE_LANES[lanes]))
+    assert tb.executor.host_runs == {} and {"fused", "diff"} <= set(tb.executor.dispatches)
 
 
 def test_reduce_of_split_partials_equals_one(corpus_dir):

@@ -39,6 +39,7 @@ from nemo_tpu_torch.kernels.edge_wave import edge_wave, edge_wave_plain
 from nemo_tpu_torch.models import pipeline_model as tpm
 from nemo_tpu_torch.ops import sparse_device as tsd
 from nemo_tpu_torch.ops.simplify import pair_chains_linear
+from nemo_tpu_torch.parallel.giant import giant_linear
 from nemo_tpu_torch.parallel.giant import giant_plan as port_giant_plan
 
 
@@ -308,7 +309,8 @@ def test_backend_forced_sparse_matches_jax(corpus, corpus_dir, tmp_path, sparse_
     tb = TorchBackend(device="cpu", analysis_impl="sparse_device")
     jb = _compare(d, tb)
     port_routes = {(r["verb"], r["route"], r["reason"]) for r in tb.analysis_routes}
-    assert port_routes == {("fused", "sparse_device", "forced"), ("diff", "sparse_device", "forced")}
+    assert port_routes == {("fused", "sparse_device", "forced"), ("diff", "sparse_device", "forced"),
+                           ("synth", "sparse_device", "forced")}
     assert {(r["verb"], r["route"]) for r in jb.analysis_routes} >= {
         ("fused", "sparse_device"), ("diff", "sparse_device")
     }
@@ -326,7 +328,7 @@ def giant_env(monkeypatch):
 @pytest.mark.parametrize("corpus", ["deep", "zigzag"])
 def test_giant_runs_match_jax(corpus, tmp_path, giant_env):
     """giant_v=64: runs above 64 nodes leave the buckets for sparse_fused,
-    one dispatch each, and a giant good run's diff goes sparse_diff."""
+    one dispatch each, and a giant good run's diff goes to the host lane."""
     if corpus == "zigzag":
         d = _write_zigzag(tmp_path, ("success", "fail"))
     else:
@@ -341,13 +343,14 @@ def test_giant_runs_match_jax(corpus, tmp_path, giant_env):
     assert {r["route"] for r in jax_giants} == {"sparse_device"}
     assert tb.executor.dispatches["sparse_fused"] == len(giants)
     diff = [r for r in tb.analysis_routes if r["verb"] == "diff"]
-    assert [(r["route"], r["reason"]) for r in diff] == [("sparse_device", "giant")]
+    assert [(r["route"], r["reason"]) for r in diff] == [("sparse", "giant")]
+    assert [r for r in jb.analysis_routes if r["verb"] == "diff"] == diff
 
 
 def test_giant_plan_matches_jax(tmp_path):
-    """The giant lane's comp_linear flag (the port's giant_plan) equals the
-    JAX package's giant_plan flag, and the bucket-level check on the run's
-    one-row batches."""
+    """The port's giant_plan (linear flag, depth bound, union-find labels)
+    equals the JAX package's, and the device lane's flag (giant_linear)
+    equals both and the bucket-level check on the run's one-row batches."""
     from nemo_tpu.graphs.packed import CorpusVocab as JaxVocab
     from nemo_tpu.graphs.packed import pack_graph as jax_pack
 
@@ -360,8 +363,11 @@ def test_giant_plan_matches_jax(tmp_path):
         for run in jax_load(d).runs:
             for cond, prov in (("pre", run.pre_prov), ("post", run.post_prov)):
                 graph = tb.packed[(run.iteration, cond)]
-                got = port_giant_plan(graph)
-                assert got == jax_giant_plan(jax_pack(prov, vocab))[0], (d, run.iteration, cond)
+                got, depth, labels = port_giant_plan(graph)
+                want, want_depth, want_labels = jax_giant_plan(jax_pack(prov, vocab))
+                assert (got, depth) == (want, want_depth), (d, run.iteration, cond)
+                np.testing.assert_array_equal(labels, np.asarray(want_labels))
+                assert got == giant_linear(graph)
                 assert got == pair_chains_linear(*[pack_batch([run.iteration], [graph])] * 2)
                 flags.append(got)
     assert True in flags and False in flags
@@ -373,36 +379,50 @@ def test_giant_plan_matches_jax(tmp_path):
 @pytest.mark.parametrize(
     "rows,b,v,e,want",
     [
-        (541, 1024, 64, 256, ("dense", "default")),
-        (494, 512, 128, 256, ("dense", "default")),
+        (541, 1024, 64, 256, ("dense", "crossover")),
+        (494, 512, 128, 256, ("dense", "crossover")),
         (544, 1024, 256, 256, ("sparse_device", "mem")),
-        (121, 128, 512, 512, ("dense", "default")),
+        (121, 128, 512, 512, ("dense", "crossover")),
         (1, 8, 2048, 2048, ("sparse_device", "density")),
-        (1, 8, 1024, 8192, ("dense", "default")),
-        (3, 8, 512, 128, ("dense", "default")),
+        (1, 8, 1024, 8192, ("dense", "crossover")),
+        (3, 8, 512, 128, ("dense", "crossover")),
     ],
 )
 def test_auto_route_reasons(rows, b, v, e, want):
-    """The JAX package's device route order on hand-sized buckets: the
-    long-horizon sweep's four buckets, a density-routed and a dense large-V
-    bucket, and a sparse small-V bucket under the density floor."""
-    tb = TorchBackend(device="cpu")
-    assert tb._analysis_route(rows, v, e, b) == want
+    """The JAX package's device route order on hand-sized buckets (host
+    budget 0, so no bucket takes the host lane): the long-horizon sweep's
+    four buckets, a density-routed and a dense large-V bucket, and a sparse
+    small-V bucket under the density floor.  With the default budget, a
+    bucket whose work B x (V + E) is within 100,000 takes the host lane."""
+    work = rows * (v + e)
+    tb = TorchBackend(device="cpu", analysis_host_work=0)
+    assert tb._analysis_route(rows, v, e, b) == (*want, work)
     assert TorchBackend(device="cpu", analysis_impl="dense")._analysis_route(rows, v, e, b) == (
-        "dense", "forced")
+        "dense", "forced", work)
+    default = TorchBackend(device="cpu")._analysis_route(rows, v, e, b)
+    assert default == (("sparse", "crossover", work) if work <= 100_000 else (*want, work))
 
 
 def test_auto_diff_route_reasons():
+    """The JAX package's diff order: a giant good run -> the host lane;
+    forced; work F x (V + E) within the host budget -> the host; past the
+    watermark -> sparse on the device; else dense."""
     tb = TorchBackend(device="cpu")
-    assert tb._diff_route(5000, 8, 8192) == ("sparse_device", "giant")
-    assert tb._diff_route(1371, 8, 2048) == ("dense", "default")
-    assert tb._diff_route(1000, 128, 2048) == ("sparse_device", "mem")
-    assert TorchBackend(device="cpu", analysis_impl="dense")._diff_route(5000, 8, 8192) == (
-        "sparse_device", "giant")
-    assert TorchBackend(device="cpu", analysis_impl="sparse_device")._diff_route(10, 8, 64) == (
-        "sparse_device", "forced")
+    # (good nodes, good edges, failed runs, padded failed runs, V)
+    assert tb._diff_route(5000, 5200, 2, 8, 8192) == ("sparse", "giant", 20400)
+    assert tb._diff_route(40, 45, 1000, 1024, 64) == ("sparse", "crossover", 85000)
+    no_host = TorchBackend(device="cpu", diff_host_work=0)
+    assert no_host._diff_route(1371, 1400, 2, 8, 2048) == ("dense", "crossover", 5542)
+    assert no_host._diff_route(1000, 1000, 100, 128, 2048) == ("sparse_device", "mem", 200000)
+    assert no_host._diff_route(5000, 5200, 2, 8, 8192) == ("sparse", "giant", 20400)
+    assert TorchBackend(device="cpu", analysis_impl="dense")._diff_route(5000, 5200, 2, 8, 8192) == (
+        "sparse", "giant", 20400)
+    assert TorchBackend(device="cpu", analysis_impl="sparse_device")._diff_route(10, 9, 8, 8, 64) == (
+        "sparse_device", "forced", 152)
+    assert TorchBackend(device="cpu", analysis_impl="sparse")._diff_route(10, 9, 8, 8, 64) == (
+        "sparse", "forced", 152)
     with pytest.raises(ValueError, match="analysis_impl"):
-        TorchBackend(device="cpu", analysis_impl="sparse")
+        TorchBackend(device="cpu", analysis_impl="crossover")
 
 
 def test_auto_mixes_both_tiers_and_matches_dense(tmp_path):
@@ -412,11 +432,11 @@ def test_auto_mixes_both_tiers_and_matches_dense(tmp_path):
     dense = cli.analyze(d, device="cpu", analysis_impl="dense")
     tb_doc = None
     for mem in (16 * 32 * 32 * 4, 64 * 64 * 64 * 4):
-        tb = TorchBackend(device="cpu", sparse_device_mem_bytes=mem)
+        tb = TorchBackend(device="cpu", sparse_device_mem_bytes=mem, analysis_host_work=0)
         tm = port_load(d)
         _drive(tb, tm)
         routes = [(r["route"], r["reason"]) for r in tb.analysis_routes if r["verb"] == "fused"]
-        if ("sparse_device", "mem") in routes and ("dense", "default") in routes:
+        if ("sparse_device", "mem") in routes and ("dense", "crossover") in routes:
             tb_doc = tb
             break
     assert tb_doc is not None, "no watermark split the corpus into both tiers"
@@ -439,7 +459,8 @@ def test_cli_sparse_document_equals_dense(corpus_dir, tmp_path):
     sparse = json.loads(out.read_text())
     dense = cli.analyze(corpus_dir, device="cpu", analysis_impl="dense")
     assert {r["route"] for r in sparse["routes"]} == {"sparse_device"}
-    assert {r["route"] for r in dense["routes"]} == {"dense"}
+    assert {(r["verb"], r["route"]) for r in dense["routes"]} == {
+        ("fused", "dense"), ("diff", "dense"), ("synth", "sparse_device")}
     assert set(sparse["dispatches"]) == {"sparse_fused", "sparse_diff", "synth_ext"}
     facts = ("routes", "dispatches", "dispatch_wall_s", "timings_s")
     assert {k: v for k, v in sparse.items() if k not in facts} == {
