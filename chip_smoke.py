@@ -84,6 +84,24 @@ each fatal (non-zero exit, no result line) on failure:
      checkpoints, equal to each other and to the cpu report, then again as
      a whole-report hit with no launch ({"stream": {...}}: staged_bytes,
      peak RSS, checkpoints, walls);
+  6g. every way a corpus comes in, on the default routes unless named,
+     each report with the launch counts zeroed before and read after and
+     equal to the same report on the cpu: (a) the five adversarial
+     families (deep chains, wide fan-out, near-duplicates, vocabulary
+     growth, cycles) at bench.py's size, on the default routes, the device
+     lanes and the sparse_device tier forced (K2 must launch), each
+     family's wall and bucket routes printed; (b) a family converted to
+     trace-JSON, cold into the store and as a warm store hit, then a
+     1,500-run prefix grown to 1,700 inside its one document, which must
+     map exactly the 200 new runs and equal its from-scratch report; (c) a
+     family with three provenance files truncated: stored with its
+     quarantine records, a warm whole-report hit with its quarantine.json,
+     then one file repaired, which must map exactly 1 run under another
+     report key; (d) the watch loop: bench.py's watch tier and a family
+     replayed into a watched directory, each update mapping exactly its
+     new runs, the last published tree equal to a one-shot report; (e)
+     --save-corpus through the CLI, the file loading back equal
+     ({"corpora": {...}});
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -170,6 +188,30 @@ LANE_ITERS = 3
 #: legs take all six): kept so that the smoke ends well inside its time
 #: limit on the card's slower hosts.
 PYTHON_LEG_FAMILIES = 2
+#: Phase 6g's adversarial families: bench.py's adversarial tier (96 runs,
+#: seed 13, figures none, caches off), on these lanes: (name, TorchBackend
+#: knobs, default routes).
+ADV_RUNS, ADV_SEED = 96, 13
+ADV_LANES = (
+    ("default", {}, True),
+    ("device_lanes", {}, False),
+    ("sparse_device", {"analysis_impl": "sparse_device"}, False),
+)
+#: Phase 6g's corpora: the family of each leg, the trace-JSON sweep's first
+#: generation, the quarantined positions, the watch legs' replays
+#: (bench.py's watch tier: SynthSpec(n_runs=240, seed=31) in 6
+#: generations; a family in 4).
+TRACE_FAMILY = "CA-2083-hinted-handoff"
+QUARANTINE_FAMILY = "MR-2995-failed-after-expiry"
+QUARANTINE_POSITIONS = (17, 800, 1601)
+WATCH_FAMILY = "pb_asynchronous"
+SAVE_FAMILY = "CA-2434-bootstrap-synchronization"
+WATCH_TIER = (240, 31, 6)
+WATCH_FAMILY_GENERATIONS = 4
+#: Figures of the legs that need per-segment partials (a sample:N selection
+#: depends on the whole run list, so it has none, and every update would
+#: map every run).
+PARTIAL_FIGURES = "none"
 
 
 def log(msg: str) -> None:
@@ -1498,6 +1540,378 @@ def stream_path(work: str, kernels, zk_dir: str) -> dict:
     return launches
 
 
+def _cpu_tree(cd: str, out_root: str, figures: str, name: str, default_routes: bool = True, **run_kw) -> dict:
+    """The report tree of ``cd`` on the cpu, the same routes, the given
+    cache roots (default off)."""
+    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+
+    run_kw = {"corpus_cache": "off", "result_cache": "off", **run_kw}
+    res = run_debug(cd, out_root, TorchBackend(device="cpu", **_lanes(default_routes, {})), figures=figures,
+                    report_name=name, **run_kw)
+    tree = report_tree_bytes(res.report_dir)
+    shutil.rmtree(res.report_dir)
+    return tree
+
+
+def _same_tree(label: str, got: dict, want: dict, what: str) -> None:
+    if got != want:
+        differ = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        raise AssertionError(f"{label}: the report differs from {what} in {differ[:10]}")
+
+
+def _bucket_routes(backend) -> list:
+    return [(r["verb"], r["route"], r["rows"], r["v"], r["reason"]) for r in backend.analysis_routes]
+
+
+def adversarial_leg(root: str, kernels, add) -> dict:
+    """Phase 6g (a): the five adversarial families, each on ADV_LANES, each
+    report equal to the cpu report on the same lanes; K2 must launch on the
+    forced sparse_device reports."""
+    from nemo_tpu_torch.models.synth import ADVERSARIAL_FAMILIES, adversarial_spec, write_corpus
+
+    out = {}
+    for fam in ADVERSARIAL_FAMILIES:
+        cd = write_corpus(adversarial_spec(fam, n_runs=ADV_RUNS, seed=ADV_SEED), os.path.join(root, "corpora"))
+        row = {}
+        for lane, kw, default_routes in ADV_LANES:
+            label = f"adversarial {fam} {lane}"
+            res, backend, tree, counts = report_counted(label, cd, kernels, os.path.join(root, "cuda"), "none",
+                                                        f"{fam}-{lane}", default_routes=default_routes, **kw)
+            add(counts)
+            if lane == "sparse_device" and counts["edge_wave"] <= 0:
+                raise AssertionError(f"{label}: edge_wave never launched")
+            check_report_content(label, res)
+            check_report_cpu_equal(label, cd, tree, os.path.join(root, "cpu"), "none", f"{fam}-{lane}",
+                                   default_routes=default_routes, **kw)
+            variants = {k: launched_variants(label, k) for k in ("closure", "edge_wave")}
+            row[lane] = {"wall_s": round(res.report_wall_s, 4), "launches": counts, "variants": variants,
+                         "routes": _bucket_routes(backend)}
+            log(f"{label}: wall {res.report_wall_s:.3f} s, launches {counts}, plan variants {variants}")
+            shutil.rmtree(res.report_dir)
+        out[fam] = row
+    out["plans_checked"] = adversarial_plans()
+    return out
+
+
+def adversarial_plans() -> int:
+    """Every launch plan of K1 and K2 (not only the one the wrapper takes:
+    the worklist traversals, K1's variants that stop at the fix point) on
+    the inputs the adversarial reports launched them with, each equal to
+    the plain version.  These check launches are not main-path launches.
+    Returns the plans checked."""
+    from nemo_tpu_torch.kernels import closure as closure_mod
+    from nemo_tpu_torch.kernels import edge_wave as ew_mod
+
+    before = closure_mod.closure.launches, ew_mod.edge_wave.launches
+    checked = 0
+    for (kernel, key), rec in LAUNCH_LOG.shapes.items():
+        if not any(label.startswith("adversarial") for label in rec["launches"]):
+            continue
+        args = rec["args"]
+        if kernel == "closure":
+            adj = args[0].contiguous()
+            max_len = rec["kw"].get("max_len", args[1] if len(args) > 1 else None)
+            want = closure_mod.closure_plain(adj, max_len=max_len)
+            plans = closure_mod.closure_plans(key[0], key[1])
+            got = {v: closure_mod.launch_plan(adj, plan, max_len) for v, plan in plans.items()}
+        else:
+            state, src, dst, mask = args[:4]
+            n_steps = key[4]
+            want = ew_mod.edge_wave_plain(state, src, dst, mask, n_steps)
+            plans = ew_mod.edge_wave_plans(key[0], key[1], key[2], n_steps)
+            got = {v: ew_mod.launch_plan(plan, state, src, dst, mask, n_steps) for v, plan in plans.items()}
+        bad = sorted(v for v, out in got.items() if not torch.equal(out, want))
+        if bad:
+            raise AssertionError(f"{kernel} {key}: plans {bad} differ from the plain version on adversarial inputs")
+        checked += len(got)
+        log(f"adversarial inputs {kernel} {key}: plans {sorted(got)} equal the plain version")
+    closure_mod.closure.launches, ew_mod.edge_wave.launches = before
+    return checked
+
+
+def trace_leg(root: str, kernels, add, src_dir: str) -> dict:
+    """Phase 6g (b): a family in the trace-JSON layout (molly_to_trace),
+    sample:8, cold into a fresh store and then a warm store hit, both equal
+    to the cpu report; then its first 1,500 runs grown to 1,700 inside the
+    one document: the grown report must be a store append mapping exactly
+    the new runs and equal its from-scratch report and the cpu report."""
+    from nemo_tpu_torch.ingest.adapters import TraceJsonInjector, molly_to_trace
+
+    fam = os.path.basename(src_dir)
+    t = time.perf_counter()
+    trace = molly_to_trace(src_dir, os.path.join(root, "trace", fam))
+    out = {"convert_s": round(time.perf_counter() - t, 4)}
+    cc = os.path.join(root, "trace-cc")
+    want = _cpu_tree(trace, os.path.join(root, "cpu"), REPORT_FIGURES, fam)
+    for leg, kind in (("cold", "python"), ("warm", "store_hit")):
+        label = f"trace {leg} {fam}"
+        res, _b, tree, counts = report_counted(label, trace, kernels, os.path.join(root, "cuda", leg), REPORT_FIGURES,
+                                               fam, corpus_cache=cc, default_routes=True)
+        add(counts)
+        if res.ingest != kind:
+            raise AssertionError(f"{label}: served by {res.ingest}, expected {kind}")
+        _same_tree(label, tree, want, "the cpu report")
+        out[leg] = {"wall_s": round(res.report_wall_s, 4), "ingest_s": round(res.timings["ingest"], 4),
+                    "store_populate_s": round(res.timings.get("store_populate", 0), 4), "launches": counts}
+        shutil.rmtree(res.report_dir)
+    live = os.path.join(root, "trace-live", fam)
+    gcc, grc = os.path.join(root, "trace-grown-cc"), os.path.join(root, "trace-grown-rc")
+    n_old = FAMILY_RUNS - INGEST_GROWN_RUNS
+    for n in (n_old, FAMILY_RUNS):
+        TraceJsonInjector.materialize_prefix(trace, live, n)
+        label = f"trace grown {fam} {n} runs"
+        res, _b, tree, grown_counts = report_counted(label, live, kernels, os.path.join(root, "cuda", f"g{n}"),
+                                                     PARTIAL_FIGURES, fam, corpus_cache=gcc, result_cache=grc,
+                                                     default_routes=True)
+        add(grown_counts)
+        shutil.rmtree(res.report_dir)
+    want_rc = {"state": "computed", "segments_cached": 1, "segments_mapped": 1, "runs_cached": n_old,
+               "runs_mapped": INGEST_GROWN_RUNS}
+    if res.ingest != "store_grown" or res.result_cache != want_rc:
+        raise AssertionError(f"{label}: ingest {res.ingest}, result cache {res.result_cache}, expected {want_rc}")
+    scratch, _b, scratch_tree, counts = report_counted(f"trace grown {fam} from scratch", live, kernels,
+                                                       os.path.join(root, "cuda", "scratch"), PARTIAL_FIGURES, fam,
+                                                       default_routes=True)
+    add(counts)
+    shutil.rmtree(scratch.report_dir)
+    _same_tree(label, tree, scratch_tree, "the from-scratch report")
+    _same_tree(label, tree, _cpu_tree(live, os.path.join(root, "cpu"), PARTIAL_FIGURES, fam), "the cpu report")
+    out["grown"] = {"wall_s": round(res.report_wall_s, 4), "scratch_wall_s": round(scratch.report_wall_s, 4),
+                    "ingest_s": round(res.timings["ingest"], 4), "result_cache": res.result_cache,
+                    "launches": grown_counts}
+    log(f"trace {fam}: {json.dumps(out)}; every report equals the cpu report, the grown one its from-scratch report")
+    return out
+
+
+def quarantine_leg(root: str, kernels, add, src_dir: str) -> dict:
+    """Phase 6g (c): a family with the post provenance files of
+    QUARANTINE_POSITIONS truncated, reported with a fresh store and result
+    cache: cold (stored with its quarantine records), warm (a whole-report
+    hit, no launch, quarantine.json there), then with one file repaired (a
+    store append of that run alone: exactly 1 run mapped, another report
+    key); the same sequence on the cpu with its own caches gives the same
+    trees."""
+    from nemo_tpu_torch.analysis import delta
+    from nemo_tpu_torch.store import CorpusStore
+
+    fam = os.path.basename(src_dir)
+    d = os.path.join(root, "quarantine", fam)
+    shutil.copytree(src_dir, d)
+    for pos in QUARANTINE_POSITIONS:
+        path = os.path.join(d, f"run_{pos}_post_provenance.json")
+        with open(path, "rb") as fh:
+            body = fh.read()
+        with open(path, "wb") as fh:
+            fh.write(body[: len(body) // 2])
+    cc, rc = os.path.join(root, "q-cc"), os.path.join(root, "q-rc")
+    cpu_caches = {"corpus_cache": os.path.join(root, "q-cpu-cc"), "result_cache": os.path.join(root, "q-cpu-rc")}
+    out, trees, keys = {}, {}, {}
+    for leg in ("cold", "warm", "repaired"):
+        if leg == "repaired":
+            name = f"run_{QUARANTINE_POSITIONS[0]}_post_provenance.json"
+            shutil.copy2(os.path.join(src_dir, name), os.path.join(d, name))
+        label = f"quarantine {leg} {fam}"
+        res, _b, tree, counts = report_counted(label, d, kernels, os.path.join(root, "cuda", f"q-{leg}"),
+                                               PARTIAL_FIGURES, fam, corpus_cache=cc, result_cache=rc,
+                                               default_routes=True)
+        add(counts)
+        shutil.rmtree(res.report_dir)
+        trees[leg], keys[leg] = tree, delta.report_cache_key(res.molly, PARTIAL_FIGURES)
+        left = QUARANTINE_POSITIONS[1:] if leg == "repaired" else QUARANTINE_POSITIONS
+        if [q["position"] for q in json.loads(tree.get("quarantine.json", b"[]"))] != list(left):
+            raise AssertionError(f"{label}: quarantine.json lists {tree.get('quarantine.json', b'')[:200]!r}")
+        with open(os.path.join(CorpusStore(cc).store_dir(d), "header.json"), encoding="utf-8") as fh:
+            stored = [q["position"] for q in json.load(fh).get("quarantined", [])]
+        if stored != list(left):
+            raise AssertionError(f"{label}: the store header lists quarantined positions {stored}")
+        n_healthy = FAMILY_RUNS - len(QUARANTINE_POSITIONS)
+        want = {"cold": ("python_quarantine_fallback", {"state": "computed", "segments_cached": 0,
+                                                        "segments_mapped": 1, "runs_cached": 0,
+                                                        "runs_mapped": n_healthy}),
+                "warm": ("store_hit", {"state": "report_hit"}),
+                "repaired": ("store_grown", {"state": "computed", "segments_cached": 1, "segments_mapped": 1,
+                                             "runs_cached": n_healthy, "runs_mapped": 1})}[leg]
+        if (res.ingest, res.result_cache) != want:
+            raise AssertionError(f"{label}: ingest {res.ingest}, result cache {res.result_cache}, expected {want}")
+        if leg == "warm" and any(counts.values()):
+            raise AssertionError(f"{label}: a report-cache hit launched {counts}")
+        if leg != "warm":
+            _same_tree(label, tree, _cpu_tree(d, os.path.join(root, "cpu"), PARTIAL_FIGURES, fam, **cpu_caches),
+                       "the cpu report")
+        out[leg] = {"wall_s": round(res.report_wall_s, 4), "ingest": res.ingest, "result_cache": res.result_cache,
+                    "quarantined": stored, "launches": counts}
+    _same_tree("quarantine warm", trees["warm"], trees["cold"], "the cold report")
+    if keys["repaired"] == keys["warm"] or None in keys.values():
+        raise AssertionError(f"quarantine {fam}: report keys {keys}")
+    log(f"quarantine {fam}: {json.dumps(out)}; every report equals the cpu report, the warm one the cold one")
+    return out
+
+
+def watch_leg(label: str, root: str, kernels, add, src_dir: str, generations: int, figures: str,
+              check_generation=None, **backend_kw) -> dict:
+    """Phase 6g (d): a Watcher (watch/watcher.py) tails an empty directory
+    while ``src_dir`` is replayed into it generation by generation (the
+    next written after the previous update is published), with fresh
+    caches, each cycle on a TorchBackend on cuda with ``backend_kw`` built
+    on the watcher's thread; the launch counts are zeroed before the first
+    generation and read after the last.  Each update must map exactly its
+    new runs; a failed cycle fails the phase.  ``check_generation(n,
+    tree)`` holds each published tree.  Returns the updates, the watched
+    directory and the last tree."""
+    import threading
+
+    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+    from nemo_tpu_torch.ingest.adapters import MollyInjector
+    from nemo_tpu_torch.watch import WatchConfig, Watcher, replay_plan
+
+    name = os.path.basename(src_dir)
+    live = os.path.join(root, label, name)
+    os.makedirs(live)
+    plan = replay_plan(MollyInjector.count_runs(src_dir), generations)
+    cfg = WatchConfig(poll_s=0.05, debounce_s=0.05, max_updates=len(plan), figures=figures,
+                      run_debug_kwargs={"corpus_cache": os.path.join(root, label + "-cc"),
+                                        "result_cache": os.path.join(root, label + "-rc")})
+    watcher = Watcher(live, os.path.join(root, label + "-results"),
+                      lambda: TorchBackend(device="cuda", **backend_kw), cfg)
+    q = watcher.subscribe()
+    for k in kernels:
+        k.launches = 0
+    LAUNCH_LOG.label = label
+    th = threading.Thread(target=watcher.run, name="smoke-watch", daemon=True)
+    th.start()
+    updates, tree = [], None
+    t0 = time.perf_counter()
+    try:
+        for n in plan:
+            MollyInjector.materialize_prefix(src_dir, live, n)
+            ev = q.get(timeout=600)
+            if ev["event"] != "report_update":
+                raise AssertionError(f"{label}: {ev}")
+            row = {k: ev[k] for k in ("update", "runs_total", "new_runs", "runs_mapped", "segments_cached",
+                                      "kernel_dispatches", "update_latency_s", "changed_total")}
+            with open(os.path.join(ev["report_dir"], "telemetry.json"), encoding="utf-8") as fh:
+                row["phases"] = {k: round(v, 4) for k, v in json.load(fh)["timings"].items()}
+            log(f"{label} update: {json.dumps(row)}")
+            if ev["runs_total"] != n or ev["runs_mapped"] != ev["new_runs"]:
+                raise AssertionError(f"{label}: update {row} after {n} runs was not incremental")
+            tree = report_tree_bytes(ev["report_dir"])
+            if check_generation is not None:
+                check_generation(n, tree)
+            updates.append(row)
+    finally:
+        wall = time.perf_counter() - t0
+        watcher.stop()
+        th.join(timeout=120)
+        LAUNCH_LOG.label = None
+    if th.is_alive():
+        raise AssertionError(f"{label}: the watcher did not stop")
+    counts = {k.__name__: k.launches for k in kernels}
+    add(counts)
+    lat = sorted(u["update_latency_s"] for u in updates)
+    out = {"runs": plan[-1], "generations": len(plan), "wall_s": round(wall, 4), "launches": counts,
+           "update_latency_s": {"p50": lat[len(lat) // 2], "max": lat[-1]}, "updates": updates}
+    log(f"{label}: {len(plan)} updates in {wall:.3f} s, latency p50 {lat[len(lat) // 2]} s max {lat[-1]} s, "
+        f"launches {counts}")
+    return out, live, tree
+
+
+def corpora_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
+    """Phase 6g: every way a corpus comes in (see the module docstring):
+    the adversarial families, a trace-JSON sweep, quarantine, the watch
+    loop and --save-corpus, each report equal to the cpu report.  Prints
+    {"corpora": {...}}.  Returns the launches by kernel."""
+    from nemo_tpu_torch.graphs.corpus import load_corpus, pack_corpus
+    from nemo_tpu_torch.ingest.adapters import MollyInjector
+    from nemo_tpu_torch.ingest.molly import load_molly_output
+    from nemo_tpu_torch.models.synth import SynthSpec, write_corpus
+
+    root = os.path.join(work, "corpora")
+    launches = {k.__name__: 0 for k in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    out = {}
+    t = time.perf_counter()
+    out["adversarial"] = adversarial_leg(os.path.join(root, "adv"), kernels, add)
+    out["adversarial_s"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    out["trace"] = trace_leg(os.path.join(root, "trace"), kernels, add, dirs[TRACE_FAMILY])
+    out["trace_s"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    out["quarantine"] = quarantine_leg(os.path.join(root, "quarantine"), kernels, add, dirs[QUARANTINE_FAMILY])
+    out["quarantine_s"] = round(time.perf_counter() - t, 3)
+
+    # (d) The watch loop: bench.py's watch tier on the default routes, each
+    # generation against the cpu report of the same prefix; then a family on
+    # the device lanes, so that the watcher's thread launches the kernels
+    # (on the default routes its 425-run segments take the host lane), its
+    # last published tree against a one-shot report on cuda and on the cpu.
+    t = time.perf_counter()
+    wroot = os.path.join(root, "watch")
+    n_runs, seed, gens = WATCH_TIER
+    src = write_corpus(SynthSpec(n_runs=n_runs, seed=seed, name="watch_src"), os.path.join(wroot, "src"))
+
+    def same_as_cpu(n, tree):
+        prefix = os.path.join(wroot, "prefix", str(n), "watch_src")
+        MollyInjector.materialize_prefix(src, prefix, n)
+        _same_tree(f"watch tier {n} runs", tree, _cpu_tree(prefix, os.path.join(wroot, "cpu"), PARTIAL_FIGURES,
+                                                            "watch_src"), "the cpu report")
+
+    out["watch_tier"], _live, _tree = watch_leg("watch-tier", wroot, kernels, add, src, gens, PARTIAL_FIGURES,
+                                                same_as_cpu)
+    out["watch_family"], live, tree = watch_leg("watch-family", wroot, kernels, add, dirs[WATCH_FAMILY],
+                                                WATCH_FAMILY_GENERATIONS, PARTIAL_FIGURES, **DEVICE_LANES)
+    if out["watch_family"]["launches"]["closure"] < WATCH_FAMILY_GENERATIONS:
+        raise AssertionError(f"watch family: the watcher's cycles launched {out['watch_family']['launches']}")
+    name = os.path.basename(live)
+    once, _b, once_tree, counts = report_counted(f"watch family one-shot {name}", live, kernels,
+                                                 os.path.join(wroot, "once"), PARTIAL_FIGURES, name,
+                                                 default_routes=True)
+    add(counts)
+    shutil.rmtree(once.report_dir)
+    _same_tree("watch family", tree, once_tree, "the one-shot report")
+    _same_tree("watch family", tree, _cpu_tree(live, os.path.join(wroot, "cpu"), PARTIAL_FIGURES, name),
+               "the cpu report")
+    out["watch_family"]["one_shot_s"] = round(once.report_wall_s, 4)
+    out["watch_s"] = round(time.perf_counter() - t, 3)
+    log(f"watch {name}: the last published tree equals the one-shot report on cuda and on the cpu")
+
+    # (e) --save-corpus through the CLI on cuda.
+    t = time.perf_counter()
+    cd = dirs[SAVE_FAMILY]
+    path = os.path.join(root, "corpus.npz")
+    results = os.path.join(root, "save-corpus")
+    wall, tel, tree, counts = cli_report(
+        f"cli --save-corpus {SAVE_FAMILY}",
+        ["-faultInjOut", cd, "--results-dir", results, "--figures", REPORT_FIGURES, "--save-corpus", path,
+         "--corpus-cache", "off", "--result-cache", "off"], kernels, os.path.join(results, SAVE_FAMILY))
+    add(counts)
+    _same_tree("cli --save-corpus", tree, trees[SAVE_FAMILY], "the cpu report")
+    loaded, want = load_corpus(path), pack_corpus(load_molly_output(cd))
+    if (loaded.run_ids, loaded.statuses) != (want.run_ids, want.statuses) or any(
+        getattr(loaded.vocab, p).strings != getattr(want.vocab, p).strings for p in ("tables", "labels", "times")
+    ) or sorted(loaded.graphs) != sorted(want.graphs):
+        raise AssertionError("cli --save-corpus: the saved corpus differs from the packed corpus")
+    for key, g in want.graphs.items():
+        h = loaded.graphs[key]
+        if (g.n_goals, g.n_nodes, g.node_ids) != (h.n_goals, h.n_nodes, h.node_ids) or not all(
+            np.array_equal(getattr(g, c), getattr(h, c)) for c in ("table_id", "label_id", "time_id", "type_id",
+                                                                   "edges")
+        ):
+            raise AssertionError(f"cli --save-corpus: graph {key} differs")
+    out["save_corpus"] = {"wall_s": round(wall, 4), "save_corpus_s": tel["timings"].get("save_corpus"),
+                          "bytes": os.path.getsize(path), "graphs": len(want.graphs), "launches": counts}
+    out["save_corpus_s"] = round(time.perf_counter() - t, 3)
+    log(f"cli --save-corpus {SAVE_FAMILY}: {json.dumps(out['save_corpus'])}; the file loads back equal")
+    print(json.dumps({"corpora": out}))
+    shutil.rmtree(root)
+    return launches
+
+
 def profile_family(cd: str, out_root: str, figures: str, **kw) -> dict[str, dict[str, tuple[float, int]]]:
     """Device busy time of one corpus's report, by torch.profiler: the sum
     of kernel times on the card against the wall of the whole report, the
@@ -1650,16 +2064,19 @@ def main() -> int:
         t = time.perf_counter()
         streamed = stream_path(work, kernels, dirs[zk])
         log(f"phase 6f wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        corpora = corpora_path(work, kernels, dirs, trees)
+        log(f"phase 6g wall {time.perf_counter() - t:.1f} s")
         del trees
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}, "
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
-        f"on the streamed map {streamed}")
+        f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}")
     for record in records:
         record["launches"] = sum(part[record["name"]]
-                                 for part in (dense, ingest, sparse, routes, lanes, several, streamed))
+                                 for part in (dense, ingest, sparse, routes, lanes, several, streamed, corpora))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

@@ -126,12 +126,18 @@ def _key(doc: dict) -> str:
 
 
 def report_cache_key(molly, figures: str) -> str | None:
-    """Content address of a whole report tree: every segment fingerprint and
-    the config blob.  None when a segment is anonymous (no store)."""
+    """Content address of a whole report tree: every segment fingerprint,
+    the config blob and the quarantine set (quarantine.json is part of the
+    tree: two corpora with the same healthy segments and different
+    quarantined runs must not share an entry).  None when a segment is
+    anonymous (no store)."""
     segs = corpus_segments(molly)
     if any(s.fingerprint is None for s in segs):
         return None
-    return _key({"kind": "report", "config": config_blob(figures), "segments": [s.fingerprint for s in segs]})
+    return _key({
+        "kind": "report", "config": config_blob(figures), "segments": [s.fingerprint for s in segs],
+        "quarantined": [[q["position"], q.get("file"), q.get("error")] for q in molly.quarantined or ()],
+    })
 
 
 def partial_cache_key(
@@ -229,7 +235,8 @@ def subset_molly(molly, rows: list[int]):
     them, only the recommendation assembly does, on the full molly."""
     from nemo_tpu_torch.ingest.molly import MollyOutput
 
-    out = MollyOutput(run_name=molly.run_name, output_dir=molly.output_dir)
+    out = MollyOutput(run_name=molly.run_name, output_dir=molly.output_dir,
+                      ships_spacetime_dots=molly.ships_spacetime_dots)
     out.runs = [molly.runs[r] for r in rows]
     for run in out.runs:
         out.runs_iters.append(run.iteration)

@@ -1,10 +1,11 @@
 """End-to-end debugging pipeline: one corpus in, one report tree out.
 
 A copy of the JAX package's ``analysis/pipeline.py``: ``run_debug`` on one
-corpus (packed-first native ingest, the corpus store, the two-tier result
-cache, the segment-streamed map and per-segment checkpoints) and
-``run_debug_dirs`` over several, each corpus parsed while the one before
-it is analysed.  The stage order mirrors the reference's main()
+corpus (ingest through the fault-injector seam of ingest/adapters.py,
+packed-first native ingest of Molly corpora, the corpus store, the two-tier
+result cache, the segment-streamed map and per-segment checkpoints,
+``--save-corpus``) and ``run_debug_dirs`` over several, each corpus parsed
+while the one before it is analysed.  The stage order mirrors the reference's main()
 (main.go:106-292): ingest -> init backend -> load raw provenance ->
 simplify -> hazard analysis -> prototypes -> pull provenance DOTs ->
 differential provenance -> corrections (only when failures exist) ->
@@ -26,7 +27,8 @@ import torch
 
 from nemo_tpu_torch.analysis import delta
 from nemo_tpu_torch.backend.base import GraphBackend
-from nemo_tpu_torch.ingest.molly import MollyOutput, load_molly_output
+from nemo_tpu_torch.ingest import adapters
+from nemo_tpu_torch.ingest.molly import MollyOutput
 from nemo_tpu_torch.report.writer import Reporter
 from nemo_tpu_torch.utils.env import quarantine_enabled
 from nemo_tpu_torch.utils.timing import PhaseTimer
@@ -59,8 +61,8 @@ class DebugResult:
     #: RenderScheduler.stats() of the report's figures (None on a
     #: whole-report cache hit: nothing was rendered)
     figure_stats: dict | None
-    #: which ingest served the corpus: native, python, store_hit,
-    #: store_grown or python_quarantine_fallback
+    #: which ingest served the corpus: native, python (the injector's
+    #: object loader), store_hit, store_grown or python_quarantine_fallback
     ingest: str = ""
     #: the result cache's part: "off", "report_hit" or "computed", and the
     #: segments and runs served from cached partials or mapped
@@ -201,15 +203,20 @@ def select_figure_iters(
 INGEST_MODES = ("auto", "native", "python")
 
 
-def _resolve_ingest_mode(backend: GraphBackend, ingest: str) -> bool:
+def _resolve_ingest_mode(backend: GraphBackend, ingest: str, save_corpus_path: str | None = None) -> bool:
     """ingest mode -> packed-first?  ``auto`` is native on a backend that
-    consumes packed arrays (TorchBackend), else python.  The packed modes
-    build and load the C++ engine here, so a build or load failure raises
-    before any work, whether or not the store would have served."""
+    consumes packed arrays (TorchBackend), else python; ``save_corpus_path``
+    pins the object loader (graphs/corpus.py packs the provenance objects).
+    The packed modes build and load the C++ engine here, so a build or load
+    failure raises before any work, whether or not the store would have
+    served."""
     if ingest not in INGEST_MODES:
         raise ValueError(f"unknown ingest mode {ingest!r} (expected one of {INGEST_MODES})")
     packed = getattr(backend, "supports_packed_ingest", False)
-    if ingest == "python" or (ingest == "auto" and not packed):
+    if ingest == "native" and save_corpus_path:
+        raise ValueError("ingest='native' is incompatible with --save-corpus (the corpus file is packed from the "
+                         "provenance objects of the Python loader)")
+    if ingest == "python" or (ingest == "auto" and (not packed or save_corpus_path)):
         return False
     if not packed:
         raise ValueError(f"ingest='native' needs a packed-ingest backend; {type(backend).__name__} reads objects")
@@ -219,30 +226,38 @@ def _resolve_ingest_mode(backend: GraphBackend, ingest: str) -> bool:
     return True
 
 
-def _ingest(fault_inj_out: str, use_packed: bool, store) -> tuple[MollyOutput, str, dict | None]:
-    """One Molly directory -> (MollyOutput, which ingest served it, the
+def _ingest(fault_inj_out: str, use_packed: bool, store, injector: str | None = None
+            ) -> tuple[MollyOutput, str, dict | None]:
+    """One corpus directory -> (MollyOutput, which ingest served it, the
     pre-parse source snapshot when the corpus was parsed with the store on,
-    for ``_populate``; else None).
+    for ``_populate``; else None).  ``injector`` names the fault-injector
+    layout (ingest/adapters.py: molly, trace-json; None or auto sniffs,
+    ``NEMO_INJECTOR`` first).
 
     Packed-first, the corpus store is consulted first: a warm hit maps the
     stored arrays and strings (appending a grown directory's new runs
-    first).  A miss parses with the C++ engine.  When the engine rejects
-    the corpus (it parses in one pass and stops at the first malformed
-    run), the Python loader re-parses it with per-run quarantine, logged
-    and recorded as ``python_quarantine_fallback`` (``NEMO_QUARANTINE=off``
+    first).  A miss parses a Molly corpus with the C++ engine; any other
+    layout goes through its injector's object loader, packed by the store's
+    populate and by the backend.  When the engine rejects the corpus (it
+    parses in one pass and stops at the first malformed run), the
+    injector's loader re-parses it with per-run quarantine, logged and
+    recorded as ``python_quarantine_fallback`` (``NEMO_QUARANTINE=off``
     raises instead).  The python mode reads objects and never touches the
     store."""
     if not use_packed:
-        return load_molly_output(fault_inj_out, quarantine=quarantine_enabled()), "python", None
+        return adapters.load_output(fault_inj_out, injector), "python", None
     from nemo_tpu_torch.ingest.native import load_molly_output_packed
 
     if store is not None:
         molly = store.load_packed(fault_inj_out)
         if molly is not None:
             return molly, f"store_{molly.store_state}", None
+    inj = adapters.resolve_injector(fault_inj_out, injector)
     # Snapshot before parsing: a file changed during the parse must
     # mismatch the fingerprint the populate stores.
     snap = store.snapshot(fault_inj_out) if store is not None else None
+    if not inj.native_capable:
+        return inj.load(fault_inj_out), "python", snap
     try:
         molly, kind = load_molly_output_packed(fault_inj_out), "native"
     except Exception as ex:
@@ -252,7 +267,7 @@ def _ingest(fault_inj_out: str, use_packed: bool, store) -> tuple[MollyOutput, s
             "native ingest of %s failed (%s: %s); re-parsing with the quarantining Python loader",
             fault_inj_out, type(ex).__name__, ex,
         )
-        molly, kind = load_molly_output(fault_inj_out, quarantine=True), "python_quarantine_fallback"
+        molly, kind = inj.load(fault_inj_out, quarantine=True), "python_quarantine_fallback"
     return molly, kind, snap
 
 
@@ -332,9 +347,11 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
     worker thread (its ``ingest`` phase, on the critical path, is ~0).
 
     ``make_backend()`` makes one backend per directory (default a
-    TorchBackend on cuda); kwargs go to run_debug.  Reports go to
-    results_root/<corpus_report_names>.  Without prefetch, or on a one-core
-    host, every ingest runs inline: the sequential loop."""
+    TorchBackend on cuda); kwargs go to run_debug, except
+    ``save_corpus_path``, which every corpus would overwrite and so
+    raises.  Reports go to results_root/<corpus_report_names>.  Without
+    prefetch, or on a one-core host, every ingest runs inline: the
+    sequential loop."""
     import threading
 
     from nemo_tpu_torch.report.render import RenderScheduler
@@ -345,6 +362,9 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
         from nemo_tpu_torch.backend.torch_backend import TorchBackend
 
         make_backend = TorchBackend
+    if kwargs.get("save_corpus_path"):
+        raise ValueError("save_corpus_path is not supported by run_debug_dirs: every corpus would overwrite the "
+                         "same file; call run_debug per directory with distinct paths instead")
     report_names = corpus_report_names(dirs)
     if not dirs:
         return []
@@ -357,7 +377,7 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
     def prefetch_next(d: str) -> None:
         try:
             t = time.perf_counter()
-            molly, kind, snap = _ingest(d, use_packed, store)
+            molly, kind, snap = _ingest(d, use_packed, store, kwargs.get("injector"))
             if snap is not None:
                 _populate(store, d, molly, snap)
             molly.ingest_kind = kind
@@ -417,6 +437,8 @@ def run_debug(
     result_cache: str | None = None,
     molly: MollyOutput | None = None,
     render_scheduler=None,
+    injector: str | None = None,
+    save_corpus_path: str | None = None,
 ) -> DebugResult:
     """The full debug pipeline over one Molly directory; writes
     ``results_root/<report_name or corpus name>/``.  ``backend`` defaults to
@@ -425,7 +447,11 @@ def run_debug(
     (``_resolve_ingest_mode``).  ``corpus_cache`` and ``result_cache`` are
     the roots of the corpus store and the result cache (``off`` disables;
     default ``NEMO_CORPUS_CACHE``/``NEMO_RESULT_CACHE``, else
-    ``~/.cache/nemo_tpu_torch/{corpus,results}``).  ``molly``: the corpus
+    ``~/.cache/nemo_tpu_torch/{corpus,results}``).  ``injector`` names the
+    corpus layout (ingest/adapters.py; default: sniffed).
+    ``save_corpus_path``: write the packed corpus there as one ``.npz``
+    (graphs/corpus.py) after the ingest, which it pins to the object
+    loader.  ``molly``: the corpus
     already ingested (run_debug_dirs parses it ahead; its ``ingest_kind``
     says by what), so the ``ingest`` phase is ~0.  ``render_scheduler``: a
     RenderScheduler shared with other reports, which its owner drains; the
@@ -454,18 +480,23 @@ def run_debug(
     dev = getattr(getattr(backend, "executor", None), "device", None)
     sync = (lambda: torch.cuda.current_stream(dev).synchronize()) if dev is not None and dev.type == "cuda" else None
     timer = PhaseTimer(sync=sync)
-    use_packed = _resolve_ingest_mode(backend, ingest)
+    use_packed = _resolve_ingest_mode(backend, ingest, save_corpus_path)
     store = resolve_store(corpus_cache)
 
     snap = None
     with timer.phase("ingest"):
         if molly is None:
-            molly, ingest_kind, snap = _ingest(fault_inj_out, use_packed, store)
+            molly, ingest_kind, snap = _ingest(fault_inj_out, use_packed, store, injector)
         else:
             ingest_kind = getattr(molly, "ingest_kind", "prefetched")
     if snap is not None:
         with timer.phase("store_populate"):
             _populate(store, fault_inj_out, molly, snap)
+    if save_corpus_path:
+        from nemo_tpu_torch.graphs.corpus import pack_corpus, save_corpus
+
+        with timer.phase("save_corpus"):
+            save_corpus(pack_corpus(molly), save_corpus_path)
     iters = molly.get_runs_iters()
     failed_iters = molly.get_failed_runs_iters()
     this_results_dir = os.path.join(results_root, report_name or molly.run_name)

@@ -138,7 +138,7 @@ class GraphBackend(abc.ABC):
         memo: dict[tuple, object] = {}
         for i in run_ids:
             run = by_iter[i]
-            text = self.molly.spacetime_dot_text(run.iteration)
+            text = self.molly.spacetime_dot_text(run.iteration, run=run)
             key = (
                 text,
                 tuple(sorted(run.time_pre_holds.items())),

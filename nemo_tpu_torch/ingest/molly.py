@@ -75,6 +75,11 @@ class MollyOutput:
     #: to parse: {"position", "iteration" (None when the entry itself was
     #: bad), "file", "error"}.
     quarantined: list[dict] = field(default_factory=list)
+    #: Whether the layout ships per-run spacetime DOT files (Molly does, the
+    #: trace-JSON layout of ingest/adapters.py does not): gates the
+    #: synthesis in spacetime_dot_text, so a Molly corpus with a missing
+    #: file still raises.
+    ships_spacetime_dots: bool = True
 
     def get_output(self):
         return self.runs
@@ -93,12 +98,26 @@ class MollyOutput:
         (reference: graphing/hazard-analysis.go:25)."""
         return os.path.join(self.output_dir, f"run_{iteration}_spacetime.dot")
 
-    def spacetime_dot_text(self, iteration: int) -> str:
-        """One run's space-time DOT text, read from the Molly layout's
-        per-run file; a missing file raises FileNotFoundError (the port
-        reads no layout that ships no diagrams)."""
-        with open(self.spacetime_dot_path(iteration), "r", encoding="utf-8") as f:
-            return f.read()
+    def spacetime_dot_text(self, iteration: int, run=None) -> str:
+        """One run's space-time DOT text: the layout's per-run file where it
+        ships one (a missing file raises FileNotFoundError), else built from
+        the run's message history and failure spec by
+        models/synth.py:build_spacetime_dot, the generators' own diagram writer.
+        ``run`` spares the search by iteration."""
+        if self.ships_spacetime_dots:
+            with open(self.spacetime_dot_path(iteration), "r", encoding="utf-8") as f:
+                return f.read()
+        from nemo_tpu_torch.models.synth import build_spacetime_dot
+
+        if run is None:
+            run = next(r for r in self.runs if r.iteration == iteration)
+        fs = run.failure_spec
+        return build_spacetime_dot(
+            list(fs.nodes or []) if fs else [],
+            fs.eot if fs else 0,
+            [m.to_json() for m in run.messages],
+            crashes={c.node: c.time for c in (fs.crashes if fs else None) or []},
+        )
 
 
 def attach_run_metadata(out: MollyOutput, run, tables: dict | None = None) -> None:
@@ -131,13 +150,17 @@ def quarantine_record(position: int, iteration, file: str, ex: BaseException) ->
     }
 
 
-def load_molly_output(output_dir: str, quarantine: bool = True) -> MollyOutput:
+def load_molly_output(output_dir: str, quarantine: bool | None = None) -> MollyOutput:
     """Load a Molly output directory.  Reference: faultinjectors/molly.go:15-163.
 
-    With ``quarantine`` on, a run whose runs.json entry or provenance file is
+    With ``quarantine`` on (default ``NEMO_QUARANTINE``, on), a run whose runs.json entry or provenance file is
     malformed is recorded on ``MollyOutput.quarantined`` instead of aborting
     the whole corpus; a corpus with no healthy runs at all still raises.
     runs.json itself failing to parse always raises."""
+    if quarantine is None:
+        from nemo_tpu_torch.utils.env import quarantine_enabled
+
+        quarantine = quarantine_enabled()
     out = MollyOutput(run_name=os.path.basename(os.path.normpath(output_dir)), output_dir=output_dir)
 
     runs_path = os.path.join(output_dir, "runs.json")

@@ -487,3 +487,32 @@ def grow_corpus_dir(full_dir: str, dst_dir: str, n_runs: int) -> None:
                 shutil.copy2(src, dst)
     with open(os.path.join(dst_dir, "runs.json"), "w", encoding="utf-8") as fh:
         json.dump(raw[:n_runs], fh, indent=1)
+
+
+# ---------------------------------------------------------------------------
+# adversarial graph families
+# ---------------------------------------------------------------------------
+
+#: The adversarial families (the JAX package's stress tiers); each keeps
+#: the Molly schema and stresses one part of the analysis.
+ADVERSARIAL_FAMILIES: tuple[str, ...] = (
+    "deep_chain",    # ~depth-step @next chains: chain collapse, wave depth
+    "wide_fanout",   # one consequent goal, `fanout` log branches: the widest wave
+    "near_dup",      # floods of isomorphic runs: render dedup, cache aliasing
+    "vocab_growth",  # run-unique tables, labels and times: vocabulary growth
+    "cycles",        # schema-valid provenance cycles: every fix-point loop's end
+)
+
+
+def adversarial_spec(family: str, n_runs: int = 8, seed: int = 0, **overrides) -> SynthSpec:
+    """The SynthSpec of one adversarial family (or "pb", the baseline),
+    deterministic per (family, n_runs, seed)."""
+    if family != "pb" and family not in ADVERSARIAL_FAMILIES:
+        raise ValueError(f"unknown adversarial family {family!r} (expected pb, {', '.join(ADVERSARIAL_FAMILIES)})")
+    kw: dict[str, Any] = dict(n_runs=n_runs, seed=seed, name=f"adv_{family}", family=family)
+    if family == "deep_chain":
+        kw["depth"] = 64
+    elif family == "wide_fanout":
+        kw["fanout"] = 24
+    kw.update(overrides)
+    return SynthSpec(**kw)

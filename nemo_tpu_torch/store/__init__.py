@@ -1,6 +1,6 @@
 """The port's persistent memory-mapped corpus store (``.npack``).
 
-A copy of the JAX package's ``store/__init__.py`` for the Molly layout:
+A copy of the JAX package's ``store/__init__.py``:
 
   * ``resolve_store(arg)``: a ``CorpusStore`` over the resolved root
     (``--corpus-cache``, ``NEMO_CORPUS_CACHE``, default
@@ -10,8 +10,12 @@ A copy of the JAX package's ``store/__init__.py`` for the Molly layout:
     grew); None, logged, on a miss, a stale or a corrupt store.
   * ``CorpusStore.put(dir, molly)``: populate from either loader.
 
-A corpus with quarantined runs is not stored (``put`` returns False and
-logs it): the port's store keeps no quarantine bookkeeping.  The format,
+A corpus with quarantined runs stores its healthy rows and the quarantine
+records (``header["quarantined"]``, each with the stats of its run's
+files); a warm load puts the records back on the MollyOutput, and a
+repaired file re-ingests that run as a GROWN append.  A Molly directory
+grows by per-run files and runs.json; a trace-JSON one inside its one
+document, which the index append reads entry by entry.  The format,
 fingerprints and shard IO are in ``npack.py``, the mapping reader in
 ``reader.py``.
 """
@@ -40,11 +44,16 @@ from nemo_tpu_torch.store.npack import (
     head_bytes,
     payload_from_molly,
     payload_from_runs,
+    quarantine_changed,
+    quarantine_file_names,
+    quarantine_files_from_snapshot,
     segment_fingerprint,
     segment_source_fp,
+    segment_source_fp_positions,
     snapshot_source,
     snapshot_source_appended,
     source_from_snapshot,
+    stored_positions,
     write_segment,
     write_vocab,
 )
@@ -63,6 +72,18 @@ def attach_store_provenance(obj, store_dir: str, header: dict) -> None:
         {"name": e["name"], "n_runs": int(e["n_runs"]), "fingerprint": segment_fingerprint(e)}
         for e in header["segments"]
     ]
+
+
+def _index_file(corpus_dir: str) -> str:
+    """The layout's index file (ingest/adapters.py), recorded in the stored
+    source so later loads classify and append by it; runs.json where no
+    layout sniffs."""
+    from nemo_tpu_torch.ingest.adapters import resolve_injector
+
+    try:
+        return resolve_injector(corpus_dir).index_file
+    except ValueError:
+        return "runs.json"
 
 
 def resolve_store(arg: str | None = None) -> "CorpusStore | None":
@@ -175,7 +196,7 @@ class CorpusStore:
         state = classify_source(header, corpus_dir)
         grown = state == GROWN
         if grown:
-            header = self._append(store_dir, corpus_dir)
+            header = self._append(store_dir, header, corpus_dir)
             if header is None:
                 return None
             state = HIT
@@ -185,10 +206,21 @@ class CorpusStore:
         try:
             seg_readers, vocab_rd, mapped = open_segments(store_dir, header, verify=True)
             corpus = build_corpus(store_dir, header, seg_readers, vocab_rd)
-            out = molly_from_corpus(corpus, corpus_dir) if build_molly else corpus
+            # A store of a quarantined or repaired corpus holds a subset of
+            # the source positions, not in source order.
+            pos = (stored_positions(header)
+                   if header.get("quarantined") or any("positions" in s for s in header["segments"]) else None)
+            out = molly_from_corpus(corpus, corpus_dir, positions=pos) if build_molly else corpus
             attach_store_provenance(corpus, store_dir, header)
             if out is not corpus:
                 attach_store_provenance(out, store_dir, header)
+            # The cold parse's quarantine records (report content), without
+            # the watched files' stats (store bookkeeping).
+            q = [{k: v for k, v in rec.items() if k != "files"} for rec in header.get("quarantined") or ()]
+            if q:
+                corpus.quarantined = q
+                if out is not corpus:
+                    out.quarantined = q
             out.store_state = GROWN if grown else HIT
         except (StoreCorrupt, OSError, ValueError, KeyError) as ex:
             _log.error(
@@ -212,19 +244,14 @@ class CorpusStore:
     def snapshot(self, corpus_dir: str) -> dict:
         """The pre-parse source snapshot a parsing caller hands to put(), so
         a file changed during the parse mismatches on the next load."""
-        return snapshot_source(corpus_dir)
+        return snapshot_source(corpus_dir, index_file=_index_file(corpus_dir))
 
     def put(self, corpus_dir: str, molly, snapshot: dict | None = None):
         """Populate (or replace) the store of ``corpus_dir`` from a parsed
-        MollyOutput.  Returns the written header, or False (logged) when
-        the corpus has quarantined runs or the write failed: populating
-        never fails the caller."""
-        if getattr(molly, "quarantined", None):
-            _log.warning(
-                "corpus %s has %d quarantined runs; not stored (the port's store keeps healthy corpora only)",
-                corpus_dir, len(molly.quarantined),
-            )
-            return False
+        MollyOutput: its healthy rows, and its quarantine records with the
+        stats of each quarantined run's files.  Returns the written header,
+        or False (logged) when the write failed: populating never fails the
+        caller."""
         try:
             return self._put(corpus_dir, molly, snapshot)
         except Exception as ex:  # a cache write must not fail the report
@@ -236,15 +263,30 @@ class CorpusStore:
             return False
         t0 = time.perf_counter()
         payload = payload_from_molly(molly)
-        snap = snapshot or snapshot_source(corpus_dir)
-        source = source_from_snapshot(snap, payload.n_runs)
+        snap = snapshot or self.snapshot(corpus_dir)
+        # A quarantined run's files are watched in its record (a bad index
+        # entry watches none: rewriting the index is its repair) and left
+        # out of the class fingerprints, so a repair reads as GROWN.
+        qrecs = [
+            dict(rec, files=[] if rec.get("file") == "runs.json" else quarantine_files_from_snapshot(
+                snap, rec["position"]))
+            for rec in molly.quarantined or ()
+        ]
+        qpos = {rec["position"] for rec in qrecs}
+        n_positions = payload.n_runs + len(qpos)
+        source = source_from_snapshot(snap, n_positions, exclude=quarantine_file_names(qrecs))
         source["dir"] = os.path.realpath(corpus_dir)
         final = self.store_dir(corpus_dir)
         tmp = f"{final}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
         os.makedirs(tmp, exist_ok=True)
         try:
             seg_entry = write_segment(os.path.join(tmp, "seg-000"), payload, STORE_WORKERS)
-            seg_entry["source_fp"] = segment_source_fp(snap, 0, payload.n_runs)
+            if qpos:
+                healthy = sorted(set(range(n_positions)) - qpos)
+                seg_entry["positions"] = healthy
+                seg_entry["source_fp"] = segment_source_fp_positions(snap, healthy)
+            else:
+                seg_entry["source_fp"] = segment_source_fp(snap, 0, payload.n_runs)
             header = {
                 "format": NPACK_FORMAT_VERSION,
                 "abi": NPACK_ABI_VERSION,
@@ -254,6 +296,8 @@ class CorpusStore:
                 "vocab_shard": write_vocab(os.path.join(tmp, "vocab-0001.bin"), payload.vocab),
                 "segments": [seg_entry],
             }
+            if qrecs:
+                header["quarantined"] = qrecs
             with open(os.path.join(tmp, "header.json"), "w", encoding="utf-8") as fh:
                 json.dump(header, fh, indent=1)
             with self._lock(final):
@@ -327,100 +371,245 @@ class CorpusStore:
 
     # --------------------------------------------------------------- append
 
-    def _append(self, store_dir: str, corpus_dir: str) -> dict | None:
-        """The directory GREW: pack only the new runs (the Python loader)
-        against the stored vocabulary as a fresh segment.  Returns the new
-        header, or None (logged; the caller parses) when the old entries
-        cannot be confirmed unchanged or a new run fails to parse."""
+    def _append(self, store_dir: str, header: dict, corpus_dir: str) -> dict | None:
+        """The directory GREW, or a quarantined run was repaired: pack only
+        the new and repaired runs against the stored vocabulary as a fresh
+        segment.  Returns the new header, or None (logged; the caller
+        parses) when the old entries cannot be confirmed unchanged.  A
+        runs.json layout takes the per-run-file append, a single-document
+        one (trace.json) the index append."""
         try:
+            index_file = (header.get("source") or {}).get("index_file") or "runs.json"
+            if index_file != "runs.json":
+                return self._append_index_locked(store_dir, corpus_dir, index_file)
             return self._append_locked(store_dir, corpus_dir)
         except Exception as ex:
             _log.warning("store append for %s failed (%s: %s); parsing", corpus_dir, type(ex).__name__, ex)
             return None
 
-    def _append_locked(self, store_dir: str, corpus_dir: str) -> dict | None:
+    def _reread_grown(self, store_dir: str, corpus_dir: str):
+        """Under the lock: the header as another appender may have left it;
+        returned with "hit" when nothing is left to append, None when the
+        store cannot be appended to."""
+        header = self._read_header(store_dir)
+        if not isinstance(header, dict):
+            return None, None
+        state = classify_source(header, corpus_dir)
+        return (header, state) if state in (HIT, GROWN) else (None, None)
+
+    @staticmethod
+    def _stored_vocab(vocab_rd):
+        """The stored vocabulary, to be extended in place by the new graphs
+        ("pre"/"post" re-intern to their pinned 0/1)."""
         from nemo_tpu_torch.graphs.packed import CorpusVocab
+        from nemo_tpu_torch.store.reader import decode_vocab
+
+        vocab = CorpusVocab()
+        for part in ("tables", "labels", "times"):
+            v = getattr(vocab, part)
+            for s in decode_vocab(vocab_rd, part):
+                v.intern(s)
+        return vocab
+
+    def _commit_append(self, store_dir: str, corpus_dir: str, header: dict, snap: dict, n_total: int,
+                       vocab, new_runs: list, new_positions: list[int], final_q: list[dict], changed: bool,
+                       exclude: set) -> dict | None:
+        """Write the new runs' segment (positions listed unless it is the
+        plain contiguous tail), a new vocab generation and the header; with
+        no new run, only the source and the quarantine records change.
+        None when nothing changed."""
+        n_old = int(header["source"]["n_runs"])
+        seg_name = f"seg-{len(header['segments']):03d}"
+        segments = header["segments"]
+        if new_runs:
+            tmp_seg = os.path.join(store_dir, f"{seg_name}.tmp-{uuid.uuid4().hex[:8]}")
+            try:
+                seg_entry = write_segment(tmp_seg, payload_from_runs(new_runs, vocab), STORE_WORKERS)
+                seg_entry["name"] = seg_name
+                seg_entry["source_fp"] = segment_source_fp_positions(snap, new_positions)
+                if final_q or header.get("quarantined") or new_positions != list(
+                    range(n_old, n_old + len(new_positions))
+                ):
+                    seg_entry["positions"] = list(new_positions)
+                os.rename(tmp_seg, os.path.join(store_dir, seg_name))
+            except BaseException:
+                shutil.rmtree(tmp_seg, ignore_errors=True)
+                raise
+            segments = segments + [seg_entry]
+            # A new vocab generation: the old file stays for readers of the
+            # old header.
+            vshard = write_vocab(os.path.join(store_dir, f"vocab-{len(segments):04d}.bin"), vocab)
+        elif not changed:
+            return None
+        else:
+            vshard = header["vocab_shard"]
+        source = source_from_snapshot(snap, n_total, exclude=exclude)
+        source["dir"] = os.path.realpath(corpus_dir)
+        header = dict(header, source=source, vocab_shard=vshard, segments=segments)
+        header["quarantined"] = final_q
+        if not final_q:
+            header.pop("quarantined")
+        # The commit point: the header swap.
+        tmp_header = os.path.join(store_dir, f"header.json.tmp-{uuid.uuid4().hex[:8]}")
+        with open(tmp_header, "w", encoding="utf-8") as fh:
+            json.dump(header, fh, indent=1)
+        os.replace(tmp_header, os.path.join(store_dir, "header.json"))
+        _log.info(
+            "store appended %s: %d new runs (%d repaired) %s, %d quarantined, %d in all", corpus_dir,
+            len(new_runs), sum(p < n_old for p in new_positions), f"as {seg_name}" if new_runs else "in no segment",
+            len(final_q), n_total,
+        )
+        return header
+
+    def _append_locked(self, store_dir: str, corpus_dir: str) -> dict | None:
         from nemo_tpu_torch.ingest.datatypes import RunData
-        from nemo_tpu_torch.ingest.molly import load_run_prov
-        from nemo_tpu_torch.store.reader import build_corpus, decode_vocab, open_segments
+        from nemo_tpu_torch.ingest.molly import load_run_prov, quarantine_record
+        from nemo_tpu_torch.store.reader import build_corpus, open_segments
+        from nemo_tpu_torch.utils.env import quarantine_enabled
 
         with self._lock(store_dir):
-            # Re-read under the lock: a concurrent appender may have won.
-            header = self._read_header(store_dir)
-            if not isinstance(header, dict):
-                return None
-            state = classify_source(header, corpus_dir)
-            if state == HIT:
+            header, state = self._reread_grown(store_dir, corpus_dir)
+            if state == HIT or header is None:
                 return header
-            if state != GROWN:
-                return None
             src = header["source"]
             n_old = int(src["n_runs"])
+            # Repair candidates: quarantined positions whose watched files
+            # changed; re-ingested beside the appended tail.
+            qrecs_old = list(header.get("quarantined") or ())
+            repair_pos = {int(r["position"]) for r in quarantine_changed(corpus_dir, qrecs_old)}
             # Snapshot before parsing: a file changed during the tail parse
             # then mismatches the published fingerprint (fail-safe).
             snap = (
                 snapshot_source(corpus_dir)
                 if fingerprint_mode() == "full"
-                else snapshot_source_appended(corpus_dir, n_old)
+                else snapshot_source_appended(corpus_dir, n_old, extra_positions=repair_pos)
             )
             with open(os.path.join(corpus_dir, "runs.json"), "r", encoding="utf-8") as fh:
                 raw_runs = json.load(fh)
-            if len(raw_runs) <= n_old:
+            if len(raw_runs) < n_old or (len(raw_runs) == n_old and not repair_pos):
                 return None
             seg_readers, vocab_rd, _ = open_segments(store_dir, header, verify=False)
             # Old-entry check: the byte prefix of runs.json when its
-            # serializer is stable; else every old entry's iteration and
-            # status, plus the whole head fragment of a <= 64-entry spread.
+            # serializer is stable; else every stored row's iteration and
+            # status, plus the whole head fragment of a <= 64-row spread.
             strong = src.get("runs_prefix_sha") and _runs_prefix_sha(
                 corpus_dir, (src.get("runs_json") or [0])[0]
             ) == src.get("runs_prefix_sha")
             if not strong:
                 old = build_corpus(store_dir, header, seg_readers, vocab_rd)
-                for row in range(n_old):
-                    r = raw_runs[row]
+                rows_pos = stored_positions(header)
+                for row, pos in enumerate(rows_pos):
+                    r = raw_runs[pos]
                     if int(r.get("iteration", 0)) != int(old.iteration[row]) or (
                         (r.get("status", "") == "success") != bool(old.success[row])
                     ):
-                        _log.warning("store append refused for %s: runs.json entry %d changed", corpus_dir, row)
+                        _log.warning("store append refused for %s: runs.json entry %d changed", corpus_dir, pos)
                         return None
-                stride = max(1, n_old // 64)
-                for row in sorted(set(range(0, n_old, stride)) | {0, n_old - 1}):
-                    if head_bytes(RunData.from_json(raw_runs[row])) != old.run_head_json(row):
-                        _log.warning("store append refused for %s: head of run row %d changed", corpus_dir, row)
+                n_stored = len(rows_pos)
+                stride = max(1, n_stored // 64)
+                for row in sorted(set(range(0, n_stored, stride)) | {0, n_stored - 1}):
+                    if head_bytes(RunData.from_json(raw_runs[rows_pos[row]])) != old.run_head_json(row):
+                        _log.warning("store append refused for %s: head of run %d changed", corpus_dir,
+                                     rows_pos[row])
                         return None
-            # The stored vocabulary, extended in place by the new graphs.
-            vocab = CorpusVocab()
-            for part in ("tables", "labels", "times"):
-                v = getattr(vocab, part)
-                for s in decode_vocab(vocab_rd, part):
-                    v.intern(s)
-            new_runs = []
-            for pos in range(n_old, len(raw_runs)):
-                run = RunData.from_json(raw_runs[pos])
-                load_run_prov(corpus_dir, pos, run)
+            vocab = self._stored_vocab(vocab_rd)
+            # Each candidate parses under the loader's per-run quarantine: a
+            # malformed one joins (or stays in) the quarantine.
+            quarantine = quarantine_enabled()
+            new_runs, new_positions, new_q = [], [], []
+            for pos in sorted(repair_pos | set(range(n_old, len(raw_runs)))):
+                try:
+                    run = RunData.from_json(raw_runs[pos])
+                except Exception as ex:
+                    if not quarantine:
+                        return None
+                    new_q.append(quarantine_record(pos, None, "runs.json", ex))
+                    continue
+                try:
+                    load_run_prov(corpus_dir, pos, run)
+                except Exception as ex:
+                    if not quarantine:
+                        return None
+                    cond = "post" if run.pre_prov is not None else "pre"
+                    new_q.append(quarantine_record(pos, run.iteration, f"run_{pos}_{cond}_provenance.json", ex))
+                    continue
                 new_runs.append(run)
-            seg_name = f"seg-{len(header['segments']):03d}"
-            tmp_seg = os.path.join(store_dir, f"{seg_name}.tmp-{uuid.uuid4().hex[:8]}")
+                new_positions.append(pos)
+            for rec in new_q:
+                rec["files"] = [] if rec["file"] == "runs.json" else quarantine_files_from_snapshot(
+                    snap, rec["position"])
+            kept_q = [r for r in qrecs_old if int(r["position"]) not in repair_pos]
+            final_q = sorted(kept_q + new_q, key=lambda r: int(r["position"]))
+            return self._commit_append(store_dir, corpus_dir, header, snap, len(raw_runs), vocab, new_runs,
+                                       new_positions, final_q, bool(new_q or repair_pos),
+                                       quarantine_file_names(final_q))
+
+    def _append_index_locked(self, store_dir: str, corpus_dir: str, index_file: str) -> dict | None:
+        """The index append of a single-document layout (trace.json): the
+        sweep grows inside the document, so the injector's ``index_runs``
+        re-reads it; every stored row's identity pair and the head fragment
+        of a <= 64-row spread must be unchanged, and only the entries past
+        the stored count (and every quarantined one: a single document has
+        no per-file repair tripwire) are packed into a fresh segment."""
+        from nemo_tpu_torch.ingest.adapters import INJECTORS
+        from nemo_tpu_torch.ingest.molly import quarantine_record
+        from nemo_tpu_torch.store.reader import build_corpus, open_segments
+        from nemo_tpu_torch.utils.env import quarantine_enabled
+
+        inj = next((c for c in INJECTORS.values() if c.index_file == index_file), None)
+        if inj is None:
+            return None
+        with self._lock(store_dir):
+            header, state = self._reread_grown(store_dir, corpus_dir)
+            if state == HIT or header is None:
+                return header
+            n_old = int(header["source"]["n_runs"])
+            snap = (
+                snapshot_source(corpus_dir, index_file=index_file)
+                if fingerprint_mode() == "full"
+                else snapshot_source_appended(corpus_dir, n_old, index_file=index_file)
+            )
+            n_total, parse_entry, entry_head = inj.index_runs(corpus_dir)
+            q_old_pos = {int(r["position"]) for r in header.get("quarantined") or ()}
+            if n_total < n_old or (n_total == n_old and not q_old_pos):
+                return None
+            seg_readers, vocab_rd, _ = open_segments(store_dir, header, verify=False)
+            old = build_corpus(store_dir, header, seg_readers, vocab_rd)
+            rows_pos = stored_positions(header)
+            n_stored = len(rows_pos)
             try:
-                seg_entry = write_segment(tmp_seg, payload_from_runs(new_runs, vocab), STORE_WORKERS)
-                seg_entry["name"] = seg_name
-                seg_entry["source_fp"] = segment_source_fp(snap, n_old, len(raw_runs))
-                os.rename(tmp_seg, os.path.join(store_dir, seg_name))
-            except BaseException:
-                shutil.rmtree(tmp_seg, ignore_errors=True)
-                raise
-            segments = header["segments"] + [seg_entry]
-            # A new vocab generation (the old file stays for readers of the
-            # old header), then the commit point: the header swap.
-            vshard = write_vocab(os.path.join(store_dir, f"vocab-{len(segments):04d}.bin"), vocab)
-            source = source_from_snapshot(snap, len(raw_runs))
-            source["dir"] = os.path.realpath(corpus_dir)
-            header = dict(header, source=source, vocab_shard=vshard, segments=segments)
-            tmp_header = os.path.join(store_dir, f"header.json.tmp-{uuid.uuid4().hex[:8]}")
-            with open(tmp_header, "w", encoding="utf-8") as fh:
-                json.dump(header, fh, indent=1)
-            os.replace(tmp_header, os.path.join(store_dir, "header.json"))
-        _log.info(
-            "store appended %s: %d new runs as %s, %d in all", corpus_dir, len(new_runs), seg_name, len(raw_runs)
-        )
-        return header
+                for row, pos in enumerate(rows_pos):
+                    it, success = entry_head(pos)
+                    if it != int(old.iteration[row]) or success != bool(old.success[row]):
+                        _log.warning("store append refused for %s: %s entry %d changed", corpus_dir, index_file,
+                                     pos)
+                        return None
+                stride = max(1, n_stored // 64)
+                for row in sorted(set(range(0, n_stored, stride)) | {0, n_stored - 1}):
+                    if head_bytes(parse_entry(rows_pos[row])) != old.run_head_json(row):
+                        _log.warning("store append refused for %s: head of run %d changed", corpus_dir,
+                                     rows_pos[row])
+                        return None
+            except Exception as ex:
+                _log.warning("store append refused for %s: a stored %s entry no longer parses (%s: %s)",
+                             corpus_dir, index_file, type(ex).__name__, ex)
+                return None
+            vocab = self._stored_vocab(vocab_rd)
+            quarantine = quarantine_enabled()
+            new_runs, new_positions, new_q = [], [], []
+            for pos in sorted(q_old_pos | set(range(n_old, n_total))):
+                try:
+                    run = parse_entry(pos)
+                except Exception as ex:
+                    if not quarantine:
+                        return None
+                    try:
+                        rid = entry_head(pos)[0]
+                    except Exception:  # the entry is quarantined either way; the id only names it
+                        rid = None
+                    new_q.append(dict(quarantine_record(pos, rid, index_file, ex), files=[]))
+                    continue
+                new_runs.append(run)
+                new_positions.append(pos)
+            return self._commit_append(store_dir, corpus_dir, header, snap, n_total, vocab, new_runs,
+                                       new_positions, new_q, bool(new_q), set())

@@ -1,9 +1,7 @@
 """The ``.npack`` corpus store format: parse once, memory-map after.
 
-A copy of the JAX package's ``store/npack.py``, trimmed to the Molly layout
-(no other index file) and to stores of healthy corpora (a corpus with
-quarantined runs is not stored).  A store persists exactly what the ETL
-produces:
+A copy of the JAX package's ``store/npack.py``.  A store persists exactly
+what the ETL produces:
 
   * the packed ``[B,V]``/``[B,E]`` arrays of both conditions (the native
     engine's padding: -1 table/label/time ids, 0 type and edge ids, False
@@ -37,15 +35,20 @@ Integrity and invalidation: every shard carries a CRC32 (checked on every
 load) and a SHA-256; the header records a
 fingerprint of the directory's file names, sizes and mtimes, split into
 old-run / other / new-run classes so a GROWN directory (runs appended) is
-told from a STALE one.  Version, fingerprint and checksum mismatches all
+told from a STALE one.  The layout's index file (``runs.json``, or
+``trace.json`` for the trace-JSON layout, ingest/adapters.py) is compared
+apart, by its stat.  A quarantined run's files are left out of the class
+fingerprints and watched one by one in its record in the header
+(``quarantined``): a repaired file reads as GROWN.  Version, fingerprint and checksum mismatches all
 fall back, logged, to the parse path.  The default ``fast`` fingerprint
 catches every entry added, removed or renamed and any change to runs.json,
 the directory mtime or a <= 64-file stat sample; an in-place rewrite of one
 unsampled provenance file is outside it (``NEMO_STORE_FINGERPRINT=full``
 stats every file).
 
-Appending packs only the new runs (the Python loader) against the stored
-vocabulary as a fresh segment and swaps the header atomically.  Writers
+Appending packs only the new runs (and the repaired quarantined ones)
+against the stored vocabulary as a fresh segment and swaps the header
+atomically; such a segment lists the source positions of its rows.  Writers
 serialize on an ``fcntl`` lock and publish by rename; readers never lock.
 """
 
@@ -274,14 +277,15 @@ def _run_index(name: str) -> str:
     return idx if idx.isdigit() else ""
 
 
-def _runs_prefix_sha(corpus_dir: str, nbytes: int) -> str | None:
-    """SHA-256 of runs.json's first ``nbytes - 1`` bytes: a stable serializer
-    that appends entries keeps it, the strong old-entry check of an
-    append."""
+def _runs_prefix_sha(corpus_dir: str, nbytes: int, index_file: str = "runs.json") -> str | None:
+    """SHA-256 of the index file's first ``nbytes - 1`` bytes: a stable
+    serializer that appends entries keeps it, the strong old-entry check of
+    a runs.json append (a single-document layout rewrites its tail on
+    growth, so its append never trusts it)."""
     try:
         sha = hashlib.sha256()
         remaining = max(0, nbytes - 1)
-        with open(os.path.join(corpus_dir, "runs.json"), "rb") as fh:
+        with open(os.path.join(corpus_dir, index_file), "rb") as fh:
             while remaining:
                 chunk = fh.read(min(1 << 20, remaining))
                 if not chunk:
@@ -293,16 +297,17 @@ def _runs_prefix_sha(corpus_dir: str, nbytes: int) -> str | None:
         return None
 
 
-def snapshot_source(corpus_dir: str, with_stats: bool = True) -> dict:
+def snapshot_source(corpus_dir: str, with_stats: bool = True, index_file: str = "runs.json") -> dict:
     """(name, size, mtime_ns) of every file of the sweep directory, taken
     BEFORE a writer parses it, so a file changed during the parse mismatches
-    on the next load.  runs.json, which changes on append, is kept apart."""
+    on the next load.  The index file (runs.json or trace.json), which
+    changes on append, is kept apart, and its name recorded."""
     dir_mtime_ns = os.stat(corpus_dir).st_mtime_ns
     entries: list[tuple[str, int, int]] = []
     runs_json: list[int] | None = None
     with os.scandir(corpus_dir) as it:
         for entry in it:
-            if entry.name == "runs.json":
+            if entry.name == index_file:
                 st = entry.stat()
                 runs_json = [st.st_size, st.st_mtime_ns]
                 continue
@@ -316,30 +321,34 @@ def snapshot_source(corpus_dir: str, with_stats: bool = True) -> dict:
     return {
         "dir_mtime_ns": dir_mtime_ns,
         "runs_json": runs_json,
+        "index_file": index_file,
         "entries": entries,
         "with_stats": with_stats,
-        "runs_prefix_sha": _runs_prefix_sha(corpus_dir, (runs_json or [0])[0]) if with_stats else None,
+        "runs_prefix_sha": _runs_prefix_sha(corpus_dir, (runs_json or [0])[0], index_file) if with_stats else None,
     }
 
 
-def snapshot_source_appended(corpus_dir: str, n_old: int) -> dict:
+def snapshot_source_appended(corpus_dir: str, n_old: int, extra_positions: set | None = None,
+                             index_file: str = "runs.json") -> dict:
     """Partial pre-parse snapshot for an append in ``fast`` mode: names of
-    every file, stats only of runs.json, the new runs' files (positions >=
-    ``n_old``, their segment's source fingerprint) and the stat sample, so
-    the append costs in proportion to the growth, not the corpus."""
+    every file, stats only of the index file, the new runs' files
+    (positions >= ``n_old``, their segment's source fingerprint), the
+    repaired quarantined positions (``extra_positions``) and the stat
+    sample, so the append costs in proportion to the growth, not the
+    corpus."""
     dir_mtime_ns = os.stat(corpus_dir).st_mtime_ns
     entries: list[tuple] = []
     runs_json: list[int] | None = None
     with os.scandir(corpus_dir) as it:
         for entry in it:
-            if entry.name == "runs.json":
+            if entry.name == index_file:
                 st = entry.stat()
                 runs_json = [st.st_size, st.st_mtime_ns]
                 continue
             if not entry.is_file(follow_symlinks=True):
                 continue
             idx = _run_index(entry.name)
-            if idx and int(idx) >= n_old:
+            if idx and (int(idx) >= n_old or (extra_positions and int(idx) in extra_positions)):
                 st = entry.stat()
                 entries.append((entry.name, st.st_size, st.st_mtime_ns))
             else:
@@ -353,21 +362,28 @@ def snapshot_source_appended(corpus_dir: str, n_old: int) -> dict:
     return {
         "dir_mtime_ns": dir_mtime_ns,
         "runs_json": runs_json,
+        "index_file": index_file,
         "entries": entries,
         "with_stats": False,
         "sample": sampled,
-        "runs_prefix_sha": _runs_prefix_sha(corpus_dir, (runs_json or [0])[0]),
+        "runs_prefix_sha": _runs_prefix_sha(corpus_dir, (runs_json or [0])[0], index_file),
     }
 
 
-def source_from_snapshot(snap: dict, n_old: int) -> dict:
+def source_from_snapshot(snap: dict, n_old: int, exclude: set | None = None) -> dict:
     """Snapshot -> fingerprint dict, classed so GROWN is told from STALE:
     ``old`` run_<i>_* files with i < n_old, ``new`` those with i >= n_old,
-    ``other`` every other file but runs.json (compared separately).  Per
-    class a names-only fingerprint and, when the snapshot has stats, a stat
-    fingerprint; ``sample`` is the stat sample of old + other."""
+    ``other`` every other file but the index file (compared separately, its
+    name recorded when it is not runs.json).  Per class a names-only
+    fingerprint and, when the snapshot has stats, a stat fingerprint;
+    ``sample`` is the stat sample of old + other.  ``exclude`` (the
+    quarantined runs' files) leaves files out of every class and the
+    sample: their repair must read as GROWN, not STALE."""
+    exclude = exclude or frozenset()
     classes: dict[str, list] = {"old": [], "new": [], "other": []}
     for rec in snap["entries"]:
+        if rec[0] in exclude:
+            continue
         idx = _run_index(rec[0])
         if idx:
             classes["old" if int(idx) < n_old else "new"].append(rec)
@@ -381,6 +397,8 @@ def source_from_snapshot(snap: dict, n_old: int) -> dict:
         "n_runs": n_old,
         "runs_prefix_sha": snap.get("runs_prefix_sha"),
     }
+    if (snap.get("index_file") or "runs.json") != "runs.json":
+        out["index_file"] = snap["index_file"]
     for cls, recs in classes.items():
         out[f"{cls}_names_fp"] = _fp([n for n, _, _ in recs])
         if with_stats:
@@ -388,7 +406,7 @@ def source_from_snapshot(snap: dict, n_old: int) -> dict:
     if with_stats:
         out["sample"] = [list(rec) for rec in _select_sample(classes["old"] + classes["other"])]
     elif snap.get("sample") is not None:
-        out["sample"] = [list(rec) for rec in snap["sample"]]
+        out["sample"] = [list(rec) for rec in snap["sample"] if rec[0] not in exclude]
     return out
 
 
@@ -403,6 +421,69 @@ def segment_source_fp(snapshot: dict, lo: int, hi: int) -> str:
         if idx and lo <= int(idx) < hi:
             lines.append(f"{rec[0]}\0{rec[1]}\0{rec[2]}")
     return _fp(lines)
+
+
+def segment_source_fp_positions(snapshot: dict, positions) -> str:
+    """segment_source_fp over a set of positions: a segment of repaired
+    quarantined runs holds positions that are not one range."""
+    want = {int(p) for p in positions}
+    lines = []
+    for rec in snapshot["entries"]:
+        idx = _run_index(rec[0])
+        if idx and int(idx) in want:
+            lines.append(f"{rec[0]}\0{rec[1]}\0{rec[2]}")
+    return _fp(lines)
+
+
+# ---------------------------------------------------------------------------
+# quarantine bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def quarantine_file_names(qrecs) -> set:
+    """Every file name the header's quarantine records watch."""
+    return {f[0] for rec in qrecs or () for f in rec.get("files") or ()}
+
+
+def quarantine_files_from_snapshot(snap: dict, position: int) -> list:
+    """Every ``run_<position>_*`` file of one quarantined position with the
+    snapshot's stats: the record a repair is detected by (a repair tool
+    typically rewrites the whole run, so every file is watched)."""
+    prefix = f"run_{position}_"
+    return sorted([rec[0], rec[1], rec[2]] for rec in snap["entries"] if rec[0].startswith(prefix))
+
+
+def quarantine_changed(corpus_dir: str, qrecs) -> list:
+    """The quarantine records whose watched files' stats changed: repair
+    candidates of the GROWN append.  A record with no watched files (a bad
+    index entry, repaired by rewriting the index) never matches here."""
+    changed = []
+    for rec in qrecs or ():
+        for name, size, mtime_ns in rec.get("files") or ():
+            try:
+                st = os.stat(os.path.join(corpus_dir, name))
+            except OSError:
+                changed.append(rec)
+                break
+            if st.st_size != size or st.st_mtime_ns != mtime_ns:
+                changed.append(rec)
+                break
+    return changed
+
+
+def stored_positions(header: dict) -> list[int]:
+    """Stored row -> source position over every segment in append order; a
+    segment without ``positions`` continues after the largest position
+    before it."""
+    out: list[int] = []
+    nxt = 0
+    for seg in header["segments"]:
+        pos = seg.get("positions")
+        if pos is None:
+            pos = range(nxt, nxt + int(seg["n_runs"]))
+        out.extend(int(p) for p in pos)
+        nxt = (max(out) + 1) if out else 0
+    return out
 
 
 def segment_fingerprint(entry: dict) -> str:
@@ -432,17 +513,22 @@ def _sample_ok(corpus_dir: str, sample: list) -> bool:
 
 
 def classify_source(header: dict, corpus_dir: str) -> str:
-    """HIT (the store may be served), GROWN (runs were appended) or STALE.
+    """HIT (the store may be served), GROWN (runs were appended, or a
+    quarantined run's file changed) or STALE.
 
-    ``fast`` mode first tries tier 0 — an unchanged directory mtime,
-    runs.json stat and sample is a HIT with no enumeration — then compares
-    the names-only fingerprints; ``full`` mode re-stats every file."""
+    ``fast`` mode first tries tier 0 — an unchanged directory mtime, index
+    file stat and sample is a HIT with no enumeration — then compares the
+    names-only fingerprints; ``full`` mode re-stats every file.  A
+    quarantined run's files are left out of both and statted one by one: a
+    change is the GROWN case (the append re-ingests the repaired run)."""
     src = header.get("source") or {}
+    index_file = src.get("index_file") or "runs.json"
+    qrecs = header.get("quarantined") or ()
     full = fingerprint_mode() == "full"
     if not full and src.get("dir_mtime_ns"):
         try:
             st = os.stat(corpus_dir)
-            rj = os.stat(os.path.join(corpus_dir, "runs.json")) if src.get("runs_json") is not None else None
+            rj = os.stat(os.path.join(corpus_dir, index_file)) if src.get("runs_json") is not None else None
         except OSError:
             return STALE
         cur_rj = [rj.st_size, rj.st_mtime_ns] if rj is not None else None
@@ -451,8 +537,13 @@ def classify_source(header: dict, corpus_dir: str) -> str:
             and cur_rj == src.get("runs_json")
             and _sample_ok(corpus_dir, src.get("sample"))
         ):
-            return HIT
-    cur = source_from_snapshot(snapshot_source(corpus_dir, with_stats=full), int(src.get("n_runs", 0)))
+            # An in-place repair moves neither the directory nor the index.
+            return GROWN if qrecs and quarantine_changed(corpus_dir, qrecs) else HIT
+    cur = source_from_snapshot(
+        snapshot_source(corpus_dir, with_stats=full, index_file=index_file),
+        int(src.get("n_runs", 0)),
+        exclude=quarantine_file_names(qrecs),
+    )
     if full:
         base_ok = cur["old_fp"] == src.get("old_fp") and cur["other_fp"] == src.get("other_fp")
         hit_ok = base_ok and cur["new_fp"] == src.get("new_fp")
@@ -466,11 +557,21 @@ def classify_source(header: dict, corpus_dir: str) -> str:
     if not base_ok:
         return STALE
     if hit_ok and cur["runs_json"] == src.get("runs_json"):
-        return HIT
-    # Append candidate: every stored file untouched, runs.json changed, new
+        return GROWN if qrecs and quarantine_changed(corpus_dir, qrecs) else HIT
+    # Append candidate: every stored file untouched, the index changed, new
     # run files present, and none were pending when the store was written.
     if (
         cur["n_new_files"] > 0
+        and int(src.get("n_new_files", 0)) == 0
+        and cur["runs_json"] != src.get("runs_json")
+    ):
+        return GROWN
+    # A single-document layout (trace.json) grows inside its index file and
+    # never gains per-run files: an index-only change is the append
+    # candidate (the append checks the old entries before trusting it).
+    if (
+        index_file != "runs.json"
+        and cur["n_new_files"] == 0
         and int(src.get("n_new_files", 0)) == 0
         and cur["runs_json"] != src.get("runs_json")
     ):

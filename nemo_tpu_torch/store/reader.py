@@ -1,13 +1,14 @@
 """Warm-load side of the ``.npack`` store: mapped shards -> packed MollyOutput.
 
-A copy of the JAX package's ``store/reader.py``, trimmed to the Molly
-layout and to stores without quarantined runs.  The loaded object is
+A copy of the JAX package's ``store/reader.py``.  The loaded object is
 interchangeable with the packed-first loader's
 (``ingest/native.py:load_molly_output_packed``): runs carry RawProv
 placeholders splicing the stored serializations, head fragments come from
 the stored blob, ``.native_corpus`` exposes the (read-only, mapped) arrays.
-The failureSpec/model/messages trio materializes from the source runs.json
-only if something reads it; the report never does.
+The failureSpec/model/messages trio materializes only if something reads
+it: from the source runs.json (Molly), or from the stored head fragment
+where the layout has no runs.json (trace-JSON).  A store of a quarantined
+or repaired corpus maps its rows to source positions (``positions``).
 """
 
 from __future__ import annotations
@@ -183,6 +184,20 @@ class _RawRuns:
         return self._rows[i]
 
 
+class _HeadRuns:
+    """The trio's source for a layout without runs.json: the stored head
+    fragment, the same five pairs the populate serialized.  Indexed by
+    source position like _RawRuns."""
+
+    def __init__(self, corpus: "StoreCorpus", positions: list[int] | None) -> None:
+        self._corpus = corpus
+        self._row_of = {int(p): r for r, p in enumerate(positions)} if positions else None
+
+    def row(self, i: int) -> dict:
+        row = self._row_of[i] if self._row_of is not None else i
+        return json.loads(b"{" + self._corpus.run_head_json(row) + b"}")
+
+
 class _RawProxy:
     """dict-shaped view of one run's runs.json entry, parsed on demand."""
 
@@ -282,11 +297,18 @@ def build_corpus(store_dir: str, header: dict, seg_readers: list[dict], vocab_rd
     )
 
 
-def molly_from_corpus(corpus: StoreCorpus, corpus_dir: str) -> MollyOutput:
+def molly_from_corpus(corpus: StoreCorpus, corpus_dir: str, positions: list[int] | None = None) -> MollyOutput:
     """StoreCorpus -> MollyOutput, the packed-first loader's product without
-    reading any source JSON: per run a template dict, lazy holds and trio."""
-    out = MollyOutput(run_name=os.path.basename(os.path.normpath(corpus_dir)), output_dir=corpus_dir)
-    raws = _RawRuns(os.path.join(corpus_dir, "runs.json"), corpus.n_runs)
+    reading any source JSON: per run a template dict, lazy holds and trio.
+    ``positions`` maps a stored row to its source position
+    (npack.stored_positions; the identity when None), which the lazy trio
+    reads by."""
+    runs_path = os.path.join(corpus_dir, "runs.json")
+    molly_layout = os.path.exists(runs_path)
+    out = MollyOutput(run_name=os.path.basename(os.path.normpath(corpus_dir)), output_dir=corpus_dir,
+                      ships_spacetime_dots=molly_layout)
+    expected_n = (max(positions) + 1) if positions else corpus.n_runs
+    raws = _RawRuns(runs_path, expected_n) if molly_layout else _HeadRuns(corpus, positions)
     # Every RunData default, taken once from the real constructor; mutable
     # containers are copied per run.
     tmpl = RunData().__dict__
@@ -306,7 +328,7 @@ def molly_from_corpus(corpus: StoreCorpus, corpus_dir: str) -> MollyOutput:
                 d[k] = v.copy()
             d["iteration"] = iters_list[row]
             d["status"] = statuses[local].decode()
-            d["_raw"] = _RawProxy(raws, row)
+            d["_raw"] = _RawProxy(raws, positions[row] if positions else row)
             d["_lazy"] = {"failure_spec": sentinel, "model": sentinel, "messages": sentinel}
             d["_head_corpus"] = corpus
             d["_head_row"] = row

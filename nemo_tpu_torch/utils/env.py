@@ -1,5 +1,5 @@
 """Environment knobs read by the port's ingest, corpus store, result cache,
-streamed map and reduce: a trimmed copy of the JAX package's
+streamed map, reduce and watch loop: a trimmed copy of the JAX package's
 ``utils/env.py``.
 
 A junk value of a flag or a number warns and falls back to the default:
@@ -46,6 +46,22 @@ def env_int(name: str, default: int, minimum: int = 0) -> int:
         _log.warning("%s=%r must be >= %d; using %r", name, raw, minimum, default)
         return default
     return n
+
+
+def env_float(name: str, default: float, minimum: float = 0.0) -> float:
+    """Float knob, at least ``minimum``."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        _log.warning("%s=%r is not a number; using %r", name, raw, default)
+        return default
+    if v < minimum:
+        _log.warning("%s=%r must be >= %s; using %r", name, raw, minimum, default)
+        return default
+    return v
 
 
 def env_choice(name: str, default: str, choices: tuple) -> str:

@@ -8,7 +8,9 @@ gives the arrays of a cold native parse and the JAX package's report.
   where an append interns in another order), and each report tree equals
   ``nemo_tpu.analysis.pipeline.run_debug``'s (object ingest, caches off);
 * a store populated from the Python loader equals one from the engine;
-* a corpus with quarantined runs is not stored; an edited source is stale,
+* a corpus with quarantined runs stores its healthy rows and the
+  quarantine record, and a warm hit reproduces quarantine.json; an edited
+  source is stale,
   and an in-place rewrite outside the fast fingerprint's sample is stale
   under ``NEMO_STORE_FINGERPRINT=full``;
 * ``load_corpus`` serves the packed corpus without the run records.
@@ -173,6 +175,9 @@ def test_python_populate_equals_native_populate(full_dir, tmp_path):
 
 
 def test_quarantined_corpus_is_not_stored(full_dir, tmp_path, caplog):
+    """The quarantined run is not stored, the rest of the corpus is: the
+    store holds the healthy rows with the quarantine record, and a warm hit
+    reproduces the cold report, quarantine.json included."""
     import shutil
 
     cd = str(tmp_path / "q" / "pb_synth")
@@ -184,11 +189,19 @@ def test_quarantined_corpus_is_not_stored(full_dir, tmp_path, caplog):
         res = _report(cd, str(tmp_path / "R"), cc)
     assert res.ingest == "python_quarantine_fallback"
     assert any("quarantining Python loader" in r.getMessage() for r in caplog.records)
-    assert any("not stored" in r.getMessage() for r in caplog.records)
-    assert CorpusStore(cc).probe(cd) == "miss"
+    store = CorpusStore(cc)
+    assert store.probe(cd) == "hit"
+    with open(os.path.join(store.store_dir(cd), "header.json")) as fh:
+        header = json.load(fh)
+    assert [(q["position"], q["file"]) for q in header["quarantined"]] == [(3, "run_3_post_provenance.json")]
+    assert header["segments"][0]["positions"] == [p for p in range(10) if p != 3]
     with open(os.path.join(res.report_dir, "telemetry.json")) as fh:
         assert json.load(fh)["ingest"] == "python_quarantine_fallback"
-    assert json.loads(open(os.path.join(res.report_dir, "quarantine.json")).read())[0]["position"] == 3
+    cold = report_tree_bytes(res.report_dir)
+    assert json.loads(cold["quarantine.json"])[0]["position"] == 3
+    warm = _report(cd, str(tmp_path / "R1"), cc)
+    assert warm.ingest == "store_hit" and [r.iteration for r in warm.molly.runs] == [0, 1, 2, 4, 5, 6, 7, 8, 9]
+    assert report_tree_bytes(warm.report_dir) == cold
 
 
 def test_edited_source_is_stale(full_dir, tmp_path):
