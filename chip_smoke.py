@@ -102,6 +102,20 @@ each fatal (non-zero exit, no result line) on failure:
      new runs, the last published tree equal to a one-shot report; (e)
      --save-corpus through the CLI, the file loading back equal
      ({"corpora": {...}});
+  6h. the ad-hoc query engine on cuda, each call with the launch counts
+     zeroed before and read after, every document (its stats aside) equal
+     to the same query's cpu document: bench.py's query over the six
+     families through the corpus store phase 5b left, cold and then warm
+     (a hit that runs no bucket and launches nothing), each bucket on the
+     lane of the rule (query_lane) and K2 launched once per sparse_device
+     bucket; the same query with the device lane forced (K2 on every
+     bucket) and with the host lane forced (no launch); on one family the
+     per-run oracle's document; the four verbs as query programs on both
+     lanes, each equal to the native verb over TorchBackend("cuda"), none
+     launching K2; ZK-1270 grown by 200 runs, mapping only the new
+     segment; the CLI's query in a subprocess (a bad query exits 2); POST
+     /query through the report server on port 0, on the device lane
+     ({"query": {...}});
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -212,6 +226,18 @@ WATCH_FAMILY_GENERATIONS = 4
 #: depends on the whole run list, so it has none, and every update would
 #: map every run).
 PARTIAL_FIGURES = "none"
+#: Phase 6h: bench.py's query tier (bench.py:575-581), three patterns with
+#: one -*-> hop, into its capture step: the forward reach only, so one K2
+#: launch a bucket on the sparse_device lane.
+QUERY_TEXT = ("from pre match goal[holds=true] -> @rule match goal[holds=false] -*-> @rule[type=async] "
+              "match @goal -> rule -> goal count by table")
+#: The family whose query documents are also held against the per-run
+#: oracle, the CLI's and the report server's.
+QUERY_FAMILY = "ZK-1270-racing-sent-flag"
+#: A query the CLI must reject with exit code 2.
+QUERY_BAD = "match wat"
+#: A host-lane budget no bucket reaches.
+QUERY_HOST_ONLY = 10**18
 
 
 def log(msg: str) -> None:
@@ -1021,7 +1047,9 @@ def ingest_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     for k, n in cli_grown(os.path.join(root, "cli"), kernels, dirs[zk]).items():
         launches[k] += n
     host_file_ops(os.path.join(root, "file-ops"))
-    shutil.rmtree(root)
+    for entry in os.listdir(root):
+        if entry != "corpus-cache":  # phase 6h queries the families through this store
+            shutil.rmtree(os.path.join(root, entry))
     return launches
 
 
@@ -1912,6 +1940,200 @@ def corpora_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     return launches
 
 
+def counted_call(label: str, kernels, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after, its launches recorded under ``label`` in the
+    LaunchLog.  Returns (its result, launches by kernel name, wall s)."""
+    for k in kernels:
+        k.launches = 0
+    LAUNCH_LOG.label = label
+    t = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        LAUNCH_LOG.label = None
+    return out, {k.__name__: k.launches for k in kernels}, time.perf_counter() - t
+
+
+def _doc_bytes(doc: dict) -> str:
+    """A query document without its stats, as bench.py compares them."""
+    return json.dumps({k: v for k, v in doc.items() if k != "stats"}, sort_keys=True)
+
+
+def _post_query(port: int, body: dict) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/query", data=json.dumps(body).encode("utf-8"),
+                                 method="POST", headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as ex:
+        return ex.code, json.loads(ex.read())
+
+
+def query_path(work: str, kernels, dirs: dict, corpus_cache: str) -> dict:
+    """Phase 6h: the ad-hoc query engine on cuda (see the module docstring).
+    Every document must equal the cpu document.  Prints {"query": {...}}.
+    Returns the launches by kernel."""
+    from http.server import ThreadingHTTPServer
+    from threading import Thread
+
+    from nemo_tpu_torch import cli
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
+    from nemo_tpu_torch.query.engine import execute_query, ingest_corpus, oracle_query, query_lane
+    from nemo_tpu_torch.query.lang import parse_query
+    from nemo_tpu_torch.query.verbs import VERB_QUERIES, native_verb_result, run_verb
+
+    root = os.path.join(work, "query")
+    rc = os.path.join(root, "result-cache")
+    q = parse_query(QUERY_TEXT)
+    launches = {k.__name__: 0 for k in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    def run(label, molly, routes=None, **kw):
+        doc, counts, wall = counted_call(label, kernels,
+                                         lambda: execute_query(q, molly, device="cuda", routes=routes, **kw))
+        add(counts)
+        return doc, counts, wall
+
+    def routes_of(routes):
+        return [(r["rows"], r["v"], r["e"], r["work"], r["lane"]) for r in routes]
+
+    out, cpu_docs = {"query": QUERY_TEXT, "families": {}}, {}
+    for name, cd in dirs.items():
+        t = time.perf_counter()
+        molly = ingest_corpus(cd, corpus_cache)
+        row = {"runs": len(molly.runs), "ingest": getattr(molly, "store_state", None),
+               "ingest_s": round(time.perf_counter() - t, 4)}
+        if row["ingest"] != "hit":
+            raise AssertionError(f"query {name}: the corpus store of phase 5b did not serve it ({row['ingest']})")
+        t = time.perf_counter()
+        want = cpu_docs[name] = _doc_bytes(execute_query(q, molly, device="cpu", use_cache=False))
+        row["cpu_s"] = round(time.perf_counter() - t, 4)
+        # (1) cold, then warm, on the lane rule's routes.
+        for leg, stats in (("cold", {"cache": "miss", "segments_mapped": 1}),
+                           ("warm", {"cache": "hit", "segments_mapped": 0})):
+            label, routes = f"query {leg} {name}", []
+            doc, counts, wall = run(label, molly, routes, result_cache=rc)
+            if doc["stats"] != stats or _doc_bytes(doc) != want:
+                raise AssertionError(f"{label}: stats {doc['stats']} (want {stats}), or the document differs from "
+                                     f"the cpu document")
+            if any(r["lane"] != query_lane(r["work"]) for r in routes):
+                raise AssertionError(f"{label}: a bucket off the lane rule: {routes}")
+            device_buckets = sum(r["lane"] == "sparse_device" for r in routes)
+            if counts["edge_wave"] != device_buckets or counts["closure"] or (leg == "warm" and routes):
+                raise AssertionError(f"{label}: launches {counts} over routes {routes}")
+            row[leg] = {"wall_s": round(wall, 4), "launches": counts, "routes": routes_of(routes)}
+        # (2) each lane forced.
+        for lane, host_work, want_lane in (("device", 0, "sparse_device"), ("host", QUERY_HOST_ONLY, "host")):
+            label, routes = f"query {lane} lane {name}", []
+            doc, counts, wall = run(label, molly, routes, use_cache=False, query_host_work=host_work)
+            n_k2 = len(routes) if lane == "device" else 0
+            if _doc_bytes(doc) != want or {r["lane"] for r in routes} != {want_lane} or counts != {
+                    "closure": 0, "edge_wave": n_k2}:
+                raise AssertionError(f"{label}: launches {counts} over routes {routes}, or the document differs")
+            row[f"{lane}_lane"] = {"wall_s": round(wall, 4), "launches": counts, "routes": routes_of(routes)}
+        if name == QUERY_FAMILY:
+            t = time.perf_counter()
+            if _doc_bytes(oracle_query(q, molly)) != want:
+                raise AssertionError(f"query {name}: the per-run oracle's document differs")
+            row["oracle_s"] = round(time.perf_counter() - t, 4)
+        # (3) the four verbs as query programs, on both lanes, against the
+        # native verbs over TorchBackend("cuda") (their fused step launches K1).
+        backend = TorchBackend(device="cuda")
+        backend.init_graph_db("", molly)
+        row["verbs"] = {}
+        for verb in VERB_QUERIES:
+            native, ncounts, nwall = counted_call(f"query native verb {name}", kernels,
+                                                  lambda: native_verb_result(verb, backend))
+            add(ncounts)
+            rec = {"native_s": round(nwall, 4), "native_launches": ncounts}
+            for lane, host_work in (("default", None), ("device", 0)):
+                label = f"query verb {verb} {lane} {name}"
+                kw = {} if host_work is None else {"query_host_work": host_work}
+                doc, counts, wall = counted_call(label, kernels, lambda: run_verb(verb, molly, device="cuda",
+                                                                                 use_cache=False, **kw))
+                add(counts)
+                if json.dumps(doc["runs"], sort_keys=True) != json.dumps(native, sort_keys=True) or counts[
+                        "edge_wave"]:
+                    raise AssertionError(f"{label}: differs from the native verb, or launched K2 {counts}")
+                rec[f"{lane}_s"] = round(wall, 4)
+            row["verbs"][verb] = rec
+        backend.close_db()
+        log(f"query {name}: {json.dumps(row)}")
+        out["families"][name] = row
+
+    # (4) ZK-1270 grown by INGEST_GROWN_RUNS: only the new segment maps.
+    zk = QUERY_FAMILY
+    grown = os.path.join(root, "grown", zk)
+    gcc, grc = os.path.join(root, "grown-corpus-cache"), os.path.join(root, "grown-result-cache")
+    n_old = FAMILY_RUNS - INGEST_GROWN_RUNS
+    grow_corpus_dir(dirs[zk], grown, n_old)
+    doc, counts, first_wall = run(f"query grown {zk} first {n_old}", ingest_corpus(grown, gcc), result_cache=grc)
+    grow_corpus_dir(dirs[zk], grown, FAMILY_RUNS)
+    molly = ingest_corpus(grown, gcc)
+    label, routes = f"query grown {zk} +{INGEST_GROWN_RUNS}", []
+    doc, counts, wall = run(label, molly, routes, result_cache=grc)
+    scratch = _doc_bytes(execute_query(q, ingest_corpus(grown, "off"), device="cpu", use_cache=False))
+    rows = sum(r["rows"] for r in routes)
+    if doc["stats"] != {"cache": "miss", "segments_mapped": 1} or rows > INGEST_GROWN_RUNS or _doc_bytes(
+            doc) != scratch or getattr(molly, "store_state", None) != "grown":
+        raise AssertionError(f"{label}: stats {doc['stats']}, {rows} rows mapped, or differs from scratch")
+    out["grown"] = {"first_s": round(first_wall, 4), "grown_s": round(wall, 4), "rows_mapped": rows,
+                    "launches": counts}
+    log(f"{label}: mapped only the new segment ({rows} rows); the document equals the from-scratch document")
+
+    # (5) the CLI in a subprocess (the device defaults to cuda).
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    base = [sys.executable, "-m", "nemo_tpu_torch.cli", "query"]
+    t = time.perf_counter()
+    good = subprocess.run(base + [QUERY_TEXT, "-faultInjOut", dirs[zk], "--corpus-cache", corpus_cache,
+                                  "--result-cache", "off"], cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=300)
+    cli_s = time.perf_counter() - t
+    if good.returncode != 0 or _doc_bytes(json.loads(good.stdout)) != cpu_docs[zk]:
+        raise AssertionError(f"cli query: rc {good.returncode}, stderr {good.stderr[-2000:]}")
+    bad = subprocess.run(base + [QUERY_BAD, "-faultInjOut", dirs[zk]], cwd=repo, env=env, capture_output=True,
+                         text=True, timeout=300)
+    if bad.returncode != 2 or "query error: unknown step kind 'wat'" not in bad.stderr:
+        raise AssertionError(f"cli bad query: rc {bad.returncode}, stderr {bad.stderr[-2000:]}")
+    out["cli"] = {"wall_s": round(cli_s, 4), "bad_rc": bad.returncode}
+    log(f"cli query {zk}: the document equals the cpu document ({cli_s:.2f} s with the interpreter's start); "
+        f"{QUERY_BAD!r} exits 2")
+
+    # (6) POST /query through the report server, on the device lane, the
+    # corpus resolved as --watch --serve resolves it (store-warm ingest).
+    handler = cli.query_http_handler(root, cli.watch_molly_resolver(dirs[zk], None, corpus_cache), device="cuda",
+                                     result_cache="off", query_host_work=0)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    serving = Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    try:
+        (status, doc), counts, wall = counted_call("query served", kernels,
+                                                   lambda: _post_query(httpd.server_address[1], {"query": QUERY_TEXT}))
+        bad_status, bad_doc = _post_query(httpd.server_address[1], {"query": QUERY_BAD})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serving.join()
+    add(counts)
+    if status != 200 or _doc_bytes(doc) != cpu_docs[zk] or counts["edge_wave"] <= 0 or bad_status != 400:
+        raise AssertionError(f"POST /query: status {status}, launches {counts}, bad query {bad_status} {bad_doc}")
+    out["serve"] = {"wall_s": round(wall, 4), "launches": counts}
+    log(f"POST /query {zk}: status 200, the document equals the cpu document, launches {counts}; bad text 400")
+    print(json.dumps({"query": out}))
+    shutil.rmtree(root)
+    return launches
+
+
 def profile_family(cd: str, out_root: str, figures: str, **kw) -> dict[str, dict[str, tuple[float, int]]]:
     """Device busy time of one corpus's report, by torch.profiler: the sum
     of kernel times on the card against the wall of the whole report, the
@@ -2068,15 +2290,18 @@ def main() -> int:
         corpora = corpora_path(work, kernels, dirs, trees)
         log(f"phase 6g wall {time.perf_counter() - t:.1f} s")
         del trees
+        t = time.perf_counter()
+        query = query_path(work, kernels, dirs, os.path.join(work, "ingest", "corpus-cache"))
+        log(f"phase 6h wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}, "
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
-        f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}")
+        f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}")
     for record in records:
         record["launches"] = sum(part[record["name"]]
-                                 for part in (dense, ingest, sparse, routes, lanes, several, streamed, corpora))
+                                 for part in (dense, ingest, sparse, routes, lanes, several, streamed, corpora, query))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

@@ -140,6 +140,19 @@ def report_cache_key(molly, figures: str) -> str | None:
     })
 
 
+def blob_cache_key(kind: str, segments_meta, extra: dict) -> str | None:
+    """Content address of an opaque result blob derived from a stored corpus
+    (the query's documents and segment partials): every segment
+    fingerprint, the caller's ``extra`` (the query's plan key), the
+    analysis ABI and the implementation.  None when the corpus carries no
+    segment identities (not store-served)."""
+    fps = [s.get("fingerprint") for s in segments_meta or ()]
+    if not fps or any(f is None for f in fps):
+        return None
+    return _key({"kind": kind, "impl": "nemo_tpu_torch", "segments": fps, "extra": extra,
+                 "analysis_abi": ANALYSIS_ABI_VERSION})
+
+
 def partial_cache_key(
     seg: Segment, segments: list[Segment], good_iter: int | None, baseline_iter: int | None, figures: str
 ) -> str | None:

@@ -6,10 +6,12 @@ directories, on one device.
         [--analysis-impl auto|dense|sparse|sparse_device]
         [--ingest auto|native|python] [--injector auto|molly|trace-json]
         [--corpus-cache DIR|off] [--result-cache DIR|off] [--prefetch]
-        [--save-corpus FILE.npz] [--out analysis.json]
+        [--save-corpus FILE.npz] [--out analysis.json] [--serve PORT]
     python -m nemo_tpu_torch.cli -faultInjOut <dir> --watch [--watch-poll-s S]
         [--watch-debounce-s S] [--watch-max-updates N]
-        [--replay SRC [--replay-generations N] [--replay-interval-s S]] ...
+        [--replay SRC [--replay-generations N] [--replay-interval-s S]] [--serve PORT] ...
+    python -m nemo_tpu_torch.cli query TEXT -faultInjOut <dir> [--device cuda|cpu]
+        [--injector ...] [--corpus-cache DIR|off] [--result-cache DIR|off] [--explain]
 
 Writes the report tree ``DIR/<corpus>/`` (default ``./results``) of each
 directory; several go through ``run_debug_dirs``, which names the reports
@@ -40,6 +42,18 @@ to the newest report, until ``--watch-max-updates`` updates or Ctrl-C.
 in ``--replay-generations`` growing prefixes, ``--replay-interval-s``
 apart: a sweep that is still running, replayed.
 
+``--serve PORT`` serves the report afterwards on http://127.0.0.1:PORT (the
+results root when there are several corpora, or under ``--watch``, while
+it watches), with ``POST /query``: a JSON body ``{"query": TEXT}`` (and
+``"report": NAME`` to pick one of several corpora) answers with the query's
+result document, or ``{"error": ...}`` and status 400.  Queries run one at
+a time, on ``--device``.
+
+``query TEXT`` runs one ad-hoc provenance query (query/lang.py) over a
+directory, ingested through the corpus store, and prints its result
+document as JSON; ``--explain`` prints the lowered plan instead and reads
+no corpus.  A malformed query or an unknown name exits 2.
+
 With ``--out FILE`` it writes instead one JSON analysis document (analyze):
 the success and failed iterations, the good run, per-run achieved-antecedent
 goal counts, the four prototype outputs, the missing events of every failed
@@ -57,8 +71,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
+import threading
 import time
 
 import torch
@@ -66,6 +82,8 @@ import torch
 from nemo_tpu_torch.analysis.pipeline import INGEST_MODES, run_debug, run_debug_dirs
 from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.adapters import INJECTORS, load_output
+
+_log = logging.getLogger("nemo_tpu_torch.cli")
 
 
 def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", injector: str | None = None) -> dict:
@@ -121,6 +139,11 @@ def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", inject
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "query":
+        # The query text is positional and the report's parser takes flags
+        # only, so the subcommand has a parser of its own.
+        return _query_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m nemo_tpu_torch.cli", description=__doc__.split("\n")[0])
     ap.add_argument("-faultInjOut", dest="fault_inj_out", required=True, nargs="+", metavar="DIR",
                     help="fault-injection sweep directory (or directories) to analyze")
@@ -169,6 +192,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="replay generations (default 3)")
     ap.add_argument("--replay-interval-s", type=float, default=1.0, metavar="S",
                     help="pause between replay generations (default 1.0)")
+    ap.add_argument("--serve", type=int, default=0, metavar="PORT",
+                    help="serve the report on http://127.0.0.1:PORT afterwards (with --watch: while watching), "
+                         "with POST /query (default 0: off)")
     args = ap.parse_args(argv)
     if (args.watch or args.save_corpus or args.out is not None) and len(args.fault_inj_out) != 1:
         ap.error("--watch, --save-corpus and --out take one -faultInjOut directory")
@@ -176,6 +202,8 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("--replay drives --watch")
     if args.watch and (args.out is not None or args.save_corpus):
         ap.error("--watch writes reports: no --out or --save-corpus")
+    if args.serve and args.out is not None:
+        ap.error("--serve serves the report: no --out")
     if args.out is not None:
         doc = analyze(args.fault_inj_out[0], device=args.device, analysis_impl=args.analysis_impl,
                       injector=args.injector)
@@ -204,15 +232,153 @@ def main(argv: list[str] | None = None) -> int:
     if fs and fs["figures"]:
         print(f"figures: {fs['figures']} written from {fs['unique_figures']} unique renders "
               f"in {fs['render_wall_s']} s")
+    if args.serve:
+        import http.server
+
+        serve_dir = results[0].report_dir if len(results) == 1 else args.results_dir
+        handler = query_http_handler(serve_dir, batch_molly_resolver(results), device=args.device,
+                                     result_cache=args.result_cache)
+        with http.server.ThreadingHTTPServer(("127.0.0.1", args.serve), handler) as httpd:
+            print(f"Serving the report at http://127.0.0.1:{httpd.server_address[1]}/ (Ctrl-C to stop)", flush=True)
+            try:
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                pass
     return 0
+
+
+def _query_main(argv: list[str]) -> int:
+    """``query TEXT``: one ad-hoc query over a corpus directory, its result
+    document printed as JSON; exit 2 on a malformed query or unknown name."""
+    from nemo_tpu_torch.query import QueryError, parse_query, plan_query
+    from nemo_tpu_torch.query.engine import execute_query, ingest_corpus
+
+    ap = argparse.ArgumentParser(prog="python -m nemo_tpu_torch.cli query",
+                                 description="Run one ad-hoc provenance query over a corpus directory.")
+    ap.add_argument("query", help="query text, e.g. 'from pre match goal[holds=true] -> @rule tables'")
+    ap.add_argument("-faultInjOut", dest="fault_inj_out", default=None, metavar="DIR",
+                    help="fault-injection sweep directory to query")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--injector", default=None, choices=("auto", *INJECTORS),
+                    help="sweep layout (default $NEMO_INJECTOR, else sniffed)")
+    ap.add_argument("--corpus-cache", default=None, metavar="DIR|off",
+                    help="corpus store root (default $NEMO_CORPUS_CACHE or ~/.cache/nemo_tpu_torch/corpus)")
+    ap.add_argument("--result-cache", default=None, metavar="DIR|off",
+                    help="result cache root (default $NEMO_RESULT_CACHE or ~/.cache/nemo_tpu_torch/results)")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the lowered plan (one line per primitive) and exit without executing")
+    args = ap.parse_args(argv)
+    try:
+        q = parse_query(args.query)
+    except QueryError as ex:
+        print(f"query error: {ex}", file=sys.stderr)
+        return 2
+    if args.explain:
+        for line in plan_query(q).describe():
+            print(line)
+        return 0
+    if not args.fault_inj_out:
+        ap.error("-faultInjOut is required (unless --explain)")
+    if not os.path.isdir(args.fault_inj_out):
+        ap.error(f"fault injector output directory not found: {args.fault_inj_out}")
+    molly = ingest_corpus(args.fault_inj_out, args.corpus_cache, args.injector)
+    try:
+        doc = execute_query(q, molly, device=args.device, result_cache=args.result_cache)
+    except QueryError as ex:
+        print(f"query error: {ex}", file=sys.stderr)
+        return 2
+    json.dump(doc, sys.stdout, indent=2, sort_keys=True)
+    print()
+    return 0
+
+
+#: Held by every POST /query: the request threads of the report server
+#: never drive the device at once.
+_QUERY_LOCK = threading.Lock()
+
+
+def query_http_handler(serve_dir: str, resolve_molly, **query_kw):
+    """A SimpleHTTPRequestHandler class serving ``serve_dir``, plus ``POST
+    /query`` for the report's query box: ``resolve_molly(request)`` gives
+    the corpus, ``query_kw`` go to ``run_query_text`` (device, result
+    cache).  A failed query answers ``{"error": "<type>: <message>"}`` with
+    status 400."""
+    import functools
+    import http.server
+
+    from nemo_tpu_torch.query import run_query_text
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 - http.server API
+            if self.path.rstrip("/") != "/query":
+                self.send_error(404, "unknown POST endpoint (expected /query)")
+                return
+            try:
+                n = int(self.headers.get("Content-Length") or 0)
+                req = json.loads(self.rfile.read(n).decode("utf-8") or "{}")
+                if not isinstance(req, dict):
+                    raise ValueError("request body must be a JSON object")
+                with _QUERY_LOCK:
+                    doc = run_query_text(str(req.get("query", "")), resolve_molly(req), **query_kw)
+                body, status = json.dumps(doc).encode("utf-8"), 200
+            except Exception as ex:  # the query box shows the error inline; the server goes on
+                if not isinstance(ex, ValueError):  # a bad request (QueryError is one) needs no traceback
+                    _log.exception("POST /query failed")
+                body, status = json.dumps({"error": f"{type(ex).__name__}: {ex}"}).encode("utf-8"), 400
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    return functools.partial(Handler, directory=serve_dir)
+
+
+def batch_molly_resolver(results):
+    """The corpus of a query to the report server after a run: the one
+    corpus, or among several the one whose report the request names
+    (``"report"``, the report's directory name)."""
+    from nemo_tpu_torch.query import QueryError
+
+    by_name = {os.path.basename(res.report_dir): res.molly for res in results}
+
+    def resolve(req: dict):
+        if len(by_name) == 1:
+            return next(iter(by_name.values()))
+        name = str(req.get("report", ""))
+        if name not in by_name:
+            raise QueryError(f"query box needs a report name to pick the corpus; got {name!r} "
+                             f"(one of: {', '.join(sorted(by_name))})")
+        return by_name[name]
+
+    return resolve
+
+
+def watch_molly_resolver(sweep_dir: str, injector: str | None = None, corpus_cache: str | None = None):
+    """The corpus of a query to the report server under ``--watch``: the
+    sweep re-ingested through the corpus store (a warm hit maps it, a grown
+    sweep appends), memoized on the injector's poll token, so queries
+    between two generations share one ingest."""
+    from nemo_tpu_torch.ingest.adapters import resolve_injector
+    from nemo_tpu_torch.query.engine import ingest_corpus
+
+    memo: dict = {}
+
+    def resolve(req: dict):
+        token = resolve_injector(sweep_dir, injector).poll_token(sweep_dir)
+        if memo.get("token") != token:
+            memo["molly"] = ingest_corpus(sweep_dir, corpus_cache, injector)
+            memo["token"] = token
+        return memo["molly"]
+
+    return resolve
 
 
 def _watch_main(args, make_backend, kw: dict) -> int:
     """``--watch``: a Watcher on the one directory, its updates printed as
     they are published, with ``--replay`` writing the source corpus into
-    the directory on a thread."""
-    import threading
-
+    the directory on a thread and ``--serve`` serving the results root on
+    another."""
     from nemo_tpu_torch.watch import WatchConfig, Watcher, start_replay
 
     sweep_dir = args.fault_inj_out[0]
@@ -234,6 +400,16 @@ def _watch_main(args, make_backend, kw: dict) -> int:
 
     printing = threading.Thread(target=printer, daemon=True, name="nemo-watch-print")
     printing.start()
+    httpd = None
+    if args.serve:
+        import http.server
+
+        handler = query_http_handler(args.results_dir,
+                                     watch_molly_resolver(sweep_dir, args.injector, kw.get("corpus_cache")),
+                                     device=args.device, result_cache=kw.get("result_cache"))
+        httpd = http.server.ThreadingHTTPServer(("127.0.0.1", args.serve), handler)
+        threading.Thread(target=httpd.serve_forever, daemon=True, name="nemo-watch-http").start()
+        print(f"Serving live reports at http://127.0.0.1:{httpd.server_address[1]}/ (Ctrl-C to stop)", flush=True)
     replay_stop = None
     if args.replay:
         _, replay_stop = start_replay(args.replay, sweep_dir, generations=args.replay_generations,
@@ -245,6 +421,9 @@ def _watch_main(args, make_backend, kw: dict) -> int:
     finally:
         if replay_stop is not None:
             replay_stop.set()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
         q.put(None)
         printing.join()
     if watcher.report_dir:

@@ -224,6 +224,19 @@ def pack_batch(
     )
 
 
+def bucketize(run_ids: list[int], graphs: list[PackedGraph]) -> list[PackedBatch]:
+    """Group graphs into same-(V,E)-bucket batches, in (V, E) order, keeping
+    run order within each bucket; the run axis is not padded.  The query
+    engine's buckets (query/engine.py), and so K2's shapes on that path."""
+    groups: dict[tuple[int, int], tuple[list[int], list[PackedGraph]]] = {}
+    for rid, g in zip(run_ids, graphs):
+        key = (bucket_size(g.n_nodes), bucket_size(max(1, len(g.edges))))
+        rids, gs = groups.setdefault(key, ([], []))
+        rids.append(rid)
+        gs.append(g)
+    return [pack_batch(rids, gs, v, e) for (v, e), (rids, gs) in sorted(groups.items())]
+
+
 def _pad_run_axis(n_runs: int, max_batch: int | None) -> int:
     """Power-of-two run-axis pad (capped at max_batch), so differently-sized
     corpora share one batch shape."""

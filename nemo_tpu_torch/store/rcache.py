@@ -1,7 +1,7 @@
 """Content-addressed analysis result cache of the port (local tier).
 
 A copy of the JAX package's ``store/rcache.py`` without its shared fleet
-tier, leases and opaque blobs.  Two entry kinds under one size-capped root
+tier and leases.  Three entry kinds under one size-capped root
 (``--result-cache``, ``NEMO_RESULT_CACHE``, default
 ``~/.cache/nemo_tpu_torch/results``; ``off`` disables):
 
@@ -13,6 +13,9 @@ tier, leases and opaque blobs.  Two entry kinds under one size-capped root
     linked from the partial entries, so a figure is stored once.  A
     repeated request restores the tree with no backend and no kernel
     launch.
+  * ``blob_<namespace>/<key>/``: one opaque payload (``payload.bin``): the
+    query engine's result documents (``query``) and segment partials
+    (``query-partial``).
 
 Keys come from ``analysis/delta.py`` and are pure content addresses, so no
 invalidation is needed: a changed input is a new key, and old entries age
@@ -111,7 +114,6 @@ class ResultCache:
     and never fails the report."""
 
     _WRECKAGE_MAX_AGE_S = 3600.0
-    _KINDS = ("partial", "report")
 
     def __init__(self, root: str) -> None:
         self.root = root
@@ -322,6 +324,33 @@ class ResultCache:
         pairs = [(os.path.join(figures_dir, n), os.path.join("figures", n)) for n in partial.fig_files]
         return self._put_entry("partial", key, {}, pairs, write)
 
+    # --------------------------------------------------------------- blobs
+
+    def load_blob(self, namespace: str, key: str) -> bytes | None:
+        """The payload of a verified ``blob_<namespace>`` entry, else None."""
+        got = self._load_entry(f"blob_{namespace}", key)
+        if got is None:
+            return None
+        _, d, _ = got
+        try:
+            with open(os.path.join(d, "payload.bin"), "rb") as fh:
+                payload = fh.read()
+        except OSError as ex:
+            _log.warning("rcache blob_%s %s unreadable (%s); a miss", namespace, key[:12], ex)
+            return None
+        self._stamp(d)
+        return payload
+
+    def put_blob(self, namespace: str, key: str, payload: bytes) -> bool:
+        """Publish one opaque payload under ``blob_<namespace>/<key>``."""
+
+        def write(tmp: str) -> list[str]:
+            with open(os.path.join(tmp, "payload.bin"), "wb") as fh:
+                fh.write(payload)
+            return ["payload.bin"]
+
+        return self._put_entry(f"blob_{namespace}", key, {}, [], write)
+
     # ------------------------------------------------------------ eviction
 
     def _evict_over_cap(self, keep: str) -> None:
@@ -332,7 +361,11 @@ class ResultCache:
         no file of the partials it names."""
         now = time.time()
         entries = []
-        for kind in self._KINDS:
+        try:
+            kinds = [k for k in os.listdir(self.root) if not k.startswith(".")]
+        except OSError:
+            kinds = []
+        for kind in kinds:
             kdir = os.path.join(self.root, kind)
             try:
                 names = os.listdir(kdir)

@@ -235,3 +235,33 @@ def test_dispatch_after_staging_equals_one_without(cuda, tmp_path):
             x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
             y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
             assert np.array_equal(x, y), k
+
+
+@pytest.mark.cuda
+def test_query_device_lane_on_card_matches_cpu(cuda, tmp_path):
+    """The query's sparse_device lane on the card (K2 for every -*-> hop)
+    gives the cpu lane's document, on a family and the cyclic adversarial
+    corpus."""
+    from nemo_tpu_torch.models.case_studies import write_case_study
+    from nemo_tpu_torch.models.synth import adversarial_spec, write_corpus
+    from nemo_tpu_torch.query.engine import execute_query, ingest_corpus
+    from nemo_tpu_torch.query.lang import parse_query
+
+    dirs = [write_case_study("ZK-1270-racing-sent-flag", 64, 11, str(tmp_path)),
+            write_corpus(adversarial_spec("cycles", n_runs=32, seed=13), str(tmp_path))]
+    queries = [
+        "from pre match goal[holds=true] -> @rule match goal[holds=false] -*-> @rule[type=async] "
+        "match @goal -> rule -> goal count by table",
+        "from pre match rule[type=async] -> @goal -*-> rule count",
+        "from post match @rule -> goal[holds=false] runs",
+    ]
+    for d in dirs:
+        molly = ingest_corpus(d, "off")
+        for text in queries:
+            routes, before = [], k2.edge_wave.launches
+            on_card = execute_query(parse_query(text), molly, device=cuda, use_cache=False, query_host_work=0,
+                                    routes=routes)
+            on_cpu = execute_query(parse_query(text), molly, device="cpu", use_cache=False, query_host_work=0)
+            assert on_card == on_cpu, (d, text)
+            assert {r["lane"] for r in routes} == {"sparse_device"}
+            assert (k2.edge_wave.launches > before) == ("-*->" in text)
