@@ -37,9 +37,10 @@ each fatal (non-zero exit, no result line) on failure:
      ingest, caches off) equals, byte for byte, the same report on the cpu
      (the families' through the Python loader), check from the recorded
      launches that each took the expected plan variant, and profile each
-     family's report (device busy share; K1's device time, launches and
-     kernel functions, which must show those variants where the profiler
-     saw the device);
+     family's report through the package's own capture
+     (run_debug(profile_dir=...); device busy share; K1's device time,
+     launches and kernel functions, which must show those variants where
+     the profiler saw the device);
   5b. drive the host ingest paths, each report with the launch counts
      zeroed just before and read just after: every family through the legs
      (the Python loader, on the first PYTHON_LEG_FAMILIES families; the
@@ -116,6 +117,23 @@ each fatal (non-zero exit, no result line) on failure:
      segment; the CLI's query in a subprocess (a bad query exits 2); POST
      /query through the report server on port 0, on the device lane
      ({"query": {...}});
+  6i. observability on the card (nemo_tpu_torch/obs): ZK-1270's report
+     (1,700 runs, sample:8, native ingest, caches off) with tracing off,
+     then on (both walls); then traced and profiled through
+     run_debug(profile_dir=...), on the device lanes (K1) and forced onto
+     the sparse tier (K2): each report equal to the cpu report, the trace
+     holding the phase:* and kernel:<verb> spans, one kernel span per
+     executor dispatch, the kernel.dispatches.* deltas equal to the
+     executor's counts, the wrappers' launches equal to the LaunchLog's,
+     and the capture showing the kernel's functions launched under its
+     nemo:<verb> label; the CLI in a subprocess with --trace, --metrics-out
+     (parsed by the port's own parser), --timings and --profile; the cost
+     of a disabled span() on this host; the device busy share of bench.py's
+     query on ZK-1270 with the device lane forced (the smoke's own
+     torch.profiler capture) ({"obs": {...}}); and every counted report's
+     device peak, mem.device_peak_bytes of its telemetry.json, the
+     allocator's peak reset by the smoke just before each report
+     ({"memory": {...}});
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -819,9 +837,16 @@ def shape_timings(launch_log: LaunchLog, closure_mod, ew_mod) -> list[dict]:
 LAUNCH_LOG = LaunchLog()
 
 
+#: label -> [the device peak (mem.device_peak_bytes) of each counted report,
+#: the allocator's peak reset just before it; the bytes in use at that
+#: reset, which the peak includes (tensors the smoke keeps, such as the
+#: LaunchLog's inputs)].
+MEM_PEAKS: dict[str, list[int]] = {}
+
+
 def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, report_name: str,
                    ingest: str = "auto", corpus_cache: str = "off", result_cache: str = "off",
-                   default_routes: bool = False, **backend_kw):
+                   default_routes: bool = False, profile_dir: str | None = None, **backend_kw):
     """One debugging report on cuda through run_debug, with every kernel's
     launch count set to 0 just before and read just after; the corpus store
     and the result cache are off unless roots are given.  The backend takes
@@ -829,7 +854,11 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     DebugResult, the backend, the report tree's bytes, launches by kernel
     name) and logs the report wall, runs/s, which ingest served it, every
     phase wall, the figures against their unique renders, the report's
-    bytes, the routes and the plain fix-point loops' iterations."""
+    bytes, the routes and the plain fix-point loops' iterations.  The
+    allocator's peak is reset just before, so the memory section of its
+    telemetry.json reads this report's device peak, over what was in use
+    before it (MEM_PEAKS).
+    ``profile_dir`` goes to run_debug (the package's profiler capture)."""
     from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.ops.sparse_device import LOOP_STATS
@@ -839,13 +868,17 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     for k in kernels:
         k.launches = 0
     LAUNCH_LOG.label = label
+    torch.cuda.reset_peak_memory_stats()
+    in_use = torch.cuda.memory_allocated()
     t = time.perf_counter()
     try:
         res = run_debug(cd, out_root, backend, figures=figures, report_name=report_name, ingest=ingest,
-                        corpus_cache=corpus_cache, result_cache=result_cache)
+                        corpus_cache=corpus_cache, result_cache=result_cache, profile_dir=profile_dir)
     finally:
         LAUNCH_LOG.label = None
     wall = time.perf_counter() - t
+    with open(os.path.join(res.report_dir, "telemetry.json"), encoding="utf-8") as fh:
+        MEM_PEAKS[label] = [json.load(fh)["memory"]["device_peak_bytes"], in_use]
     counts = {k.__name__: k.launches for k in kernels}
     tree = report_tree_bytes(res.report_dir)
     runs = len(res.molly.runs)
@@ -859,7 +892,8 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
         f"{fs['unique_figures']} unique renders (render {fs['render_s']} s, drain wall {fs['render_wall_s']} s); "
         f"report {sum(map(len, tree.values()))} bytes in {len(tree)} files; launches {counts}, dispatches "
         f"{backend.executor.dispatches}, host-lane runs {backend.executor.host_runs}, routes (verb, route, rows, v, "
-        f"e, work, reason) {routes}, plain fix-point loops (calls, iters, wall s) {loops}"
+        f"e, work, reason) {routes}, plain fix-point loops (calls, iters, wall s) {loops}; device peak "
+        f"{MEM_PEAKS[label][0]} bytes ({in_use} in use before)"
         + (f"; stream {res.stream}" if res.stream else ""))
     res.report_wall_s = wall
     return res, backend, tree, counts
@@ -2134,39 +2168,233 @@ def query_path(work: str, kernels, dirs: dict, corpus_cache: str) -> dict:
     return launches
 
 
-def profile_family(cd: str, out_root: str, figures: str, **kw) -> dict[str, dict[str, tuple[float, int]]]:
-    """Device busy time of one corpus's report, by torch.profiler: the sum
-    of kernel times on the card against the wall of the whole report, the
-    largest items, and K1's and K2's device time, launches and kernel
-    functions.  Returns {kernel: {function: (device ms, launches)}}."""
+def label_launches(label: str, kernel: str) -> int:
+    """The launches of ``kernel`` the LaunchLog recorded under ``label``."""
+    return sum(r["launches"].get(label, 0) for (k, _), r in LAUNCH_LOG.shapes.items() if k == kernel)
+
+
+def _span_names(trace_path: str) -> list[str]:
+    with open(trace_path, encoding="utf-8") as fh:
+        return [e["name"] for e in json.load(fh)["traceEvents"] if e["ph"] == "X"]
+
+
+def obs_path(work: str, kernels, dirs: dict, zk_tree: dict, corpus_cache: str) -> dict:
+    """Phase 6i: observability on the card (see the module docstring).
+    Prints {"obs": {...}} and {"memory": {...}}.  Returns the launches by
+    kernel."""
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.obs import promexp
+    from nemo_tpu_torch.obs import trace as obs_trace
+    from nemo_tpu_torch.query.engine import execute_query, ingest_corpus
+    from nemo_tpu_torch.query.lang import parse_query
+
+    zk = QUERY_FAMILY
+    root = os.path.join(work, "obs")
+    cuda_root = os.path.join(root, "reports")
+    launches = {k.__name__: 0 for k in kernels}
+    out: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    # (a) The same report with tracing off, then on: both walls.
+    walls = {}
+    for mode in ("off", "on"):
+        trace = os.path.join(root, f"walls-{mode}.json")
+        if mode == "on":
+            obs_trace.start_trace(trace)
+        try:
+            res, _, tree, counts = report_counted(f"obs {zk} tracing {mode}", dirs[zk], kernels, cuda_root,
+                                                  REPORT_FIGURES, f"{zk}-{mode}")
+        finally:
+            obs_trace.finish()
+        add(counts)
+        if tree != zk_tree:
+            raise AssertionError(f"obs {zk} tracing {mode}: the report differs from the cpu report")
+        walls[mode] = {"report_s": round(res.report_wall_s, 4),
+                       "phases_s": {k: round(v, 4) for k, v in res.timings.items()}}
+    out["tracing_walls"] = walls
+    log(f"obs {zk}: report wall tracing off {walls['off']['report_s']} s, on {walls['on']['report_s']} s")
+
+    # (b) Traced and profiled through run_debug(profile_dir=...): K1 on the
+    # device lanes, then K2 with ZK-1270 forced onto the sparse tier.
+    legs = (("k1", "closure", ("fused", "diff"), {}),
+            ("k2", "edge_wave", ("sparse_fused", "sparse_diff"), {"analysis_impl": "sparse_device"}))
+    for leg, kernel, verbs, kw in legs:
+        label = f"obs {zk} traced and profiled ({kernel})"
+        trace, pdir = os.path.join(root, f"{leg}.json"), os.path.join(root, f"profile-{leg}")
+        before = obs.metrics.snapshot()
+        obs_trace.start_trace(trace)
+        try:
+            res, backend, tree, counts = report_counted(label, dirs[zk], kernels, cuda_root, REPORT_FIGURES,
+                                                        f"{zk}-{leg}", profile_dir=pdir, **kw)
+        finally:
+            obs_trace.finish()
+        add(counts)
+        delta = obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"]
+        if tree != zk_tree:
+            raise AssertionError(f"{label}: the report differs from the cpu report")
+        names = _span_names(trace)
+        want = {"phase:ingest", "phase:load_raw_provenance", "phase:diff_prov", "phase:report"} | {
+            f"kernel:{v}" for v in verbs}
+        if not want <= set(names):
+            raise AssertionError(f"{label}: the trace lacks {sorted(want - set(names))}")
+        ex = backend.executor
+        spans = {v: names.count(f"kernel:{v}") for v in ex.dispatches}
+        got = {k[len("kernel.dispatches."):]: v for k, v in delta.items() if k.startswith("kernel.dispatches.")}
+        if spans != ex.dispatches or got != {**ex.dispatches, **ex.host_runs}:
+            raise AssertionError(f"{label}: spans {spans}, counters {got}, executor {ex.dispatches} "
+                                 f"{ex.host_runs}")
+        if counts[kernel] <= 0 or label_launches(label, kernel) != counts[kernel]:
+            raise AssertionError(f"{label}: {counts[kernel]} {kernel} launches, the launch log "
+                                 f"{label_launches(label, kernel)}")
+        events = profile_events(pdir)
+        under = labelled_kernels(events, f"nemo:{verbs[0]}")
+        if not any(f in n for n in under for f in KERNEL_FUNCTIONS[kernel]):
+            raise AssertionError(f"{label}: no {kernel} kernel function under nemo:{verbs[0]} in the capture: "
+                                 f"{sorted(under)[:8]}")
+        busy_us = sum(e.get("dur", 0) for e in events if e.get("cat") in DEVICE_CATS)
+        out[leg] = {"report_s": round(res.report_wall_s, 4), "spans": spans, "launches": counts,
+                    "under_label": sorted(n[:60] for n in under), "device_busy_ms": round(busy_us / 1e3, 4),
+                    "device_busy_share": round(busy_us / 1e6 / res.report_wall_s, 6)}
+        log(f"{label}: trace {len(names)} spans {spans}, counters equal the executor, launches {counts} equal the "
+            f"launch log; under nemo:{verbs[0]} the capture shows {sorted(under)}; device busy "
+            f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / res.report_wall_s:.2f} % of the report wall)")
+
+    # (c) The CLI in a subprocess with every obs flag (default routes).
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    trace, metrics, pdir = (os.path.join(root, n) for n in ("cli.json", "cli.prom", "cli-profile"))
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "nemo_tpu_torch.cli", "-faultInjOut", dirs[zk], "--results-dir",
+                          os.path.join(root, "cli"), "--figures", REPORT_FIGURES, "--corpus-cache", "off",
+                          "--result-cache", "off", "--trace", trace, "--metrics-out", metrics, "--timings",
+                          "--profile", pdir], cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t
+    if cli.returncode != 0:
+        raise AssertionError(f"cli with obs flags: rc {cli.returncode}, stderr {cli.stderr[-2000:]}")
+    names = set(_span_names(trace))
+    with open(metrics, encoding="utf-8") as fh:
+        fams = promexp.parse_prometheus_text(fh.read())
+    under = labelled_kernels(profile_events(pdir), "nemo:fused")
+    timed = [line for line in cli.stdout.splitlines() if line.rstrip().endswith(" ms")]
+    if (not {"phase:ingest", "phase:report", "kernel:fused"} <= names
+            or fams["nemo_kernel_dispatches_fused_total"]["samples"][0][2] < 1
+            or not any(f in n for n in under for f in KERNEL_FUNCTIONS["closure"]) or len(timed) < 5):
+        raise AssertionError(f"cli with obs flags: spans {sorted(names)[:20]}, metric families {len(fams)}, "
+                             f"under nemo:fused {sorted(under)}, timing lines {timed}")
+    out["cli"] = {"wall_s": round(cli_s, 4), "metric_families": len(fams), "spans": len(names)}
+    log(f"cli with --trace --metrics-out --timings --profile: {cli_s:.2f} s with the interpreter's start; "
+        f"{len(fams)} metric families parse, the trace has phase and kernel spans, the capture K1 under nemo:fused")
+
+    # (d) The cost of a disabled span() on this host.
+    n = 1_000_000
+    t = time.perf_counter()
+    for _ in range(n):
+        with obs.span("off", k=1):
+            pass
+    spans_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(n):
+        pass
+    bare_s = time.perf_counter() - t
+    out["disabled_span_ns"] = round((spans_s - bare_s) / n * 1e9, 2)
+    log(f"a disabled span() costs {out['disabled_span_ns']} ns on this host")
+
+    # (e) The device busy share of bench.py's query on ZK-1270, the device
+    # lane forced; neither package's query has a profile_dir.
     from torch.profiler import ProfilerActivity, profile
+
+    molly = ingest_corpus(dirs[zk], corpus_cache)
+    q = parse_query(QUERY_TEXT)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        doc, counts, wall = counted_call(f"obs query {zk}", kernels, lambda: execute_query(
+            q, molly, device="cuda", use_cache=False, query_host_work=0))
+    add(counts)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if counts["edge_wave"] <= 0:
+        raise AssertionError(f"obs query {zk}: launches {counts}")
+    out["query"] = {"wall_s": round(wall, 4), "device_busy_ms": round(busy_us / 1e3, 4),
+                    "device_busy_share": round(busy_us / 1e6 / wall, 6) if busy_us else None, "launches": counts}
+    log(f"obs query {zk} (device lane forced): wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * busy_us / 1e6 / wall:.2f} % of the wall), launches {counts}")
+    print(json.dumps({"obs": out}))
+    print(json.dumps({"memory": {"device_peak_bytes_and_in_use_before": MEM_PEAKS}}))
+    shutil.rmtree(root)
+    return launches
+
+
+def profile_events(profile_dir: str) -> list[dict]:
+    """The events of the one Chrome trace the package's profiler capture
+    (run_debug(profile_dir=...), the CLI's --profile) wrote into
+    ``profile_dir``."""
+    (path,) = [os.path.join(profile_dir, f) for f in os.listdir(profile_dir) if f.endswith(".pt.trace.json")]
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)["traceEvents"]
+
+
+#: Device activity in a capture's Chrome trace.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def labelled_kernels(events: list[dict], label: str) -> set[str]:
+    """Names of the device kernels whose launch (a CUDA runtime or driver
+    call, linked by its correlation id) lies inside a CPU range named
+    ``label`` (a ``nemo:<verb>`` record_function) on the same thread."""
+    ranges = [(e["tid"], e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+              if e.get("name") == label and e.get("cat") != "gpu_user_annotation"]
+    launched = {
+        e["args"]["correlation"] for e in events
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+        and any(t == e["tid"] and a <= e["ts"] <= b for t, a, b in ranges)
+    }
+    return {e["name"] for e in events if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launched}
+
+
+def profile_family(cd: str, out_root: str, figures: str, **kw) -> dict[str, dict[str, tuple[float, int]]]:
+    """Device busy time of one corpus's report, from the package's own
+    torch.profiler capture (run_debug(profile_dir=...): the map, where
+    every kernel launches): the sum of device activity against the wall of
+    the whole report, the largest items, and K1's and K2's device time,
+    launches and kernel functions.  Returns {kernel: {function: (device
+    ms, launches)}}."""
+    import tempfile
 
     from nemo_tpu_torch.analysis.pipeline import run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        res = run_debug(cd, out_root, TorchBackend(device="cuda", **_lanes(False, kw)), figures=figures,
-                        report_name="profile-" + os.path.basename(cd), corpus_cache="off", result_cache="off")
-        wall = time.perf_counter() - t
+    pdir = tempfile.mkdtemp(prefix="profile-", dir=out_root)
+    t = time.perf_counter()
+    res = run_debug(cd, out_root, TorchBackend(device="cuda", **_lanes(False, kw)), figures=figures,
+                    report_name="profile-" + os.path.basename(cd), corpus_cache="off", result_cache="off",
+                    profile_dir=pdir)
+    wall = time.perf_counter() - t
     shutil.rmtree(res.report_dir)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
+    events = [e for e in profile_events(pdir) if e.get("cat") in DEVICE_CATS]
+    shutil.rmtree(pdir)
+    by_name: dict[str, list] = {}
+    for e in events:
+        acc = by_name.setdefault(e["name"], [0.0, 0])
+        acc[0] += e.get("dur", 0)
+        acc[1] += 1
+    busy_us = sum(us for us, _ in by_name.values())
     label = os.path.basename(cd) + (f" {kw}" if kw else "")
     if not busy_us:
-        log(f"profile {label}: the profiler recorded no device time (device busy share not measured)")
+        log(f"profile {label}: the capture recorded no device time (device busy share not measured)")
         return {}
     log(f"profile {label}: wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} ms "
-        f"({100 * busy_us / 1e6 / wall:.2f} % of the wall), {len(events)} kernel names")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        f"({100 * busy_us / 1e6 / wall:.2f} % of the wall), {len(by_name)} kernel names")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
     found = {}
     for kernel, functions in KERNEL_FUNCTIONS.items():
-        for e in events:
-            fn = next((f for f in functions if f in e.key), None)
+        for name, (us, n) in by_name.items():
+            fn = next((f for f in functions if f in name), None)
             if fn is not None:
-                ms, n = found.setdefault(kernel, {}).get(fn, (0.0, 0))
-                found[kernel][fn] = (ms + e.self_device_time_total / 1e3, n + e.count)
+                ms, m = found.setdefault(kernel, {}).get(fn, (0.0, 0))
+                found[kernel][fn] = (ms + us / 1e3, m + n)
         per_fn = found.get(kernel, {})
         log(f"  {kernel}: device {sum(ms for ms, _ in per_fn.values()):.4f} ms over "
             f"{sum(n for _, n in per_fn.values())} launches; functions "
@@ -2289,19 +2517,24 @@ def main() -> int:
         t = time.perf_counter()
         corpora = corpora_path(work, kernels, dirs, trees)
         log(f"phase 6g wall {time.perf_counter() - t:.1f} s")
+        zk_tree = trees[zk]
         del trees
         t = time.perf_counter()
         query = query_path(work, kernels, dirs, os.path.join(work, "ingest", "corpus-cache"))
         log(f"phase 6h wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        observed = obs_path(work, kernels, dirs, zk_tree, os.path.join(work, "ingest", "corpus-cache"))
+        log(f"phase 6i wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}, "
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
-        f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}")
+        f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
+        f"observed {observed}")
     for record in records:
-        record["launches"] = sum(part[record["name"]]
-                                 for part in (dense, ingest, sparse, routes, lanes, several, streamed, corpora, query))
+        record["launches"] = sum(part[record["name"]] for part in (
+            dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

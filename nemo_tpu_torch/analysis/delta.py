@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from nemo_tpu_torch import obs
 from nemo_tpu_torch.ingest.datatypes import MissingEvent
 
 #: Bump when a verb or the reduce changes its OUTPUT: every cached result is
@@ -542,6 +543,7 @@ def merge_partials(parts: list[SegmentPartial], arity: int | None = None) -> Seg
     items = list(parts)
     while len(items) > 1:
         items = [_merge_group(items[i : i + k]) for i in range(0, len(items), k)]
+        obs.metrics.inc("delta.tree_merge_levels")
     return items[0]
 
 
@@ -564,6 +566,7 @@ def _merge_group(group: list[SegmentPartial]) -> SegmentPartial:
             out.corrections = list(p.corrections)
             out.extensions = list(p.extensions or [])
             out.good_proto = None if p.good_proto is None else list(p.good_proto)
+    obs.metrics.inc("delta.tree_merges")
     return out
 
 
@@ -632,24 +635,25 @@ def reduce_partials(partials: list[SegmentPartial], molly, good_iter: int | None
     failed_iters = molly.get_failed_runs_iters()
     success_iters = molly.get_success_runs_iters()
 
-    merged = merge_partials(partials)
-    missing = dict(merged.missing)
-    if merged.corrections is None and molly.runs:
-        raise RuntimeError("no partial carried the anchor (good/baseline) results")
+    with obs.span("analysis:reduce", segments=len(partials)):
+        merged = merge_partials(partials)
+        missing = dict(merged.missing)
+        if merged.corrections is None and molly.runs:
+            raise RuntimeError("no partial carried the anchor (good/baseline) results")
 
-    per_run = [merged.proto_ordered.get(i, []) for i in success_iters]
-    inter_raw = intersect_proto(per_run, "post")
-    union_raw = union_proto(per_run, "post")
-    inter_miss: dict[int, list[str]] = {}
-    union_miss: dict[int, list[str]] = {}
-    for f in failed_iters:
-        ptab = set(merged.present.get(f, ()))
-        inter_miss[f] = missing_from(inter_raw, ptab)
-        union_miss[f] = missing_from(union_raw, ptab)
-        missing.setdefault(f, [])
+        per_run = [merged.proto_ordered.get(i, []) for i in success_iters]
+        inter_raw = intersect_proto(per_run, "post")
+        union_raw = union_proto(per_run, "post")
+        inter_miss: dict[int, list[str]] = {}
+        union_miss: dict[int, list[str]] = {}
+        for f in failed_iters:
+            ptab = set(merged.present.get(f, ()))
+            inter_miss[f] = missing_from(inter_raw, ptab)
+            union_miss[f] = missing_from(union_raw, ptab)
+            missing.setdefault(f, [])
 
-    all_achieved = sum(merged.achieved.values()) >= len(molly.runs)
-    repairs = build_repairs(merged.good_proto, merged.ext_candidates, merged.present, molly, good_iter)
+        all_achieved = sum(merged.achieved.values()) >= len(molly.runs)
+        repairs = build_repairs(merged.good_proto, merged.ext_candidates, merged.present, molly, good_iter)
     return Reduced(
         inter=wrap_code(inter_raw),
         union=wrap_code(union_raw),
@@ -664,3 +668,10 @@ def reduce_partials(partials: list[SegmentPartial], molly, good_iter: int | None
         all_achieved=all_achieved,
         repairs=repairs,
     )
+
+
+def kernel_dispatch_count(counters: dict) -> int:
+    """Total analysis kernel dispatches in a metrics counter dict: the
+    device verbs and the host lane's runs (``kernel.dispatches.*``).  A
+    warm result-cache hit sums to exactly 0."""
+    return int(sum(v for k, v in counters.items() if k.startswith("kernel.dispatches.")))

@@ -15,16 +15,18 @@ extensions -> repair synthesis -> recommendation assembly -> report
 
 from __future__ import annotations
 
+import contextlib
 import json
-import logging
 import os
 import shutil
+import sys
 import time
 import uuid
 from dataclasses import dataclass, field
 
 import torch
 
+from nemo_tpu_torch import obs
 from nemo_tpu_torch.analysis import delta
 from nemo_tpu_torch.backend.base import GraphBackend
 from nemo_tpu_torch.ingest import adapters
@@ -33,7 +35,7 @@ from nemo_tpu_torch.report.writer import Reporter
 from nemo_tpu_torch.utils.env import quarantine_enabled
 from nemo_tpu_torch.utils.timing import PhaseTimer
 
-_log = logging.getLogger("nemo_tpu_torch.pipeline")
+_log = obs.log.get_logger("nemo.pipeline")
 
 # Top-level recommendation texts (reference: main.go:195,205,212,216).
 REC_FAULT = "A fault occurred. Let's try making the protocol correct first."
@@ -94,7 +96,11 @@ def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, 
     """telemetry.json next to debugging.json: the phase walls, the figure
     pipeline's stats (the frontend's "Run telemetry" section), which ingest
     served the corpus, what the result cache did and, for a map of several
-    segments, the stream's and the checkpoints' record."""
+    segments, the stream's and the checkpoints' record; then, as the JAX
+    package writes them, the process's metrics snapshot, the trace id of
+    the active trace (None when untraced) and, once the backend module is
+    loaded in this process, its per-signature kernel cost table and the
+    memory watermarks sampled now."""
     doc = {
         "timings": {k: round(v, 6) for k, v in timings.items()},
         "figure_stats": figure_stats,
@@ -103,6 +109,14 @@ def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, 
     }
     if stream:
         doc["stream"] = stream
+    doc["metrics"] = obs.metrics.snapshot()
+    doc["trace_id"] = obs.trace_id()
+    tb = sys.modules.get("nemo_tpu_torch.backend.torch_backend")
+    if tb is not None:
+        costs = tb.kernel_cost_snapshot()
+        if costs:
+            doc["kernel_cost"] = costs
+        doc["memory"] = tb.sample_memory_watermarks()
     with open(os.path.join(report_dir, "telemetry.json"), "w", encoding="utf-8") as fh:
         json.dump(doc, fh, indent=1)
 
@@ -264,9 +278,12 @@ def _ingest(fault_inj_out: str, use_packed: bool, store, injector: str | None = 
         if not quarantine_enabled():
             raise
         _log.warning(
-            "native ingest of %s failed (%s: %s); re-parsing with the quarantining Python loader",
-            fault_inj_out, type(ex).__name__, ex,
+            "ingest.native_failed_quarantine_fallback",
+            corpus=fault_inj_out,
+            error=f"{type(ex).__name__}: {ex}",
+            detail="re-parsing with the quarantining Python loader (NEMO_QUARANTINE=off restores fail-fast)",
         )
+        obs.metrics.inc("ingest.native_fallback")
         molly, kind = inj.load(fault_inj_out, quarantine=True), "python_quarantine_fallback"
     return molly, kind, snap
 
@@ -377,9 +394,12 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
     def prefetch_next(d: str) -> None:
         try:
             t = time.perf_counter()
-            molly, kind, snap = _ingest(d, use_packed, store, kwargs.get("injector"))
-            if snap is not None:
-                _populate(store, d, molly, snap)
+            # On the prefetch thread's own row of a trace, under the
+            # analysing thread's phases.
+            with obs.span("ingest:prefetch", dir=os.path.basename(d)):
+                molly, kind, snap = _ingest(d, use_packed, store, kwargs.get("injector"))
+                if snap is not None:
+                    _populate(store, d, molly, snap)
             molly.ingest_kind = kind
             molly.ingest_prefetch_s = time.perf_counter() - t
             prefetched[0] = molly
@@ -439,6 +459,7 @@ def run_debug(
     render_scheduler=None,
     injector: str | None = None,
     save_corpus_path: str | None = None,
+    profile_dir: str | None = None,
 ) -> DebugResult:
     """The full debug pipeline over one Molly directory; writes
     ``results_root/<report_name or corpus name>/``.  ``backend`` defaults to
@@ -467,7 +488,15 @@ def run_debug(
     result cache is on; then each segment's partial is published as a checkpoint as soon as
     it is mapped (``NEMO_CHECKPOINT``, default on), so a crash loses only
     the segment in flight.  On the card every phase ends by synchronizing
-    the current stream, so the phase walls cover the device work."""
+    the current stream, so the phase walls cover the device work.
+
+    With ``profile_dir`` the map (where every kernel launches) runs under
+    ``torch.profiler.profile`` (CPU activity, and CUDA activity on the
+    card), exported as a Chrome trace into that directory
+    (``tensorboard_trace_handler``: ``<host>_<pid>.<ts>.pt.trace.json``);
+    each kernel dispatch carries a ``nemo:<verb>`` label there.  A
+    profiled run never consults the result cache: the point of a profile
+    is watching the kernels run."""
     from nemo_tpu_torch.analysis import stream as stream_mod
     from nemo_tpu_torch.store import resolve_store
     from nemo_tpu_torch.store.rcache import resolve_result_cache
@@ -500,7 +529,8 @@ def run_debug(
     iters = molly.get_runs_iters()
     failed_iters = molly.get_failed_runs_iters()
     this_results_dir = os.path.join(results_root, report_name or molly.run_name)
-    rcache = resolve_result_cache(result_cache)
+    rcache = None if profile_dir else resolve_result_cache(result_cache)
+    profiler = _profiler(profile_dir, dev)
     cache_doc: dict = {"state": "off"}
 
     # Tier 1: the whole report tree, addressed by every segment fingerprint
@@ -556,8 +586,14 @@ def run_debug(
                 "runs_cached": n_cached_runs,
                 "runs_mapped": len(molly.runs) - n_cached_runs,
             }
-            if cached:
-                _log.info("delta plan for %s: %s", fault_inj_out, cache_doc)
+        obs.metrics.inc("delta.segments_cached", len(cached))
+        obs.metrics.inc("delta.segments_mapped", len(to_map))
+        obs.metrics.inc("delta.runs_cached", n_cached_runs)
+        obs.metrics.inc("delta.runs_mapped", len(molly.runs) - n_cached_runs)
+        if cached:
+            _log.info("delta.plan", corpus=fault_inj_out, segments_cached=len(cached),
+                      segments_mapped=len(to_map), runs_cached=n_cached_runs,
+                      runs_mapped=len(molly.runs) - n_cached_runs)
 
         def seg_iters(seg: delta.Segment) -> list[int]:
             return [r.iteration for r in molly.runs[seg.start : seg.stop]]
@@ -605,36 +641,41 @@ def run_debug(
                 group_iter = stream_mod.stream_groups(map_groups, build_view, backend, timer)
             else:
                 group_iter = _serial_groups(map_groups, build_view, backend, timer)
-            for staged in group_iter:
-                try:
-                    group_mo = delta.map_runs(staged.backend, staged.view, fault_inj_out, good_iter, fig_set, timer,
-                                              own_set=staged.own_set, publish=publish)
-                finally:
-                    staged.backend.close_db()
-                    staged.release()
-                if stream_doc:
-                    stream_doc["staged_bytes"] += staged.staged_bytes
-                    stream_doc["stage_s"] += staged.stage_s
-                if len(staged.group) > 1:
-                    mo.merge(group_mo)
-                    continue
-                seg = staged.group[0]
-                partial = group_mo.as_partial(seg_iters(seg))
-                key = partial_keys.get(seg.name)
-                if incremental and key is not None:
-                    with timer.phase("checkpoint"):
-                        if _publish_segment_checkpoint(rcache, key, partial, group_mo, fig_iters, stage_dir):
+            with profiler:
+                for staged in group_iter:
+                    try:
+                        group_mo = delta.map_runs(staged.backend, staged.view, fault_inj_out, good_iter, fig_set, timer,
+                                                  own_set=staged.own_set, publish=publish)
+                    finally:
+                        staged.backend.close_db()
+                        staged.release()
+                    if stream_doc:
+                        stream_doc["staged_bytes"] += staged.staged_bytes
+                        stream_doc["stage_s"] += staged.stage_s
+                    if len(staged.group) > 1:
+                        mo.merge(group_mo)
+                        continue
+                    seg = staged.group[0]
+                    partial = group_mo.as_partial(seg_iters(seg))
+                    key = partial_keys.get(seg.name)
+                    ok = None
+                    if incremental and key is not None:
+                        with timer.phase("checkpoint"):
+                            ok = _publish_segment_checkpoint(rcache, key, partial, group_mo, fig_iters, stage_dir)
+                        if ok:
                             published.add(seg.name)
-                            _log.info("checkpoint of %s: segment %s published (%d of %d)", fault_inj_out,
-                                      seg.name, len(published), len(to_map))
-                    on_disk[seg.name] = partial
-                else:
-                    to_render[seg.name] = partial
-                    mo.merge_figures(group_mo)
-                if reducer is not None:
-                    reducer.push(partial)
-                if stream_doc:
-                    stream_mod.note_segment_done(stream_doc)
+                            obs.metrics.inc("delta.partial_checkpoints")
+                            _log.info("delta.checkpoint", corpus=fault_inj_out, segment=seg.name,
+                                      published=len(published), remaining=len(to_map) - len(published))
+                    if ok is not None:
+                        on_disk[seg.name] = partial
+                    else:
+                        to_render[seg.name] = partial
+                        mo.merge_figures(group_mo)
+                    if reducer is not None:
+                        reducer.push(partial)
+                    if stream_doc:
+                        stream_mod.note_segment_done(stream_doc)
             if stream_doc:
                 stream_doc["checkpoints"] = len(published)
                 stream_doc["stage_s"] = round(stream_doc["stage_s"], 6)
@@ -741,6 +782,19 @@ def run_debug(
         shutil.rmtree(stage_dir, ignore_errors=True)
 
 
+def _profiler(profile_dir: str | None, dev):
+    """``torch.profiler.profile`` writing a Chrome trace into
+    ``profile_dir`` when it exits, or a null context without one."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev is not None and dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    return torch.profiler.profile(activities=acts,
+                                  on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
+
+
 def _serial_groups(map_groups, build_view, backend, timer):
     """The map groups on the caller's own backend, one after the other."""
     from nemo_tpu_torch.analysis.stream import StagedGroup
@@ -753,25 +807,34 @@ def _serial_groups(map_groups, build_view, backend, timer):
 
 
 def _publish_segment_checkpoint(rcache, key: str, partial: delta.SegmentPartial, seg_mo: delta.MapOutput,
-                                fig_iters: list[int], stage_dir: str) -> bool:
+                                fig_iters: list[int], stage_dir: str) -> bool | None:
     """Publish one freshly mapped segment's partial to the result cache at
     once, figures included, so a crashed run resumes from it.  The
     segment's figures render into a directory beside ``stage_dir``, are
     published from there, then move into ``stage_dir``, the report's
     figures/ to be: the report phase does not render them again.  True when
     the partial was published; False (logged by the cache) leaves it for
-    the end-of-run publish, its figures on disk either way."""
+    the end-of-run publish, its figures on disk either way.  None when
+    rendering or publishing raised (counted ``rcache.checkpoint_failed``,
+    logged, as the JAX package's): nothing was staged, and the caller
+    renders the segment's figures in the report phase and publishes it
+    at the end of the run."""
     import tempfile
 
     parent = os.path.dirname(stage_dir)
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=os.path.basename(stage_dir) + ".ckpt-", dir=parent)
     try:
-        rep = Reporter()
-        rep.figures_dir = tmp
-        _generate_map_figures(rep, fig_iters, seg_mo)
-        rep.scheduler.drain()
-        ok = rcache.put_partial(key, partial, tmp)
+        try:
+            rep = Reporter()
+            rep.figures_dir = tmp
+            _generate_map_figures(rep, fig_iters, seg_mo)
+            rep.scheduler.drain()
+            ok = rcache.put_partial(key, partial, tmp)
+        except Exception as ex:
+            obs.metrics.inc("rcache.checkpoint_failed")
+            _log.warning("delta.checkpoint_failed", key=key[:12], error=f"{type(ex).__name__}: {ex}")
+            return None
         os.makedirs(stage_dir, exist_ok=True)
         for name in partial.fig_files:
             os.replace(os.path.join(tmp, name), os.path.join(stage_dir, name))

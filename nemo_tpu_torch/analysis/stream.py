@@ -32,13 +32,14 @@ of the same segments, and its memory bound was not measured (PERF.md).
 
 from __future__ import annotations
 
-import logging
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
 
-_log = logging.getLogger("nemo_tpu_torch.stream")
+from nemo_tpu_torch import obs
+
+_log = obs.log.get_logger("nemo.stream")
 
 _SENTINEL = object()
 
@@ -73,9 +74,12 @@ def use_streaming(molly, backend, to_map) -> bool:
         and backend.stream_clone() is not None
     )
     if mode == "on" and not capable:
+        obs.metrics.inc("stream.unstreamable")
         _log.warning(
-            "NEMO_STREAM=on, but this run cannot stream (an object-loader corpus, a backend that does not clone, "
-            "or %d segment(s) to map); mapping in memory", len(to_map),
+            "stream.unstreamable",
+            detail="NEMO_STREAM=on but this run cannot stream (an object-loader corpus, a backend that does not "
+            "clone, or <2 segments to map); mapping in memory",
+            segments_to_map=len(to_map),
         )
     return capable
 
@@ -91,9 +95,10 @@ def stream_peak_rss_bytes() -> int:
 
 def note_segment_done(stats: dict) -> None:
     """Record the process's peak RSS after a segment's map in ``stats``
-    (``peak_rss_bytes``): the working set must stay bounded as segments
-    flow through."""
+    (``peak_rss_bytes``) and as the ``mem.stream_peak_rss`` gauge: the
+    working set must stay bounded as segments flow through."""
     stats["peak_rss_bytes"] = stream_peak_rss_bytes()
+    obs.metrics.gauge("mem.stream_peak_rss", stats["peak_rss_bytes"])
 
 
 @dataclass
@@ -137,21 +142,34 @@ def stream_groups(map_groups, build_view, backend, timer):
     thread does host work and queues copies on its own stream; it never
     synchronizes the device.  On a one-core host the thread is skipped and
     staging runs inline.  The consumer's waits are the ``stream_wait``
-    phase of ``timer``."""
+    phase of ``timer`` and ``stream.prefetch_stall_s``; each staging is an
+    ``analysis:stream_prefetch`` span on the thread that runs it (the side
+    stream's copies are in no host span)."""
     from nemo_tpu_torch.utils import effective_cpu_count
 
     def stage(group) -> StagedGroup:
         t0 = time.perf_counter()
-        view, own_set = build_view(group)
-        seg_backend = backend.stream_clone()
-        seg_backend.init_graph_db("", view)
-        plan = seg_backend.stage_fused_inputs()
-        return StagedGroup(group=group, view=view, own_set=own_set, backend=seg_backend,
-                           stage_s=time.perf_counter() - t0, staged_bytes=int(plan["staged_bytes"]))
+        with obs.span("analysis:stream_prefetch", segments=len(group), runs=sum(s.n_runs for s in group)):
+            view, own_set = build_view(group)
+            seg_backend = backend.stream_clone()
+            seg_backend.init_graph_db("", view)
+            plan = seg_backend.stage_fused_inputs()
+        dt = time.perf_counter() - t0
+        staged_bytes = int(plan["staged_bytes"])
+        obs.metrics.observe("stream.stage_s", dt)
+        obs.metrics.inc("stream.segments_staged")
+        if staged_bytes:
+            obs.metrics.inc("stream.staged_bytes", staged_bytes)
+        return StagedGroup(group=group, view=view, own_set=own_set, backend=seg_backend, stage_s=dt,
+                           staged_bytes=staged_bytes)
 
-    if effective_cpu_count() < 2:
+    threaded = effective_cpu_count() >= 2
+    obs.metrics.gauge("stream.threaded", int(threaded))
+    if not threaded:
+        obs.metrics.gauge("stream.segments_inflight", 1)
         for group in map_groups:
             yield stage(group)
+        obs.metrics.gauge("stream.segments_inflight", 0)
         return
 
     q: queue.Queue = queue.Queue()
@@ -178,13 +196,18 @@ def stream_groups(map_groups, build_view, backend, timer):
     th.start()
     try:
         while True:
+            t0 = time.perf_counter()
             with timer.phase("stream_wait"):
                 item = q.get()
+            obs.metrics.inc("stream.prefetch_stall_s", time.perf_counter() - t0)
             if item is _SENTINEL:
                 break
             if isinstance(item, BaseException):
                 raise item
+            # Staged ahead, and the one just handed over.
+            obs.metrics.gauge("stream.segments_inflight", q.qsize() + 1)
             yield item
+        obs.metrics.gauge("stream.segments_inflight", 0)
     finally:
         stop.set()
         th.join(timeout=60)

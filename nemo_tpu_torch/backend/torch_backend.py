@@ -38,11 +38,16 @@ per-graph flags; no graph is repacked.
 
 from __future__ import annotations
 
+import contextlib
+import os
+import resource
 import time
 
 import numpy as np
 import torch
 
+from nemo_tpu_torch import obs
+from nemo_tpu_torch.obs import log as _obs_log
 from nemo_tpu_torch.analysis.corrections import synthesize_corrections, synthesize_extensions
 from nemo_tpu_torch.analysis.protos import intersect_proto, missing_from, union_proto, wrap_code
 from nemo_tpu_torch.analysis.queries import extension_candidates, find_post_triggers, find_pre_triggers
@@ -86,6 +91,105 @@ from nemo_tpu_torch.report.figures import create_diff_dot, create_dot
 #: of the differential-provenance graphs (differential-provenance.go:40).
 CLEAN_OFFSET = 1000
 DIFF_OFFSET = 2000
+
+_log = _obs_log.get_logger("nemo.backend")
+
+
+def _device_annotation(name: str):
+    """A ``torch.profiler.record_function`` label around one kernel
+    dispatch, so a profiler capture (``run_debug(profile_dir=...)``, the
+    CLI's ``--profile``) carries the obs span's name on the device
+    timeline: the counterpart of the JAX package's ``TraceAnnotation``.
+    Entered only while a capture is running: ``record_function`` costs
+    host time even with no profiler."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+#: Per-signature kernel cost table: one record per (verb, input shapes and
+#: dtypes, statics) this process dispatched, with the JAX package's fields
+#: (``jax_backend.py:_record_kernel_cost``).  ``flops`` and
+#: ``bytes_accessed`` are None (they come from XLA's cost analysis, which
+#: eager PyTorch has no counterpart of) and ``compiled`` is False (no jit).
+_KERNEL_COSTS: dict[tuple, dict] = {}
+
+#: Dispatch tick of the memory-watermark throttle.
+_MEM_SAMPLE_TICK = [0]
+
+
+def _dtype_name(a) -> str:
+    d = getattr(a, "dtype", None)
+    return type(a).__name__ if d is None else str(d).removeprefix("torch.")
+
+
+def _cost_signature(verb: str, arrays: dict, params: dict) -> tuple:
+    """verb + per-input (name, shape, dtype) + sorted statics."""
+    shapes = tuple(
+        (n, tuple(a.shape), _dtype_name(a)) for n, a in sorted(arrays.items()) if a is not None
+    )
+    return (verb, shapes, tuple(sorted((k, int(v)) for k, v in params.items())))
+
+
+def _record_kernel_cost(verb: str, sig: tuple, wall_s: float, pad_rows: int) -> bool:
+    """First sight of a signature files its record with the dispatch's
+    wall; every sight bumps its dispatch count.  True on first sight.
+    Past ``NEMO_COST_MAX_SIGNATURES`` (default 512) signatures, new ones
+    are counted in ``kernel.cost.uncosted_dispatches`` instead."""
+    rec = _KERNEL_COSTS.get(sig)
+    first = rec is None
+    if first:
+        try:
+            cap = int(os.environ.get("NEMO_COST_MAX_SIGNATURES", "512"))
+        except ValueError:
+            cap = 512
+        if len(_KERNEL_COSTS) >= cap:
+            obs.metrics.inc("kernel.cost.uncosted_dispatches")
+            return False
+        rec = _KERNEL_COSTS[sig] = {
+            "verb": verb,
+            "shapes": " ".join(f"{n}[{','.join(map(str, s))}]{d}" for n, s, d in sig[1]),
+            "statics": dict(sig[2]),
+            "flops": None,
+            "bytes_accessed": None,
+            "first_dispatch_s": wall_s,
+            "compiled": False,
+            "dispatches": 0,
+            "pad_rows": int(pad_rows),
+        }
+    rec["dispatches"] += 1
+    rec["pad_rows"] = int(pad_rows)
+    return first
+
+
+def kernel_cost_snapshot() -> list[dict]:
+    """The per-signature cost table as JSON-able records, most-dispatched
+    first: telemetry.json's ``kernel_cost`` section."""
+    return sorted(
+        (dict(rec) for rec in _KERNEL_COSTS.values()),
+        key=lambda r: (-r["dispatches"], r["verb"], r["shapes"]),
+    )
+
+
+def sample_memory_watermarks() -> dict:
+    """The process peak RSS always, and, once this process has used the
+    card, its allocator's peak and current bytes over every device
+    (``torch.cuda.max_memory_allocated`` / ``memory_allocated``; the peak
+    is never reset, so it is monotone within a process, as the JAX
+    package's PJRT peaks are).  Recorded as the ``mem.*`` gauges too."""
+    out: dict = {}
+    ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss  # KiB on Linux
+    out["host_peak_rss_bytes"] = int(ru) * 1024
+    obs.metrics.gauge("mem.host_peak_rss_bytes", out["host_peak_rss_bytes"])
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        n = torch.cuda.device_count()
+        peak = sum(int(torch.cuda.max_memory_allocated(i)) for i in range(n))
+        in_use = sum(int(torch.cuda.memory_allocated(i)) for i in range(n))
+        out["device_peak_bytes"] = peak
+        out["device_bytes_in_use"] = in_use
+        obs.metrics.gauge("mem.device_peak_bytes", peak)
+        obs.metrics.gauge("mem.device_bytes_in_use", in_use)
+    return out
 
 
 def _k_fused(*args):
@@ -264,6 +368,9 @@ class TorchExecutor:
     #: pack_out, which the executor resolves for its own device.
     OPTIONAL_PARAMS = frozenset({"comp_linear", "pack_out"})
 
+    #: Verbs batched over the run axis: the ``kernel.batch_rows`` signal.
+    BATCHED_VERBS = frozenset({"fused", "sparse_fused"})
+
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
         #: dispatches per verb since construction.
@@ -278,7 +385,11 @@ class TorchExecutor:
         self.host_runs: dict[str, int] = {}
 
     def count_host(self, verb: str) -> None:
+        """One host-lane run, counted under the same ``kernel.dispatches.*``
+        prefix as the device verbs, as the JAX package counts it: the
+        result cache's zero-dispatch evidence sums the prefix."""
         self.host_runs[verb] = self.host_runs.get(verb, 0) + 1
+        obs.metrics.inc(f"kernel.dispatches.{verb}")
 
     def run(
         self, verb: str, arrays: dict, params: dict, rows: int | None = None
@@ -286,13 +397,20 @@ class TorchExecutor:
         """Returns a dict of numpy arrays, except the verb's ON_DEVICE bulk
         outputs, which stay tensors on the device.  An input may already be
         a tensor on the device (staged by ``stage_fused_inputs``).  ``rows``
-        is the caller's real-run count (the batches carry padding rows); the
-        dense verbs compute every row regardless, so it is accepted for the
-        contract only."""
+        is the caller's real-run count (the batches carry padding rows): the
+        dense verbs compute every row regardless, and it feeds the
+        ``kernel.batch_rows`` histogram and the cost table only.
+
+        Instrumented as the JAX package's ``LocalExecutor.run``: a
+        ``kernel:<verb>`` span (``upload_bytes``: the bytes of the inputs
+        as given, numpy or staged tensors; ``rows``) around the dispatch,
+        which is host-side (nothing here waits for the device), the
+        ``kernel.*`` counters, the cost table, the memory watermarks and
+        the slow-dispatch watchdog (``NEMO_SLOW_DISPATCH_MS``)."""
         if verb not in self.VERBS:
             raise ValueError(f"unknown kernel verb {verb!r}")
         fn, array_names, param_names, out_names = self.VERBS[verb]
-        if verb in ("fused", "sparse_fused") and "pack_out" not in params:
+        if verb in self.BATCHED_VERBS and "pack_out" not in params:
             # One bit-packed device->host copy on the card; on the CPU the
             # "copy" is free.
             params = dict(params, pack_out=int(self.device.type == "cuda"))
@@ -300,11 +418,52 @@ class TorchExecutor:
             int(params.get(n, 0)) if n in self.OPTIONAL_PARAMS else int(params[n])
             for n in param_names
         ]
+        upload = sum(int(a.nbytes) for a in arrays.values() if a is not None)
+        span_attrs = {"upload_bytes": upload}
+        b_in = rows_real = None
+        if verb in self.BATCHED_VERBS and arrays.get("pre_is_goal") is not None:
+            b_in = int(arrays["pre_is_goal"].shape[0])
+            rows_real = min(int(rows), b_in) if rows is not None else b_in
+            obs.metrics.observe("kernel.batch_rows", rows_real)
+            span_attrs["rows"] = rows_real
+        elif rows is not None and verb == "synth_ext":
+            b_in = int(arrays["is_goal"].shape[0])
+            rows_real = min(int(rows), b_in)
+            span_attrs["rows"] = rows_real
+        obs.metrics.inc(f"kernel.dispatches.{verb}")
+        obs.metrics.inc("kernel.upload_bytes", upload)
         self.dispatches[verb] = self.dispatches.get(verb, 0) + 1
         t0 = time.perf_counter()
         try:
             args = [_on_device(arrays[n], self.device) for n in array_names]
-            return self._materialize(verb, fn(*args, *statics), arrays, params, out_names)
+            t_disp = time.perf_counter()
+            with obs.span(f"kernel:{verb}", **span_attrs):
+                with _device_annotation(f"nemo:{verb}"):
+                    out = fn(*args, *statics)
+            wall_s = time.perf_counter() - t_disp
+            first = _record_kernel_cost(
+                verb, _cost_signature(verb, arrays, params), wall_s,
+                pad_rows=(b_in - rows_real) if rows_real is not None else 0,
+            )
+            # Watermarks off the hot path: a signature's first dispatch and
+            # every 64th (peaks are monotone), plus one at report time.
+            _MEM_SAMPLE_TICK[0] += 1
+            if first or _MEM_SAMPLE_TICK[0] % 64 == 0:
+                sample_memory_watermarks()
+            slow_ms = _obs_log.slow_dispatch_ms()
+            if slow_ms and wall_s * 1000.0 > slow_ms:
+                obs.metrics.inc("watchdog.slow_kernel")
+                _log.warning(
+                    "kernel.slow_dispatch",
+                    verb=verb,
+                    wall_ms=round(wall_s * 1000.0, 1),
+                    threshold_ms=slow_ms,
+                    compiled=False,
+                    rows=span_attrs.get("rows"),
+                    v=int(params["v"]) if "v" in params else None,
+                    upload_bytes=upload,
+                )
+            return self._materialize(verb, out, arrays, params, out_names)
         finally:
             self.wall_s[verb] = self.wall_s.get(verb, 0.0) + time.perf_counter() - t0
 
@@ -585,11 +744,15 @@ class TorchBackend(GraphBackend):
             return "sparse", "crossover", work
         return "sparse_device", "crossover", work
 
-    def _record_route(self, verb: str, route: str, rows: int, v: int, e: int, work: int, reason: str) -> None:
-        self.analysis_routes.append(
-            {"verb": verb, "route": route, "rows": int(rows), "v": int(v), "e": int(e), "work": int(work),
-             "reason": reason}
-        )
+    def _record_route(self, verb: str, route: str, rows: int, v: int, e: int, work: int, reason: str) -> dict:
+        """One route record: the ``analysis.route.<verb>.<route>`` counter,
+        an entry in analysis_routes, and the attrs of the routed
+        execution's ``analysis:route`` span."""
+        obs.metrics.inc(f"analysis.route.{verb}.{route}")
+        rec = {"verb": verb, "route": route, "rows": int(rows), "v": int(v), "e": int(e), "work": int(work),
+               "reason": reason}
+        self.analysis_routes.append(rec)
+        return rec
 
     # ------------------------------------------------------------------ fused
 
@@ -610,8 +773,10 @@ class TorchBackend(GraphBackend):
         # bucket identically).  Only the bucketed runs count.
         big = len(rows) >= 512
         min_v, min_e, min_t, min_d = (64, 256, 32, 32) if big else (16, 16, 8, 4)
+        with obs.span("analysis:pack", runs=len(rows)):
+            batches = bucketize_pairs_corpus(self._corpus_graphs, rows, nc.iteration, min_v=min_v, min_e=min_e)
         return {
-            "batches": bucketize_pairs_corpus(self._corpus_graphs, rows, nc.iteration, min_v=min_v, min_e=min_e),
+            "batches": batches,
             "giant_ids": giant_ids,
             "min_d": min_d,
             "tids": dict(
@@ -660,7 +825,7 @@ class TorchBackend(GraphBackend):
             for bi, (pre_b, post_b) in enumerate(plan["batches"]):
                 rows = len(pre_b.run_ids)
                 route, reason, work = self._analysis_route(rows, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
-                self._record_route("fused", route, rows, pre_b.v, pre_b.e, work, reason)
+                rec = self._record_route("fused", route, rows, pre_b.v, pre_b.e, work, reason)
                 # The linear-chain fast path must hold for every run of the
                 # bucket: the AND of its graphs' flags.
                 linear = int(all(self._lin_by_iter[i] for i in pre_b.run_ids))
@@ -669,24 +834,27 @@ class TorchBackend(GraphBackend):
                           else _verb_arrays(pre_b, post_b))
                 if route == "sparse":
                     self.executor.count_host("sparse_fused")
-                    res = _wrap_sparse_clean(
-                        sparse_analysis_step(pre_b, post_b, v=pre_b.v, comp_linear=bool(linear), **tids), pre_b.v)
+                    with obs.span("analysis:route", **rec), obs.span("kernel:fused", impl="sparse_host", rows=rows):
+                        res = sparse_analysis_step(pre_b, post_b, v=pre_b.v, comp_linear=bool(linear), **tids)
+                    res = _wrap_sparse_clean(res, pre_b.v)
                 elif route == "sparse_device":
-                    res = self._sparse_fused(arrays, pre_b.v, rows, linear, tids)
+                    with obs.span("analysis:route", **rec):
+                        res = self._sparse_fused(arrays, pre_b.v, rows, linear, tids)
                 else:
-                    res = self.executor.run(
-                        "fused",
-                        arrays,
-                        dict(
-                            v=pre_b.v,
-                            max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), plan["min_d"]),
-                            comp_linear=linear,
-                            num_labels=8,  # unused without the diff tail
-                            with_diff=0,
-                            **tids,
-                        ),
-                        rows=rows,
-                    )
+                    with obs.span("analysis:route", **rec):
+                        res = self.executor.run(
+                            "fused",
+                            arrays,
+                            dict(
+                                v=pre_b.v,
+                                max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), plan["min_d"]),
+                                comp_linear=linear,
+                                num_labels=8,  # unused without the diff tail
+                                with_diff=0,
+                                **tids,
+                            ),
+                            rows=rows,
+                        )
                 out.append((pre_b, post_b, res))
             if plan["giant_ids"]:
                 out.extend(self._giants(plan["giant_ids"], tids))
@@ -710,21 +878,21 @@ class TorchBackend(GraphBackend):
             gpre, gpost = self.packed[(rid, "pre")], self.packed[(rid, "post")]
             pre_b = pack_batch([rid], [gpre], v_g, e_g)
             post_b = pack_batch([rid], [gpost], v_g, e_g)
-            self._record_route("giant", route, 1, v_g, e_g, v_g + e_g, "giant_impl")
+            rec = self._record_route("giant", route, 1, v_g, e_g, v_g + e_g, "giant_impl")
             if route == "sparse":
                 _, _, lab_pre = giant_plan(gpre)
                 _, _, lab_post = giant_plan(gpost)
                 self.executor.count_host("sparse_giant")
-                res = _wrap_sparse_clean(
-                    giant_analysis_host(
+                with obs.span("analysis:route", **rec):
+                    res = giant_analysis_host(
                         pre_b, post_b, tids["pre_tid"], tids["post_tid"], tids["num_tables"],
                         pad_comp_labels(lab_pre, gpre.n_nodes, v_g), pad_comp_labels(lab_post, gpost.n_nodes, v_g),
-                    ),
-                    v_g,
-                )
+                    )
+                res = _wrap_sparse_clean(res, v_g)
             else:
                 linear = int(giant_linear(gpre) and giant_linear(gpost))
-                res = self._sparse_fused(_verb_arrays(pre_b, post_b), v_g, 1, linear, tids)
+                with obs.span("analysis:route", **rec):
+                    res = self._sparse_fused(_verb_arrays(pre_b, post_b), v_g, 1, linear, tids)
             out.append((pre_b, post_b, res))
         return out
 
@@ -974,8 +1142,9 @@ class TorchBackend(GraphBackend):
         dot_set = set(failed_iters if dot_iters is None else dot_iters)
         g, good, gb, bits = self._diff_batch(failed_iters)
         route, reason, work = self._diff_route(good.n_nodes, len(good.edges), len(failed_iters), bits.shape[0], gb.v)
-        self._record_route("diff", route, len(failed_iters), good.n_nodes, len(good.edges), work, reason)
-        out = self._diff_dispatch(route, good, gb, bits, len(failed_iters))
+        rec = self._record_route("diff", route, len(failed_iters), good.n_nodes, len(good.edges), work, reason)
+        with obs.span("analysis:route", **rec):
+            out = self._diff_dispatch(route, good, gb, bits, len(failed_iters))
         dot_js = [j for j, f in enumerate(failed_iters) if f in dot_set]
         if route in ("sparse", "sparse_device"):
             # edge_keep is a mask over the good run's (padded) edge list.
@@ -1112,29 +1281,31 @@ class TorchBackend(GraphBackend):
                 continue
             rows = len(pre_b.run_ids)
             route, reason, work = self._synth_route(rows, pre_b.v, pre_b.e)
-            self._record_route("synth", route, rows, pre_b.v, pre_b.e, work, reason)
+            rec = self._record_route("synth", route, rows, pre_b.v, pre_b.e, work, reason)
             holds = np.asarray(res["pre_holds"])
             # The table-bitset width the fused step used for this bucket.
             num_tables = int(np.asarray(res["proto_bits"]).shape[1])
             if route == "sparse":
                 self.executor.count_host("synth_host")
-                bits = synth_ext_host(pre_b, holds, num_tables)
+                with obs.span("analysis:route", **rec):
+                    bits = synth_ext_host(pre_b, holds, num_tables)
             else:
-                bits = self.executor.run(
-                    "synth_ext",
-                    {
-                        "edge_src": pre_b.edge_src,
-                        "edge_dst": pre_b.edge_dst,
-                        "edge_mask": pre_b.edge_mask,
-                        "is_goal": pre_b.is_goal,
-                        "node_mask": pre_b.node_mask,
-                        "type_id": pre_b.type_id,
-                        "table_id": pre_b.table_id,
-                        "holds": holds,
-                    },
-                    {"v": pre_b.v, "num_tables": num_tables},
-                    rows=rows,
-                )["ext_bits"]
+                with obs.span("analysis:route", **rec):
+                    bits = self.executor.run(
+                        "synth_ext",
+                        {
+                            "edge_src": pre_b.edge_src,
+                            "edge_dst": pre_b.edge_dst,
+                            "edge_mask": pre_b.edge_mask,
+                            "is_goal": pre_b.is_goal,
+                            "node_mask": pre_b.node_mask,
+                            "type_id": pre_b.type_id,
+                            "table_id": pre_b.table_id,
+                            "holds": holds,
+                        },
+                        {"v": pre_b.v, "num_tables": num_tables},
+                        rows=rows,
+                    )["ext_bits"]
             nm = names[: bits.shape[1]]
             rows_i, ts = np.nonzero(bits)
             order = np.lexsort((nm[ts], rows_i))

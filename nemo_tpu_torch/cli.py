@@ -7,6 +7,7 @@ directories, on one device.
         [--ingest auto|native|python] [--injector auto|molly|trace-json]
         [--corpus-cache DIR|off] [--result-cache DIR|off] [--prefetch]
         [--save-corpus FILE.npz] [--out analysis.json] [--serve PORT]
+        [--trace FILE] [--metrics-out FILE|-] [--timings] [--profile DIR]
     python -m nemo_tpu_torch.cli -faultInjOut <dir> --watch [--watch-poll-s S]
         [--watch-debounce-s S] [--watch-max-updates N]
         [--replay SRC [--replay-generations N] [--replay-interval-s S]] [--serve PORT] ...
@@ -49,6 +50,18 @@ it watches), with ``POST /query``: a JSON body ``{"query": TEXT}`` (and
 result document, or ``{"error": ...}`` and status 400.  Queries run one at
 a time, on ``--device``.
 
+``--trace FILE`` writes a Chrome-trace-event JSON of the run's host spans
+(``phase:*``, ``kernel:<verb>``, ``analysis:*``, ``ingest:*``,
+``render:*``; obs/trace.py), which ui.perfetto.dev opens; ``NEMO_TRACE``
+is its environment equivalent.  A failed run still writes the partial
+trace.  ``--metrics-out FILE`` writes the process's obs metrics registry
+as Prometheus text after the run (``-``: stdout).  ``--timings`` prints
+each phase's wall.  ``--profile DIR`` captures the map of each report
+under ``torch.profiler`` (CUDA activity on the card) into DIR as a Chrome
+trace, each kernel dispatch labelled ``nemo:<verb>``; a profiled run
+bypasses the result cache.  The JSON log records (obs/log.py) go to
+stderr (``NEMO_LOG_LEVEL``, ``NEMO_LOG_FILE``).
+
 ``query TEXT`` runs one ad-hoc provenance query (query/lang.py) over a
 directory, ingested through the corpus store, and prints its result
 document as JSON; ``--explain`` prints the lowered plan instead and reads
@@ -71,7 +84,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 import sys
 import threading
@@ -82,8 +94,7 @@ import torch
 from nemo_tpu_torch.analysis.pipeline import INGEST_MODES, run_debug, run_debug_dirs
 from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.adapters import INJECTORS, load_output
-
-_log = logging.getLogger("nemo_tpu_torch.cli")
+from nemo_tpu_torch.obs import trace as obs_trace
 
 
 def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", injector: str | None = None) -> dict:
@@ -195,6 +206,17 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--serve", type=int, default=0, metavar="PORT",
                     help="serve the report on http://127.0.0.1:PORT afterwards (with --watch: while watching), "
                          "with POST /query (default 0: off)")
+    ap.add_argument("--timings", action="store_true", help="print per-phase wall-clock timings")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="capture a torch.profiler trace of the analysis phases into DIR "
+                         "(view with TensorBoard or ui.perfetto.dev)")
+    ap.add_argument("--trace", metavar="FILE", default=None,
+                    help="write a Chrome-trace-event JSON of host spans (pipeline phases, kernel dispatches, "
+                         "render) to FILE — open it at ui.perfetto.dev.  Equivalent env: NEMO_TRACE.  "
+                         "Near-zero overhead when off")
+    ap.add_argument("--metrics-out", metavar="FILE", default=None,
+                    help="after the run, dump the obs metrics registry one-shot in Prometheus text format to "
+                         "FILE ('-' for stdout)")
     args = ap.parse_args(argv)
     if (args.watch or args.save_corpus or args.out is not None) and len(args.fault_inj_out) != 1:
         ap.error("--watch, --save-corpus and --out take one -faultInjOut directory")
@@ -204,13 +226,20 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("--watch writes reports: no --out or --save-corpus")
     if args.serve and args.out is not None:
         ap.error("--serve serves the report: no --out")
-    if args.out is not None:
-        doc = analyze(args.fault_inj_out[0], device=args.device, analysis_impl=args.analysis_impl,
-                      injector=args.injector)
-        with open(args.out, "w", encoding="utf-8") as f:
-            json.dump(doc, f, indent=1)
-        print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
-        return 0
+    if args.profile and args.out is not None:
+        ap.error("--profile captures the report's analysis: no --out")
+
+    # Tracing: the flag wins, NEMO_TRACE is the env equivalent.  The trace
+    # is written explicitly before the final prints (so the path is
+    # announced), with an atexit backstop for crash paths.  The env is not
+    # mutated: main() may run many times in one process.
+    if args.trace:
+        import atexit
+
+        obs_trace.start_trace(args.trace)
+        atexit.register(obs_trace.finish)
+    else:
+        obs_trace.configure_from_env()
 
     def make_backend():
         return TorchBackend(device=args.device, analysis_impl=args.analysis_impl)
@@ -219,19 +248,62 @@ def main(argv: list[str] | None = None) -> int:
               result_cache=args.result_cache, injector=args.injector)
     if args.watch:
         return _watch_main(args, make_backend, kw)
-    if len(args.fault_inj_out) == 1:
-        results = [run_debug(args.fault_inj_out[0], args.results_dir, make_backend(),
-                             save_corpus_path=args.save_corpus, **kw)]
-    else:
-        results = run_debug_dirs(args.fault_inj_out, args.results_dir, make_backend, prefetch=args.prefetch, **kw)
+    # The tracer is finished on failure too: the partial trace of a failed
+    # run is written, and the global tracer disabled, so that main() can
+    # run again in this process.
+    try:
+        if args.out is not None:
+            doc = analyze(args.fault_inj_out[0], device=args.device, analysis_impl=args.analysis_impl,
+                          injector=args.injector)
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump(doc, f, indent=1)
+            results = []
+        elif len(args.fault_inj_out) == 1:
+            results = [run_debug(args.fault_inj_out[0], args.results_dir, make_backend(),
+                                 save_corpus_path=args.save_corpus, profile_dir=args.profile, **kw)]
+        else:
+            results = run_debug_dirs(args.fault_inj_out, args.results_dir, make_backend, prefetch=args.prefetch,
+                                     profile_dir=args.profile, **kw)
+    except BaseException:
+        trace_path = obs_trace.finish()
+        if trace_path:
+            print(f"obs trace (partial, run failed) written to {trace_path}", file=sys.stderr)
+        raise
+    if args.out is not None:
+        print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
     for res in results:
         print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {args.device} -> {res.report_dir}"
               f" (ingest {res.ingest}, result cache {res.result_cache['state']})")
-        print("timings (s): " + ", ".join(f"{k} {v:.3f}" for k, v in res.timings.items()))
-    fs = results[-1].figure_stats
+    fs = results[-1].figure_stats if results else None
     if fs and fs["figures"]:
         print(f"figures: {fs['figures']} written from {fs['unique_figures']} unique renders "
               f"in {fs['render_wall_s']} s")
+    if args.timings:
+        for res in results:
+            if len(results) > 1:
+                print(f"--- {res.molly.run_name}")
+            for phase, secs in res.timings.items():
+                print(f"{phase:>22s}  {secs * 1e3:9.1f} ms")
+        if fs and fs.get("figures"):
+            print(f"figures: {fs['figures']} rendered as {fs['unique_figures']} unique (dedup "
+                  f"{fs['dedup_ratio']}x), {fs['figure_cache_hits']} cache hits, {fs['render_workers']} render "
+                  "workers")
+        if args.out is not None:
+            for phase, secs in doc["timings_s"].items():
+                print(f"{phase:>22s}  {secs * 1e3:9.1f} ms")
+    trace_path = obs_trace.finish()
+    if trace_path:
+        print(f"obs trace written to {trace_path} (open at ui.perfetto.dev)")
+    if args.metrics_out:
+        from nemo_tpu_torch.obs import promexp
+
+        text = promexp.render_prometheus()
+        if args.metrics_out == "-":
+            sys.stdout.write(text)
+        else:
+            with open(args.metrics_out, "w", encoding="utf-8") as fh:
+                fh.write(text)
+            print(f"metrics written to {args.metrics_out} (Prometheus text format)")
     if args.serve:
         import http.server
 
@@ -322,8 +394,6 @@ def query_http_handler(serve_dir: str, resolve_molly, **query_kw):
                     doc = run_query_text(str(req.get("query", "")), resolve_molly(req), **query_kw)
                 body, status = json.dumps(doc).encode("utf-8"), 200
             except Exception as ex:  # the query box shows the error inline; the server goes on
-                if not isinstance(ex, ValueError):  # a bad request (QueryError is one) needs no traceback
-                    _log.exception("POST /query failed")
                 body, status = json.dumps({"error": f"{type(ex).__name__}: {ex}"}).encode("utf-8"), 400
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
@@ -426,6 +496,9 @@ def _watch_main(args, make_backend, kw: dict) -> int:
             httpd.server_close()
         q.put(None)
         printing.join()
+        trace_path = obs_trace.finish()
+        if trace_path:
+            print(f"obs trace written to {trace_path} (open at ui.perfetto.dev)")
     if watcher.report_dir:
         print(f"watch finished after {watcher.updates} updates; live report: "
               f"{os.path.join(watcher.report_dir, 'index.html')}")

@@ -55,8 +55,9 @@ layout ships no spacetime DOT files: the hazard figures use
 from __future__ import annotations
 
 import json
-import logging
 import os
+
+from nemo_tpu_torch import obs
 
 from .datatypes import (
     CrashFailure,
@@ -72,7 +73,7 @@ from .datatypes import (
 )
 from .molly import MollyOutput, _namespace_prov, attach_run_metadata, load_molly_output, quarantine_record
 
-_log = logging.getLogger("nemo_tpu_torch.ingest")
+_log = obs.log.get_logger("nemo.ingest")
 
 TRACE_FILE = "trace.json"
 TRACE_FORMAT = "nemo-trace-v1"
@@ -269,7 +270,9 @@ class TraceJsonInjector(FaultInjector):
                 rid = raw.get("id") if isinstance(raw, dict) else None
                 rec = quarantine_record(i, rid if isinstance(rid, int) else None, TRACE_FILE, ex)
                 out.quarantined.append(rec)
-                _log.warning("quarantined run at position %d of %s: %s", i, corpus_dir, rec["error"])
+                obs.metrics.inc("ingest.quarantined")
+                _log.warning("ingest.quarantined", corpus=corpus_dir, position=rec["position"], file=rec["file"],
+                             error=rec["error"])
                 continue
             out.runs.append(run)
             attach_run_metadata(out, run)
@@ -339,6 +342,7 @@ def resolve_injector(corpus_dir: str, arg: str | None = None) -> FaultInjector:
                 + ", ".join(f"{c.index_file} ({c.name})" for c in INJECTORS.values())
                 + "; pin one with --injector / NEMO_INJECTOR"
             )
+    obs.metrics.inc(f"ingest.injector.{name}")
     return INJECTORS[name]()
 
 

@@ -24,6 +24,8 @@ import os
 import re
 from dataclasses import dataclass, field
 
+from nemo_tpu_torch import obs
+
 from .datatypes import ProvData, RunData
 
 _CLOCK_TIME_WILD = re.compile(r", (\d+), __WILDCARD__\)")
@@ -173,7 +175,7 @@ def load_molly_output(output_dir: str, quarantine: bool | None = None) -> MollyO
         except Exception as ex:
             if not quarantine:
                 raise
-            out.quarantined.append(quarantine_record(i, None, "runs.json", ex))
+            _quarantine(out, quarantine_record(i, None, "runs.json", ex))
             continue
         try:
             # Per-run provenance files are indexed by position i, not by the
@@ -183,9 +185,7 @@ def load_molly_output(output_dir: str, quarantine: bool | None = None) -> MollyO
             if not quarantine:
                 raise
             cond = "post" if run.pre_prov is not None else "pre"
-            out.quarantined.append(
-                quarantine_record(i, run.iteration, f"run_{i}_{cond}_provenance.json", ex)
-            )
+            _quarantine(out, quarantine_record(i, run.iteration, f"run_{i}_{cond}_provenance.json", ex))
             continue
         out.runs.append(run)
         attach_run_metadata(out, run)
@@ -197,6 +197,14 @@ def load_molly_output(output_dir: str, quarantine: bool | None = None) -> MollyO
             f"{out.quarantined[0]['error']})"
         )
     return out
+
+
+def _quarantine(out: MollyOutput, rec: dict) -> None:
+    out.quarantined.append(rec)
+    obs.metrics.inc("ingest.quarantined")
+    obs.log.get_logger("nemo.ingest").warning(
+        "ingest.quarantined", corpus=out.output_dir, position=rec["position"], file=rec["file"], error=rec["error"]
+    )
 
 
 def load_run_prov(output_dir: str, position: int, run) -> None:

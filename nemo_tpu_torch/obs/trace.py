@@ -1,0 +1,262 @@
+"""Span tracer: nested, thread-aware spans -> Chrome-trace-event JSON.
+
+A copy of the JAX package's ``obs/trace.py`` without the adoption of
+spans recorded by other processes (the port has no render pool and no
+sidecar, so every span is recorded in the process that exports it).
+
+Format: the Chrome Trace Event "JSON Object Format": a top-level object
+with a ``traceEvents`` array of complete ("ph": "X") events plus process
+and thread name metadata ("ph": "M") events.  Perfetto's UI and
+trace_processor load it directly.
+
+Clock: event timestamps are microseconds of CLOCK_MONOTONIC
+(``time.perf_counter_ns() // 1000``); the exporter normalizes to the
+earliest event.
+
+Disabled-mode cost: ``span()`` reads one module global and returns a shared
+null context manager: no allocation, no string work.
+
+Thread safety: spans are appended under a lock; thread ids are attributed
+via ``threading.get_ident`` with the thread's name exported as Perfetto
+thread-name metadata, so a worker thread's spans land on its own row.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+__all__ = [
+    "Tracer",
+    "add_span",
+    "configure_from_env",
+    "enabled",
+    "export",
+    "finish",
+    "span",
+    "start_trace",
+    "trace_id",
+    "tracer",
+]
+
+
+def _now_us() -> int:
+    return time.perf_counter_ns() // 1000
+
+
+class Tracer:
+    """Collects completed spans; exports Chrome trace events."""
+
+    def __init__(self, path: str | None = None, trace_id: str | None = None) -> None:
+        import uuid  # deferred: only a live tracer needs it
+
+        self.path = path
+        #: One id for the run, carried by every log record emitted while
+        #: this tracer is active.
+        self.trace_id = trace_id or uuid.uuid4().hex[:16]
+        self.pid = os.getpid()
+        self._lock = threading.Lock()
+        self._events: list[dict] = []
+        self._thread_names: dict[tuple[int, int], str] = {}
+        self._process_names: dict[int, str] = {self.pid: _process_name_default()}
+
+    def add_span(
+        self,
+        name: str,
+        start_us: int,
+        dur_us: int,
+        args: dict | None = None,
+        pid: int | None = None,
+        tid: int | None = None,
+        thread_name: str | None = None,
+    ) -> None:
+        """Record one completed span.  pid/tid default to the calling
+        process/thread."""
+        if pid is None:
+            pid = self.pid
+        if tid is None:
+            tid = threading.get_ident()
+            if thread_name is None:
+                thread_name = threading.current_thread().name
+        ev = {"name": name, "ph": "X", "ts": start_us, "dur": dur_us, "pid": pid, "tid": tid}
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self._events.append(ev)
+            if thread_name is not None:
+                self._thread_names.setdefault((pid, tid), thread_name)
+
+    def export(self, path: str | None = None) -> str:
+        """Write the trace file; returns the path written."""
+        path = path or self.path
+        if not path:
+            raise ValueError("no trace output path configured")
+        with self._lock:
+            events = list(self._events)
+            thread_names = dict(self._thread_names)
+            process_names = dict(self._process_names)
+        base = min((e["ts"] for e in events), default=0)
+        out = []
+        for pid, name in sorted(process_names.items()):
+            out.append({"name": "process_name", "ph": "M", "pid": pid, "tid": 0, "args": {"name": name}})
+        for (pid, tid), name in sorted(thread_names.items()):
+            out.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid, "args": {"name": name}})
+        for e in events:
+            e = dict(e)
+            e["ts"] -= base
+            out.append(e)
+        doc = {
+            "traceEvents": out,
+            "displayTimeUnit": "ms",
+            "otherData": {"trace_id": self.trace_id, "tool": "nemo-tpu obs"},
+        }
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(doc, f)
+        return path
+
+
+def _process_name_default() -> str:
+    import sys
+
+    argv0 = os.path.basename(sys.argv[0]) if sys.argv and sys.argv[0] else "python"
+    return f"{argv0} (pid {os.getpid()})"
+
+
+class _NullSpan:
+    """Shared no-op context manager: the entire disabled-mode cost."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _NullSpan()
+
+
+class _Span:
+    """Live span context manager (only ever built when tracing is on or a
+    flight recorder is armed)."""
+
+    __slots__ = ("_tracer", "_name", "_args", "_start")
+
+    def __init__(self, tracer: Tracer, name: str, args: dict) -> None:
+        self._tracer = tracer
+        self._name = name
+        self._args = args
+
+    def set(self, **attrs) -> None:
+        """Attach attributes discovered mid-span, merged into the span's
+        args at exit."""
+        self._args.update(attrs)
+
+    def __enter__(self):
+        self._start = _now_us()
+        return self
+
+    def __exit__(self, *exc):
+        dur = _now_us() - self._start
+        args = self._args or None
+        self._tracer.add_span(self._name, self._start, dur, args)
+        f = _FLIGHT
+        if f is not None and f is not self._tracer:
+            f.add_span(self._name, self._start, dur, args)
+        return False
+
+
+# Module-level tracer state: None = disabled (the common case).
+_TRACER: Tracer | None = None
+
+# Armed flight recorder (obs/flight.py), duck-typed to Tracer.add_span:
+# with no tracer active, spans record into its bounded ring instead of
+# vanishing; with one active it sees them too.  Set by flight.arm() and
+# disarm(); trace.py never imports flight, keeping the import graph acyclic.
+_FLIGHT = None
+
+
+def set_flight_recorder(rec) -> None:
+    global _FLIGHT
+    _FLIGHT = rec
+
+
+def enabled() -> bool:
+    return _TRACER is not None
+
+
+def tracer() -> Tracer | None:
+    """The active tracer, or None when tracing is disabled."""
+    return _TRACER
+
+
+def trace_id() -> str | None:
+    t = _TRACER
+    return t.trace_id if t is not None else None
+
+
+def span(name: str, **attrs):
+    """Context manager bracketing one unit of work.  Nested uses on one
+    thread render as a nested flame in Perfetto.  Near-free when tracing is
+    disabled."""
+    t = _TRACER
+    if t is None:
+        f = _FLIGHT
+        if f is None:
+            return _NULL
+        return _Span(f, name, attrs)
+    return _Span(t, name, attrs)
+
+
+def add_span(name: str, start_us: int, dur_us: int, args: dict | None = None) -> None:
+    """Record an already-measured interval (a phase timer's own
+    measurement, so the span and the timing are the SAME numbers)."""
+    t = _TRACER
+    if t is not None:
+        t.add_span(name, start_us, dur_us, args)
+    f = _FLIGHT
+    if f is not None and f is not t:
+        f.add_span(name, start_us, dur_us, args)
+
+
+def start_trace(path: str | None, trace_id_: str | None = None) -> Tracer:
+    """Enable tracing for this process; spans land in ``path`` at finish()."""
+    global _TRACER
+    _TRACER = Tracer(path, trace_id_)
+    return _TRACER
+
+
+def finish() -> str | None:
+    """Export and disable; returns the written path (None if disabled or
+    pathless)."""
+    global _TRACER
+    t, _TRACER = _TRACER, None
+    if t is None or not t.path:
+        return None
+    return t.export()
+
+
+def export(path: str | None = None) -> str | None:
+    """Export without disabling (mid-run snapshots)."""
+    t = _TRACER
+    if t is None:
+        return None
+    return t.export(path)
+
+
+def configure_from_env() -> Tracer | None:
+    """Enable tracing when NEMO_TRACE names an output file; the trace is
+    written at interpreter exit (atexit) unless finish() ran earlier."""
+    path = os.environ.get("NEMO_TRACE", "").strip()
+    if not path or _TRACER is not None:
+        return _TRACER
+    t = start_trace(path)
+    import atexit
+
+    atexit.register(finish)
+    return t

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from nemo_tpu_torch import obs
 from nemo_tpu_torch.query.lang import HOP_ADJ, Query, QueryError
 from nemo_tpu_torch.query.plan import QueryPlan, plan_query
 
@@ -329,6 +330,9 @@ def map_segment_runs(
         if routes is not None:
             routes.append({"rows": rows, "v": batch.v, "e": batch.e, "work": work, "lane": lane,
                            "reason": "crossover"})
+        obs.metrics.inc("kernel.dispatches.query")
+        obs.metrics.inc(f"query.route.{lane}")
+        obs.metrics.inc("query.rows_scanned", rows)
         tp = _time_plane(batch) if plan.needs_time else np.full((rows, batch.v), -1, dtype=np.int32)
         if lane == "host":
             cap = _eval_host(batch, tp, bound, num_tables)
@@ -418,38 +422,45 @@ def execute_query(
     from nemo_tpu_torch.store.rcache import resolve_result_cache
 
     dev = resolve_device(device)
-    plan = plan_query(q)
+    with obs.span("query:plan", agg=q.agg, patterns=len(q.patterns)):
+        plan = plan_query(q)
     rc = resolve_result_cache(result_cache) if use_cache else None
     full_key = blob_cache_key("query", getattr(molly, "store_segments", None), {"plan": plan.key})
     if rc is not None and full_key is not None:
         blob = rc.load_blob("query", full_key)
         if blob is not None:
+            obs.metrics.inc("query.cache.hit")
             doc = json.loads(blob.decode("utf-8"))
             doc["stats"] = {"cache": "hit", "segments_mapped": 0}
             return doc
+        obs.metrics.inc("query.cache.miss")
 
-    vocab = corpus_vocab(molly)
-    plan.validate_names(vocab)
-    graph_of = _graph_getter(plan, molly, vocab)
-    parts, mapped = [], 0
-    for seg in corpus_segments(molly):
-        pkey = None
-        if seg.fingerprint is not None:
-            pkey = blob_cache_key("query-partial", [{"fingerprint": seg.fingerprint}], {"plan": plan.key})
-        if rc is not None and pkey is not None:
-            blob = rc.load_blob("query-partial", pkey)
-            if blob is not None:
-                parts.append(QueryPartial.from_json(json.loads(blob.decode("utf-8"))))
-                continue
-        part = map_segment_runs(plan, molly.runs[seg.start : seg.stop], vocab, graph_of, dev,
-                                query_host_work=query_host_work, routes=routes)
-        mapped += 1
-        if rc is not None and pkey is not None:
-            rc.put_blob("query-partial", pkey, json.dumps(part.to_json(), sort_keys=True).encode("utf-8"))
-        parts.append(part)
-    doc = finalize(plan, merge_query_partials(parts))
+    with obs.span("query:execute", plan=plan.key[:12]):
+        vocab = corpus_vocab(molly)
+        plan.validate_names(vocab)
+        graph_of = _graph_getter(plan, molly, vocab)
+        parts, mapped = [], 0
+        for seg in corpus_segments(molly):
+            pkey = None
+            if seg.fingerprint is not None:
+                pkey = blob_cache_key("query-partial", [{"fingerprint": seg.fingerprint}], {"plan": plan.key})
+            if rc is not None and pkey is not None:
+                blob = rc.load_blob("query-partial", pkey)
+                if blob is not None:
+                    obs.metrics.inc("query.partial.hit")
+                    parts.append(QueryPartial.from_json(json.loads(blob.decode("utf-8"))))
+                    continue
+            obs.metrics.inc("query.partial.miss")
+            part = map_segment_runs(plan, molly.runs[seg.start : seg.stop], vocab, graph_of, dev,
+                                    query_host_work=query_host_work, routes=routes)
+            mapped += 1
+            if rc is not None and pkey is not None:
+                rc.put_blob("query-partial", pkey, json.dumps(part.to_json(), sort_keys=True).encode("utf-8"))
+            parts.append(part)
+        doc = finalize(plan, merge_query_partials(parts))
     if rc is not None and full_key is not None:
         rc.put_blob("query", full_key, json.dumps(doc, sort_keys=True).encode("utf-8"))
+    obs.metrics.inc("query.executes")
     doc["stats"] = {"cache": "miss" if full_key is not None else "off", "segments_mapped": mapped}
     return doc
 
@@ -566,6 +577,7 @@ def run_query_text(text: str, molly, **kw) -> dict:
     """Text -> result document (the CLI's and the HTTP endpoint's entry)."""
     from nemo_tpu_torch.query.lang import parse_query
 
+    obs.metrics.inc("query.compiles")
     return execute_query(parse_query(text), molly, **kw)
 
 

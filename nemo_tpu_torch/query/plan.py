@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from nemo_tpu_torch import obs
 from nemo_tpu_torch.graphs.packed import _TYPE_IDS
 from nemo_tpu_torch.query.lang import FIELDS, HOP_ADJ, Query, QueryError
 
@@ -145,7 +146,7 @@ def plan_query(q: Query) -> QueryPlan:
                 tests.append((pred.field, pred.op, pred.value))
             steps.append(tuple(tests))
         pats.append(PatternPlan(steps=tuple(steps), hops=p.hops, capture=p.capture_index))
-    return QueryPlan(
+    plan = QueryPlan(
         graph=q.graph,
         cond_tid=0 if q.graph == "pre" else 1,  # CorpusVocab pins pre=0/post=1
         run_filter=q.run_filter,
@@ -155,6 +156,8 @@ def plan_query(q: Query) -> QueryPlan:
         patterns=tuple(pats),
         key=q.ast_hash(),
     )
+    obs.metrics.inc("query.plans")
+    return plan
 
 
 # Every field the language admits has a lowering here.

@@ -18,6 +18,8 @@ import hashlib
 import os
 import time
 
+from nemo_tpu_torch import obs
+
 from .dot import DotGraph
 from .svg import render_svg
 
@@ -90,11 +92,13 @@ class RenderScheduler:
 
     def submit(self, dot: DotGraph, svg_path: str) -> None:
         self.figures += 1
+        obs.metrics.inc("render.figures")
         key = render_key(dot)
         ent = self._entries.get(key)
         if ent is None:
             ent = self._entries[key] = _Entry(dot)
             self._order.append(key)
+            obs.metrics.inc("render.unique_figures")
         ent.pending_paths.append(svg_path)
 
     def _fan_out(self, ent: _Entry, path: str) -> None:
@@ -117,19 +121,24 @@ class RenderScheduler:
 
     def drain(self) -> dict:
         t0 = time.perf_counter()
-        for key in self._order:
-            ent = self._entries[key]
-            if not ent.pending_paths:
-                continue
-            if ent.svg is None:
-                t = time.perf_counter()
-                ent.svg = render_svg(ent.graph)
-                self.render_s += time.perf_counter() - t
-                ent.graph = None
-                self.rendered += 1
-            for path in ent.pending_paths:
-                self._fan_out(ent, path)
-            ent.pending_paths = []
+        with obs.span("render:drain", pending=len(self._order)):
+            for key in self._order:
+                ent = self._entries[key]
+                if not ent.pending_paths:
+                    continue
+                if ent.svg is None:
+                    t = time.perf_counter()
+                    with obs.span("render:svg", inline=True):
+                        ent.svg = render_svg(ent.graph)
+                    dt = time.perf_counter() - t
+                    self.render_s += dt
+                    ent.graph = None
+                    self.rendered += 1
+                    obs.metrics.inc("render.rendered")
+                    obs.metrics.inc("render.render_s", dt)
+                for path in ent.pending_paths:
+                    self._fan_out(ent, path)
+                ent.pending_paths = []
         self.render_wall_s += time.perf_counter() - t0
         return self.stats()
 

@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import hashlib
 import json
-import logging
 import os
 import shutil
 import time
 import uuid
 
+from nemo_tpu_torch import obs
 from nemo_tpu_torch.store.npack import (
     GROWN,
     HIT,
@@ -60,7 +60,7 @@ from nemo_tpu_torch.store.npack import (
 
 __all__ = ["CorpusStore", "StoreCorrupt", "attach_store_provenance", "resolve_store", "store_size_bytes"]
 
-_log = logging.getLogger("nemo_tpu_torch.store")
+_log = obs.log.get_logger("nemo.store")
 
 
 def attach_store_provenance(obj, store_dir: str, header: dict) -> None:
@@ -154,12 +154,13 @@ class CorpusStore:
         except FileNotFoundError:
             return None
         except (OSError, ValueError) as ex:
-            _log.warning("store header of %s unreadable (%s: %s); stale", store_dir, type(ex).__name__, ex)
+            _log.warning("store.header_unreadable", store=store_dir, error=f"{type(ex).__name__}: {ex}",
+                         detail="treating the store as stale; the next populate replaces it")
             return self._HEADER_UNTRUSTED
         if header.get("format") != NPACK_FORMAT_VERSION or header.get("abi") != NPACK_ABI_VERSION:
             _log.warning(
-                "store %s has format %s abi %s, expected %s/%s; stale",
-                store_dir, header.get("format"), header.get("abi"), NPACK_FORMAT_VERSION, NPACK_ABI_VERSION,
+                "store.version_mismatch", store=store_dir, format=header.get("format"), abi=header.get("abi"),
+                expected_format=NPACK_FORMAT_VERSION, expected_abi=NPACK_ABI_VERSION,
             )
             return self._HEADER_UNTRUSTED
         return header
@@ -186,22 +187,33 @@ class CorpusStore:
         return self._load(corpus_dir, build_molly=False)
 
     def _load(self, corpus_dir: str, build_molly: bool):
+        with obs.span("ingest:store_load", dir=os.path.basename(corpus_dir)):
+            return self._load_traced(corpus_dir, build_molly)
+
+    def _load_traced(self, corpus_dir: str, build_molly: bool):
         from nemo_tpu_torch.store.reader import build_corpus, molly_from_corpus, open_segments
 
         store_dir = self.store_dir(corpus_dir)
         t0 = time.perf_counter()
         header = self._read_header(store_dir)
-        if not isinstance(header, dict):
+        if header is None:
+            obs.metrics.inc("store.miss")
+            return None
+        if header is self._HEADER_UNTRUSTED:
+            obs.metrics.inc("store.stale")
             return None
         state = classify_source(header, corpus_dir)
         grown = state == GROWN
         if grown:
             header = self._append(store_dir, header, corpus_dir)
             if header is None:
+                obs.metrics.inc("store.stale")
                 return None
             state = HIT
         if state != HIT:
-            _log.warning("store %s is stale for %s (source changed); parsing", store_dir, corpus_dir)
+            obs.metrics.inc("store.stale")
+            _log.warning("store.stale", store=store_dir, corpus=corpus_dir,
+                         detail="source fingerprint changed; falling back to the parse path")
             return None
         try:
             seg_readers, vocab_rd, mapped = open_segments(store_dir, header, verify=True)
@@ -221,21 +233,26 @@ class CorpusStore:
                 corpus.quarantined = q
                 if out is not corpus:
                     out.quarantined = q
+                obs.metrics.inc("ingest.quarantined", len(q))
             out.store_state = GROWN if grown else HIT
         except (StoreCorrupt, OSError, ValueError, KeyError) as ex:
+            obs.metrics.inc("store.stale")
             _log.error(
-                "store %s is corrupt (%s: %s); parsing, and the next populate replaces it",
-                store_dir, type(ex).__name__, ex,
+                "store.corrupt", store=store_dir, corpus=corpus_dir, error=f"{type(ex).__name__}: {ex}",
+                detail="falling back to the parse path; the next populate overwrites the bad store",
             )
             return None
+        obs.metrics.inc("store.hit")
+        obs.metrics.inc("store.bytes_mapped", mapped)
+        obs.metrics.observe("store.load_s", time.perf_counter() - t0)
         try:
             # Last-use stamp for the size-cap eviction.
             os.utime(os.path.join(store_dir, "header.json"))
         except OSError:
             pass
         _log.info(
-            "store hit %s: %d runs, %d segments, %.1f MB mapped in %.3f s",
-            corpus_dir, corpus.n_runs, len(header["segments"]), mapped / 1e6, time.perf_counter() - t0,
+            "store.hit", corpus=corpus_dir, runs=corpus.n_runs, segments=len(header["segments"]),
+            mapped_mb=round(mapped / 1e6, 1), seconds=round(time.perf_counter() - t0, 3),
         )
         return out
 
@@ -255,12 +272,17 @@ class CorpusStore:
         try:
             return self._put(corpus_dir, molly, snapshot)
         except Exception as ex:  # a cache write must not fail the report
-            _log.warning("store write for %s failed: %s: %s", corpus_dir, type(ex).__name__, ex)
+            obs.metrics.inc("store.write_failed")
+            _log.warning("store.write_failed", corpus=corpus_dir, error=f"{type(ex).__name__}: {ex}")
             return False
 
     def _put(self, corpus_dir: str, molly, snapshot: dict | None):
         if not molly.runs:
             return False
+        with obs.span("ingest:store_populate", dir=os.path.basename(corpus_dir)):
+            return self._put_traced(corpus_dir, molly, snapshot)
+
+    def _put_traced(self, corpus_dir: str, molly, snapshot: dict | None):
         t0 = time.perf_counter()
         payload = payload_from_molly(molly)
         snap = snapshot or self.snapshot(corpus_dir)
@@ -312,7 +334,9 @@ class CorpusStore:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
         self._evict_over_cap(keep=final)
-        _log.info("store populated %s: %d runs in %.2f s", final, payload.n_runs, time.perf_counter() - t0)
+        obs.metrics.inc("store.populate")
+        _log.info("store.populated", corpus=corpus_dir, runs=payload.n_runs, store=final,
+                  seconds=round(time.perf_counter() - t0, 2))
         return header
 
     # ------------------------------------------------------------- eviction
@@ -348,6 +372,8 @@ class CorpusStore:
             for victim in victims:
                 if aged(victim):
                     (shutil.rmtree if os.path.isdir(victim) else os.remove)(victim)
+                    obs.metrics.inc("store.gc_wreckage")
+                    _log.info("store.gc_wreckage", path=victim)
         cap = STORE_MAX_BYTES
         stores = []
         for name in names:
@@ -367,7 +393,8 @@ class CorpusStore:
                 continue
             shutil.rmtree(path, ignore_errors=True)
             total -= size
-            _log.info("store evicted %s (%.1f MB) to stay under %.1f GB", path, size / 1e6, cap / 1e9)
+            obs.metrics.inc("store.evicted")
+            _log.info("store.evicted", store=path, freed_mb=round(size / 1e6, 1), cap_gb=round(cap / 1e9, 1))
 
     # --------------------------------------------------------------- append
 
@@ -384,7 +411,8 @@ class CorpusStore:
                 return self._append_index_locked(store_dir, corpus_dir, index_file)
             return self._append_locked(store_dir, corpus_dir)
         except Exception as ex:
-            _log.warning("store append for %s failed (%s: %s); parsing", corpus_dir, type(ex).__name__, ex)
+            obs.metrics.inc("store.append_failed")
+            _log.warning("store.append_failed", corpus=corpus_dir, error=f"{type(ex).__name__}: {ex}")
             return None
 
     def _reread_grown(self, store_dir: str, corpus_dir: str):
@@ -454,10 +482,11 @@ class CorpusStore:
         with open(tmp_header, "w", encoding="utf-8") as fh:
             json.dump(header, fh, indent=1)
         os.replace(tmp_header, os.path.join(store_dir, "header.json"))
+        obs.metrics.inc("store.append")
         _log.info(
-            "store appended %s: %d new runs (%d repaired) %s, %d quarantined, %d in all", corpus_dir,
-            len(new_runs), sum(p < n_old for p in new_positions), f"as {seg_name}" if new_runs else "in no segment",
-            len(final_q), n_total,
+            "store.appended", corpus=corpus_dir, new_runs=len(new_runs),
+            repaired=sum(p < n_old for p in new_positions), quarantined=len(final_q), total_runs=n_total,
+            segment=seg_name if new_runs else None,
         )
         return header
 
@@ -467,7 +496,7 @@ class CorpusStore:
         from nemo_tpu_torch.store.reader import build_corpus, open_segments
         from nemo_tpu_torch.utils.env import quarantine_enabled
 
-        with self._lock(store_dir):
+        with self._lock(store_dir), obs.span("ingest:store_append", dir=os.path.basename(corpus_dir)):
             header, state = self._reread_grown(store_dir, corpus_dir)
             if state == HIT or header is None:
                 return header
@@ -503,14 +532,15 @@ class CorpusStore:
                     if int(r.get("iteration", 0)) != int(old.iteration[row]) or (
                         (r.get("status", "") == "success") != bool(old.success[row])
                     ):
-                        _log.warning("store append refused for %s: runs.json entry %d changed", corpus_dir, pos)
+                        _log.warning("store.append_refused", corpus=corpus_dir, row=pos,
+                                     detail="runs.json entry changed")
                         return None
                 n_stored = len(rows_pos)
                 stride = max(1, n_stored // 64)
                 for row in sorted(set(range(0, n_stored, stride)) | {0, n_stored - 1}):
                     if head_bytes(RunData.from_json(raw_runs[rows_pos[row]])) != old.run_head_json(row):
-                        _log.warning("store append refused for %s: head of run %d changed", corpus_dir,
-                                     rows_pos[row])
+                        _log.warning("store.append_refused", corpus=corpus_dir, row=rows_pos[row],
+                                     detail="head of the run changed")
                         return None
             vocab = self._stored_vocab(vocab_rd)
             # Each candidate parses under the loader's per-run quarantine: a
@@ -538,6 +568,7 @@ class CorpusStore:
             for rec in new_q:
                 rec["files"] = [] if rec["file"] == "runs.json" else quarantine_files_from_snapshot(
                     snap, rec["position"])
+                obs.metrics.inc("ingest.quarantined")
             kept_q = [r for r in qrecs_old if int(r["position"]) not in repair_pos]
             final_q = sorted(kept_q + new_q, key=lambda r: int(r["position"]))
             return self._commit_append(store_dir, corpus_dir, header, snap, len(raw_runs), vocab, new_runs,
@@ -559,7 +590,7 @@ class CorpusStore:
         inj = next((c for c in INJECTORS.values() if c.index_file == index_file), None)
         if inj is None:
             return None
-        with self._lock(store_dir):
+        with self._lock(store_dir), obs.span("ingest:store_append", dir=os.path.basename(corpus_dir)):
             header, state = self._reread_grown(store_dir, corpus_dir)
             if state == HIT or header is None:
                 return header
@@ -581,18 +612,18 @@ class CorpusStore:
                 for row, pos in enumerate(rows_pos):
                     it, success = entry_head(pos)
                     if it != int(old.iteration[row]) or success != bool(old.success[row]):
-                        _log.warning("store append refused for %s: %s entry %d changed", corpus_dir, index_file,
-                                     pos)
+                        _log.warning("store.append_refused", corpus=corpus_dir, row=pos,
+                                     detail=f"{index_file} entry changed")
                         return None
                 stride = max(1, n_stored // 64)
                 for row in sorted(set(range(0, n_stored, stride)) | {0, n_stored - 1}):
                     if head_bytes(parse_entry(rows_pos[row])) != old.run_head_json(row):
-                        _log.warning("store append refused for %s: head of run %d changed", corpus_dir,
-                                     rows_pos[row])
+                        _log.warning("store.append_refused", corpus=corpus_dir, row=rows_pos[row],
+                                     detail="head of the run changed")
                         return None
             except Exception as ex:
-                _log.warning("store append refused for %s: a stored %s entry no longer parses (%s: %s)",
-                             corpus_dir, index_file, type(ex).__name__, ex)
+                _log.warning("store.append_refused", corpus=corpus_dir,
+                             detail=f"a stored {index_file} entry no longer parses ({type(ex).__name__}: {ex})")
                 return None
             vocab = self._stored_vocab(vocab_rd)
             quarantine = quarantine_enabled()
@@ -608,6 +639,7 @@ class CorpusStore:
                     except Exception:  # the entry is quarantined either way; the id only names it
                         rid = None
                     new_q.append(dict(quarantine_record(pos, rid, index_file, ex), files=[]))
+                    obs.metrics.inc("ingest.quarantined")
                     continue
                 new_runs.append(run)
                 new_positions.append(pos)

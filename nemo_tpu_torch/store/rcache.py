@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import fcntl
 import json
-import logging
 import os
 import shutil
 import time
@@ -47,7 +46,9 @@ import uuid
 from collections import Counter
 from contextlib import contextmanager
 
-_log = logging.getLogger("nemo_tpu_torch.rcache")
+from nemo_tpu_torch import obs
+
+_log = obs.log.get_logger("nemo.rcache")
 
 #: Size cap of one result-cache root: past it, a publish evicts the least
 #: recently used entries.
@@ -134,8 +135,11 @@ class ResultCache:
 
     def _load_entry(self, kind: str, key: str):
         """(entry dict, entry dir, manifest) of an entry whose files all
-        match their manifest, else None.  An entry that fails it is removed,
-        so the next publish of its key replaces it."""
+        match their manifest, else None, counted ``rcache.<kind>_miss`` (no
+        entry) or ``rcache.<kind>_stale`` (unreadable, or failing its
+        manifest).  An entry that fails it is removed, so the next publish
+        of its key replaces it.  The hit is the caller's to count
+        (``_hit``), once the payload is in hand."""
         d = os.path.join(self.root, kind, key)
         try:
             with open(os.path.join(d, "entry.json"), "r", encoding="utf-8") as fh:
@@ -143,19 +147,25 @@ class ResultCache:
             with open(os.path.join(d, "manifest.json"), "r", encoding="utf-8") as fh:
                 manifest = json.load(fh)
         except FileNotFoundError:
+            obs.metrics.inc(f"rcache.{kind}_miss")
             return None
         except (OSError, ValueError) as ex:
-            _log.warning("rcache %s entry %s unreadable (%s: %s); a miss", kind, key[:12], type(ex).__name__, ex)
+            obs.metrics.inc(f"rcache.{kind}_stale")
+            _log.warning("rcache.entry_unreadable", kind=kind, key=key, error=f"{type(ex).__name__}: {ex}")
             return None
         bad = _first_mismatch(d, manifest)
         if bad is not None:
-            _log.error(
-                "rcache %s entry %s fails its manifest at %s; removing it and recomputing instead of serving it",
-                kind, key[:12], bad,
-            )
+            obs.metrics.inc(f"rcache.{kind}_stale")
+            _log.error("rcache.entry_corrupt", kind=kind, key=key, file=bad,
+                       detail="failing its manifest; removing it and recomputing instead of serving it")
             self._discard(d)
             return None
         return entry, d, manifest
+
+    def _hit(self, kind: str, entry_dir: str) -> None:
+        """A served hit: its counter and the LRU last-use stamp."""
+        obs.metrics.inc(f"rcache.{kind}_hit")
+        self._stamp(entry_dir)
 
     @staticmethod
     def _whole(entry_dir: str) -> bool:
@@ -203,6 +213,7 @@ class ResultCache:
                 with self._publish_lock(kind):
                     if os.path.isdir(final) and self._whole(final):
                         # Same key, same bytes: the winner of the race stays.
+                        obs.metrics.inc("rcache.publish_race")
                         shutil.rmtree(tmp, ignore_errors=True)
                     else:
                         self._discard(final)
@@ -210,10 +221,12 @@ class ResultCache:
             except BaseException:
                 shutil.rmtree(tmp, ignore_errors=True)
                 raise
+            obs.metrics.inc(f"rcache.{kind}_put")
             self._evict_over_cap(keep=final)
             return True
         except Exception as ex:
-            _log.warning("rcache %s write of %s failed: %s: %s", kind, key[:12], type(ex).__name__, ex)
+            obs.metrics.inc("rcache.write_failed")
+            _log.warning("rcache.write_failed", kind=kind, key=key, error=f"{type(ex).__name__}: {ex}")
             return False
 
     # ------------------------------------------------------------- reports
@@ -229,37 +242,40 @@ class ResultCache:
             return False
         entry, d, manifest = got
         t0 = time.perf_counter()
-        dsts: dict[str, str] = {}
-        for rel, *_ in manifest:
-            dsts[os.path.relpath(rel, "tree")] = os.path.join(d, rel)
-        used = [d]
-        for pkey in entry.get("partials", ()):
-            part = self._load_entry("partial", pkey)
-            if part is None:
-                _log.info("rcache report %s names partial %s, which is gone; a miss", key[:12], pkey[:12])
+        with obs.span("report:cache_restore", key=key[:12]):
+            dsts: dict[str, str] = {}
+            for rel, *_ in manifest:
+                dsts[os.path.relpath(rel, "tree")] = os.path.join(d, rel)
+            used = []
+            for pkey in entry.get("partials", ()):
+                part = self._load_entry("partial", pkey)
+                if part is None:
+                    obs.metrics.inc("rcache.report_stale")  # metrics-doc: rcache.<kind>_stale
+                    return False
+                _, pd, pman = part
+                used.append(pd)
+                for rel, *_ in pman:
+                    if rel.startswith("figures/"):
+                        # The report's own copy wins (a name two partials list).
+                        dsts.setdefault(rel, os.path.join(pd, rel))
+            os.makedirs(results_root, exist_ok=True)
+            tmp = f"{report_dir}.tmp-{uuid.uuid4().hex[:8]}"
+            try:
+                _link_all([(src, os.path.join(tmp, rel)) for rel, src in dsts.items()])
+                if os.path.isdir(report_dir):
+                    shutil.rmtree(report_dir)
+                os.rename(tmp, report_dir)
+            except OSError as ex:
+                shutil.rmtree(tmp, ignore_errors=True)
+                obs.metrics.inc("rcache.restore_failed")
+                _log.warning("rcache.restore_failed", key=key, error=str(ex))
                 return False
-            _, pd, pman = part
-            used.append(pd)
-            for rel, *_ in pman:
-                if rel.startswith("figures/"):
-                    # The report's own copy wins (a name two partials list).
-                    dsts.setdefault(rel, os.path.join(pd, rel))
-        os.makedirs(results_root, exist_ok=True)
-        tmp = f"{report_dir}.tmp-{uuid.uuid4().hex[:8]}"
-        try:
-            _link_all([(src, os.path.join(tmp, rel)) for rel, src in dsts.items()])
-            if os.path.isdir(report_dir):
-                shutil.rmtree(report_dir)
-            os.rename(tmp, report_dir)
-        except OSError as ex:
-            shutil.rmtree(tmp, ignore_errors=True)
-            _log.warning("rcache restore of report %s failed (%s); a miss", key[:12], ex)
-            return False
+        self._hit("report", d)
         for ed in used:
             self._stamp(ed)
-        _log.info(
-            "rcache report hit %s -> %s: %d files in %.3f s", key[:12], report_dir, len(dsts), time.perf_counter() - t0
-        )
+        obs.metrics.observe("rcache.restore_s", time.perf_counter() - t0)
+        _log.info("rcache.report_hit", key=key[:12], report_dir=report_dir, files=len(dsts),
+                  seconds=round(time.perf_counter() - t0, 3))
         return True
 
     def put_report(self, key: str, report_dir: str, exclude: frozenset, partials: dict[str, list[str]]) -> bool:
@@ -294,7 +310,8 @@ class ResultCache:
             with open(os.path.join(d, "partial.json"), "r", encoding="utf-8") as fh:
                 p = SegmentPartial.from_json(json.load(fh))
         except (OSError, KeyError, TypeError, ValueError) as ex:
-            _log.warning("rcache partial %s undecodable (%s: %s); a miss", key[:12], type(ex).__name__, ex)
+            obs.metrics.inc("rcache.partial_stale")
+            _log.warning("rcache.partial_undecodable", key=key, error=f"{type(ex).__name__}: {ex}")
             return None
         linked: list[str] = []
         try:
@@ -305,11 +322,14 @@ class ResultCache:
         except OSError as ex:
             for n in linked:
                 os.remove(os.path.join(stage_dir, n))
-            _log.warning("rcache partial %s cannot be staged whole (%s); a miss", key[:12], ex)
+            obs.metrics.inc("rcache.figures_missing")
+            _log.error("rcache.figure_restore_failed", entry=d, error=f"{type(ex).__name__}: {ex}",
+                       detail="a cached figure cannot be staged; the partial is a miss and its segment is mapped")
             if not self._whole(d):
                 self._discard(d)
             return None
-        self._stamp(d)
+        self._hit("partial", d)
+        obs.metrics.inc("rcache.figures_restored", len(linked))
         return p
 
     def put_partial(self, key: str, partial, figures_dir: str) -> bool:
@@ -336,9 +356,10 @@ class ResultCache:
             with open(os.path.join(d, "payload.bin"), "rb") as fh:
                 payload = fh.read()
         except OSError as ex:
-            _log.warning("rcache blob_%s %s unreadable (%s); a miss", namespace, key[:12], ex)
+            obs.metrics.inc(f"rcache.blob_{namespace}_stale")
+            _log.warning("rcache.entry_unreadable", kind=f"blob_{namespace}", key=key, error=str(ex))
             return None
-        self._stamp(d)
+        self._hit(f"blob_{namespace}", d)
         return payload
 
     def put_blob(self, namespace: str, key: str, payload: bytes) -> bool:
@@ -377,6 +398,7 @@ class ResultCache:
                     try:
                         if now - os.path.getmtime(path) >= self._WRECKAGE_MAX_AGE_S:
                             shutil.rmtree(path, ignore_errors=True)
+                            obs.metrics.inc("rcache.gc_wreckage")
                     except OSError:
                         pass
                     continue
@@ -396,4 +418,5 @@ class ResultCache:
                 continue
             shutil.rmtree(path, ignore_errors=True)
             total -= size
-            _log.info("rcache evicted %s (%.1f MB)", path, size / 1e6)
+            obs.metrics.inc("rcache.evicted")
+            _log.info("rcache.evicted", entry=path, freed_mb=round(size / 1e6, 1))

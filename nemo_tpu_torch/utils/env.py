@@ -10,10 +10,11 @@ never which algorithm analyzes the corpus.  An enumerated knob
 
 from __future__ import annotations
 
-import logging
 import os
 
-_log = logging.getLogger("nemo_tpu_torch.env")
+from nemo_tpu_torch.obs import log as obs_log
+
+_log = obs_log.get_logger("nemo.env")
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -28,7 +29,7 @@ def env_flag(name: str, default: bool) -> bool:
         return True
     if raw in _FALSE:
         return False
-    _log.warning("%s=%r is not a recognized boolean; using %r", name, raw, default)
+    _log.warning("env.bad_value", name=name, value=raw, detail="is not a recognized boolean", using=default)
     return default
 
 
@@ -40,10 +41,10 @@ def env_int(name: str, default: int, minimum: int = 0) -> int:
     try:
         n = int(raw)
     except ValueError:
-        _log.warning("%s=%r is not an integer; using %r", name, raw, default)
+        _log.warning("env.bad_value", name=name, value=raw, detail="is not an integer", using=default)
         return default
     if n < minimum:
-        _log.warning("%s=%r must be >= %d; using %r", name, raw, minimum, default)
+        _log.warning("env.bad_value", name=name, value=raw, detail=f"must be >= {minimum}", using=default)
         return default
     return n
 
@@ -56,10 +57,10 @@ def env_float(name: str, default: float, minimum: float = 0.0) -> float:
     try:
         v = float(raw)
     except ValueError:
-        _log.warning("%s=%r is not a number; using %r", name, raw, default)
+        _log.warning("env.bad_value", name=name, value=raw, detail="is not a number", using=default)
         return default
     if v < minimum:
-        _log.warning("%s=%r must be >= %s; using %r", name, raw, minimum, default)
+        _log.warning("env.bad_value", name=name, value=raw, detail=f"must be >= {minimum}", using=default)
         return default
     return v
 

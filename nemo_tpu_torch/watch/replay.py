@@ -10,13 +10,14 @@ SRC`` drives a Watcher with it.
 
 from __future__ import annotations
 
-import logging
 import math
 import os
 import threading
 import time
 
-_log = logging.getLogger("nemo_tpu_torch.watch")
+from nemo_tpu_torch import obs
+
+_log = obs.log.get_logger("nemo.watch")
 
 
 def replay_plan(n_runs: int, generations: int) -> list[int]:
@@ -35,9 +36,11 @@ def replay_corpus(src_dir: str, dst_dir: str, generations: int = 3, interval_s: 
     from nemo_tpu_torch.ingest import adapters
 
     inj = adapters.resolve_injector(src_dir, injector)
-    plan = replay_plan(inj.count_runs(src_dir), generations)
+    total = inj.count_runs(src_dir)
+    plan = replay_plan(total, generations)
     os.makedirs(dst_dir, exist_ok=True)
-    _log.info("replaying %s into %s in %d generations, %.3f s apart", src_dir, dst_dir, len(plan), interval_s)
+    _log.info("watch.replay_start", src=src_dir, dst=dst_dir, runs=total, generations=len(plan),
+              interval_s=interval_s)
     written = 0
     for g, n in enumerate(plan):
         if stop is not None and stop.is_set():
@@ -50,7 +53,7 @@ def replay_corpus(src_dir: str, dst_dir: str, generations: int = 3, interval_s: 
                 time.sleep(interval_s)
         inj.materialize_prefix(src_dir, dst_dir, n)
         written += 1
-        _log.info("replay generation %d of %s: %d runs", g + 1, dst_dir, n)
+        _log.info("watch.replay_generation", dst=dst_dir, generation=g + 1, runs=n)
     return written
 
 

@@ -22,12 +22,15 @@ owns one sweep directory.  Each cycle:
      one flip later.
   5. **Push**: every subscriber queue gets one ``report_update`` event: the
      update's ordinal, new and total runs, the evidence that the update was
-     incremental (runs mapped and segments cached from the result cache's
-     record, and the backend's dispatches and host-lane runs of the cycle)
-     and the changed report files as ``{relpath: sha256[:12]}``.
+     incremental (``delta.runs_mapped``, ``delta.segments_cached`` and the
+     ``kernel.dispatches.*`` sum, each the obs counters' delta around the
+     cycle's ``watch:cycle`` span) and the changed report files as
+     ``{relpath: sha256[:12]}``; the ``watch.*`` metrics record it too.
 
-A cycle that fails is logged with its traceback, pushed as ``watch_error``
-and retried at the next poll, as the JAX package's is; the next cycle
+A cycle that fails is logged with its traceback, counted
+(``watch.cycle_failed``), handed to the flight recorder (a no-op unless
+one is armed), pushed as ``watch_error`` and retried at the next poll, as
+the JAX package's is; the next cycle
 builds its backend again on the same device (a kernel that fails to build
 or launch raises inside the cycle, and nothing falls back to another
 device).
@@ -36,16 +39,18 @@ device).
 from __future__ import annotations
 
 import hashlib
-import logging
 import os
 import queue as _queue
 import shutil
 import threading
 import time
+import traceback
 import uuid
 from dataclasses import dataclass, field
 
-_log = logging.getLogger("nemo_tpu_torch.watch")
+from nemo_tpu_torch import obs
+
+_log = obs.log.get_logger("nemo.watch")
 
 #: Cap on the changed files an event lists: it is a notification, not the
 #: report.
@@ -157,8 +162,8 @@ class Watcher:
                 self._stop.wait(cfg.poll_s)
         if injector is None:
             return self.updates
-        _log.info("watching %s (%s), poll %.3f s, debounce %.3f s", self.corpus_dir, injector.name, cfg.poll_s,
-                  cfg.debounce_s)
+        _log.info("watch.start", corpus=self.corpus_dir, injector=injector.name, poll_s=cfg.poll_s,
+                  debounce_s=cfg.debounce_s)
         last = None  # the token of the last analysed state
         while not self._stop.is_set():
             token = self._token(injector)
@@ -179,8 +184,10 @@ class Watcher:
                 self._cycle(injector)
             except Exception as ex:
                 detail = f"{type(ex).__name__}: {ex}"
-                _log.warning("watch cycle of %s failed (%s); retrying at the next change", self.corpus_dir, detail,
-                             exc_info=True)
+                obs.metrics.inc("watch.cycle_failed")
+                _log.warning("watch.cycle_failed", corpus=self.corpus_dir, error=detail,
+                             traceback=traceback.format_exc())
+                obs.flight.trigger("watch_cycle_failed", corpus=self.corpus_dir, error=detail)
                 self._push({"event": "watch_error", "dir": self.corpus_dir, "detail": detail})
                 # The token is not recorded: the next poll retries this state.
                 self._stop.wait(cfg.poll_s)
@@ -192,19 +199,22 @@ class Watcher:
             last = (*token[:-1], self._qstats())
             if cfg.max_updates and self.updates >= cfg.max_updates:
                 break
-        _log.info("stopped watching %s after %d updates", self.corpus_dir, self.updates)
+        _log.info("watch.stop", corpus=self.corpus_dir, updates=self.updates)
         return self.updates
 
     def _cycle(self, injector) -> None:
+        from nemo_tpu_torch.analysis.delta import kernel_dispatch_count
         from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
 
         cfg = self.config
         name = os.path.basename(os.path.normpath(self.corpus_dir))
         gen = os.path.join(self.results_root, ".watch", f"{name}-gen-{self.updates:06d}-{uuid.uuid4().hex[:6]}")
         t0 = time.perf_counter()
-        backend = self.make_backend()
-        result = run_debug(self.corpus_dir, gen, backend, figures=cfg.figures, report_name=name,
-                           injector=cfg.injector, **cfg.run_debug_kwargs)
+        before = obs.metrics.snapshot()["counters"]
+        with obs.span("watch:cycle", dir=name, update=self.updates, injector=injector.name):
+            result = run_debug(self.corpus_dir, gen, self.make_backend(), figures=cfg.figures, report_name=name,
+                               injector=cfg.injector, **cfg.run_debug_kwargs)
+        after = obs.metrics.snapshot()["counters"]
         latency = time.perf_counter() - t0
 
         molly = result.molly
@@ -217,14 +227,14 @@ class Watcher:
         ]
         new_runs = max(0, runs_total - self._runs_total)
         self._runs_total = runs_total
-        # The evidence that the update was incremental.
-        rc = result.result_cache
-        if rc.get("state") == "report_hit":
-            runs_mapped = 0
-        else:
-            runs_mapped = rc.get("runs_mapped", runs_total)
-        ex = getattr(backend, "executor", None)
-        dispatches = (sum(ex.dispatches.values()) + sum(ex.host_runs.values())) if ex is not None else 0
+        # The evidence that the update was incremental: the counters'
+        # deltas around the cycle.
+        def delta_of(key: str) -> int:
+            return int(after.get(key, 0)) - int(before.get(key, 0))
+
+        runs_mapped = delta_of("delta.runs_mapped")
+        segments_cached = delta_of("delta.segments_cached")
+        dispatches = kernel_dispatch_count(after) - kernel_dispatch_count(before)
 
         tree = report_tree_bytes(result.report_dir)
         digests = {p: hashlib.sha256(b).hexdigest()[:12] for p, b in tree.items()}
@@ -234,6 +244,10 @@ class Watcher:
 
         live = self._publish(result.report_dir, gen, name)
         self.updates += 1
+        obs.metrics.inc("watch.updates")
+        obs.metrics.inc("watch.new_runs", new_runs)
+        obs.metrics.observe("watch.update_latency_s", latency)
+        obs.metrics.gauge("watch.runs_total", runs_total)
         event = {
             "event": "report_update",
             "dir": self.corpus_dir,
@@ -242,7 +256,7 @@ class Watcher:
             "new_runs": new_runs,
             "quarantined": len(quarantined),
             "runs_mapped": runs_mapped,
-            "segments_cached": rc.get("segments_cached", 0),
+            "segments_cached": segments_cached,
             "kernel_dispatches": dispatches,
             "update_latency_s": round(latency, 4),
             "report_dir": live,
@@ -250,9 +264,9 @@ class Watcher:
             "removed": removed[:_MAX_CHANGED],
             "sections": {p: digests[p] for p in changed[:_MAX_CHANGED]},
         }
-        _log.info("watch update %d of %s: %d runs (+%d), %d mapped, %d dispatches, %d files changed, %.3f s",
-                  self.updates, self.corpus_dir, runs_total, new_runs, runs_mapped, dispatches, len(changed),
-                  latency)
+        _log.info("watch.update", corpus=self.corpus_dir, update=self.updates, runs_total=runs_total,
+                  new_runs=new_runs, runs_mapped=runs_mapped, dispatches=dispatches, changed=len(changed),
+                  seconds=round(latency, 3))
         self._push(event)
 
     def _publish(self, gen_report_dir: str, gen_root: str, name: str) -> str:
@@ -265,7 +279,7 @@ class Watcher:
         if os.path.lexists(live) and not os.path.islink(live):
             aside = f"{live}.pre-watch-{uuid.uuid4().hex[:6]}"
             os.rename(live, aside)
-            _log.warning("moved the report %s aside to %s for the live link", live, aside)
+            _log.warning("watch.rotated_existing_report", report=live, moved_to=aside)
         tmp_link = f"{live}.link-{uuid.uuid4().hex[:6]}"
         os.symlink(gen_report_dir, tmp_link)
         os.replace(tmp_link, live)

@@ -19,7 +19,6 @@ Tolerance: none.
 """
 
 import json
-import logging
 import os
 
 import numpy as np
@@ -142,7 +141,13 @@ def test_grown_directory_appends_a_segment(full_dir, jax_report, tmp_path):
     _assert_same_corpus(warm.native_corpus, ingest_native(cd, keep_handle=True), exact=False)
 
 
-def test_corrupt_shard_is_a_logged_miss_then_reparsed(full_dir, jax_report, tmp_path, caplog):
+def _log_records(path) -> list[dict]:
+    """The obs JSON-lines log records written to ``path`` (NEMO_LOG_FILE)."""
+    with open(path, encoding="utf-8") as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def test_corrupt_shard_is_a_logged_miss_then_reparsed(full_dir, jax_report, tmp_path, monkeypatch):
     cc = str(tmp_path / "cc")
     _report(full_dir, str(tmp_path / "R0"), cc)
     store = CorpusStore(cc)
@@ -152,9 +157,11 @@ def test_corrupt_shard_is_a_logged_miss_then_reparsed(full_dir, jax_report, tmp_
         byte = fh.read(1)
         fh.seek(100)
         fh.write(bytes([byte[0] ^ 0xFF]))
-    with caplog.at_level(logging.ERROR, logger="nemo_tpu_torch.store"):
-        assert store.load_packed(full_dir) is None
-    assert any("corrupt" in r.getMessage() and "crc32" in r.getMessage() for r in caplog.records)
+    log = tmp_path / "log.jsonl"
+    monkeypatch.setenv("NEMO_LOG_FILE", str(log))
+    assert store.load_packed(full_dir) is None
+    assert any(r["level"] == "error" and r["event"] == "store.corrupt" and "crc32" in r["error"]
+               for r in _log_records(log))
     res = _report(full_dir, str(tmp_path / "R1"), cc)
     assert res.ingest == "native"  # re-parsed, and the store repopulated
     assert report_tree_bytes(res.report_dir) == jax_report(full_dir)
@@ -174,7 +181,7 @@ def test_python_populate_equals_native_populate(full_dir, tmp_path):
     assert [s["fingerprint"] for s in a.store_segments] == [s["fingerprint"] for s in b.store_segments]
 
 
-def test_quarantined_corpus_is_not_stored(full_dir, tmp_path, caplog):
+def test_quarantined_corpus_is_not_stored(full_dir, tmp_path, monkeypatch):
     """The quarantined run is not stored, the rest of the corpus is: the
     store holds the healthy rows with the quarantine record, and a warm hit
     reproduces the cold report, quarantine.json included."""
@@ -185,10 +192,12 @@ def test_quarantined_corpus_is_not_stored(full_dir, tmp_path, caplog):
     with open(os.path.join(cd, "run_3_post_provenance.json"), "w") as fh:
         fh.write('{"goals": [')
     cc = str(tmp_path / "cc")
-    with caplog.at_level(logging.WARNING):
-        res = _report(cd, str(tmp_path / "R"), cc)
+    log = tmp_path / "log.jsonl"
+    monkeypatch.setenv("NEMO_LOG_FILE", str(log))
+    res = _report(cd, str(tmp_path / "R"), cc)
     assert res.ingest == "python_quarantine_fallback"
-    assert any("quarantining Python loader" in r.getMessage() for r in caplog.records)
+    assert any(r["level"] == "warning" and r["event"] == "ingest.native_failed_quarantine_fallback"
+               and "quarantining Python loader" in r["detail"] for r in _log_records(log))
     store = CorpusStore(cc)
     assert store.probe(cd) == "hit"
     with open(os.path.join(store.store_dir(cd), "header.json")) as fh:
