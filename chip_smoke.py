@@ -134,6 +134,24 @@ each fatal (non-zero exit, no result line) on failure:
      device peak, mem.device_peak_bytes of its telemetry.json, the
      allocator's peak reset by the smoke just before each report
      ({"memory": {...}});
+  6j. the measured platform profile (nemo_tpu_torch/platform), in a fresh
+     profile directory, the profile on (NEMO_PROFILE=auto; phases 5-6i
+     run with it off, the default): the first TorchBackend("cuda")
+     calibrates exactly once (profile.calibrated 1, probe dispatches, K1
+     launched as the LaunchLog counts it) to a sound fit (a device slope
+     below the host unit, a budget inside its clamps); after the loaded profiles are forgotten a new
+     backend loads it (profile.loaded 1, no probe dispatch, no launch);
+     the six families' default-route reports under the seeded and the
+     measured constants in turns (seeded, measured, measured, seeded), each
+     tree equal to phase 5's, both route lists printed; bench.py's query
+     over the families on the measured crossover, each document equal to
+     the seeded one, K2 once a device bucket; a truncated profile stays
+     seeded (profile.stale 1, no calibration); under off every constant is
+     seeded; --calibrate (its fit sound too) and prewarm in subprocesses
+     ({"platform_profile":
+     {...}}: fingerprint, constants with their source, probes, calibration
+     and build walls, the families' walls seeded and measured, routes
+     changed);
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -155,6 +173,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2326,6 +2345,186 @@ def obs_path(work: str, kernels, dirs: dict, zk_tree: dict, corpus_cache: str) -
     return launches
 
 
+def platform_path(work: str, kernels, dirs: dict, trees: dict, corpus_cache: str) -> dict:
+    """Phase 6j: the measured platform profile on the card (see the module
+    docstring), in a fresh profile directory under ``work``.  Every report
+    must equal the family's tree of phase 5 and every query document the
+    seeded one.  Prints {"platform_profile": {...}}.  Returns the launches
+    by kernel."""
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+    from nemo_tpu_torch.platform import profile as pp
+    from nemo_tpu_torch.query.engine import QUERY_HOST_WORK, derived_query_host_work, execute_query, ingest_corpus
+    from nemo_tpu_torch.query.lang import parse_query
+
+    root = os.path.join(work, "platform")
+    pdir = os.path.join(root, "profiles")
+    os.environ.update(NEMO_PROFILE="auto", NEMO_PROFILE_DIR=pdir)
+    pp.reset_active_profile()
+    launches = {k.__name__: 0 for k in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    def counters(fn):
+        before = obs.metrics.snapshot()
+        out = fn()
+        return out, obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"]
+
+    first = sorted(dirs)[0]
+    molly = ingest_corpus(dirs[first], corpus_cache)
+
+    def first_contact(label):
+        """A new backend on the card and its init_graph_db, counted; returns
+        (the backend, launches, wall, counter deltas)."""
+        backend = TorchBackend(device="cuda")
+        (_, counts, wall), c = counters(lambda: counted_call(label, kernels,
+                                                             lambda: backend.init_graph_db("", molly)))
+        return backend, counts, wall, c
+
+    try:
+        # (a) Cold: the first backend on the card calibrates, once.
+        label = "platform calibration"
+        _, counts, wall, c = first_contact(label)
+        add(counts)
+        prof = pp.active_profile("cuda")
+        if (c.get("profile.calibrated") != 1 or not c.get("profile.probe.dispatches") or counts["closure"] <= 0
+                or counts["closure"] != label_launches(label, "closure") or prof is None):
+            raise AssertionError(f"{label}: counters {c}, launches {counts}")
+        _sound_fit(label, {r["name"]: r["value"] for r in pp.constant_sources("cuda")})
+        out = {"fingerprint": prof.fingerprint, "key": prof.key, "constants": pp.constant_sources("cuda"),
+               "probes": prof.probes, "calibration_wall_s": round(prof.calibration_wall_s, 4),
+               "build_wall_s": round(prof.probes["build_wall_s"], 4), "cold_init_s": round(wall, 4),
+               "cold_launches": counts, "probe_dispatches": c["profile.probe.dispatches"]}
+        log(f"{label}: {c['profile.probe.dispatches']} probe dispatches, launches {counts}, calibration "
+            f"{prof.calibration_wall_s:.3f} s after a {prof.probes['build_wall_s']:.3f} s build; init_graph_db "
+            f"{wall:.3f} s; constants {[(r['name'], r['value'], r['source']) for r in out['constants']]}")
+
+        # (b) Warm: another process (the loaded profiles forgotten) loads it.
+        pp.reset_active_profile()
+        backend, counts, wall, c = first_contact("platform warm")
+        if c.get("profile.loaded") != 1 or c.get("profile.probe.dispatches") or c.get("profile.calibrated") or any(
+                counts.values()):
+            raise AssertionError(f"platform warm: counters {c}, launches {counts}")
+        out["warm_init_s"] = round(wall, 4)
+        measured_budget = {k: getattr(backend, k) for k in ("analysis_host_work", "diff_host_work",
+                                                           "synth_host_work", "sparse_device_mem_bytes")}
+
+        # (c) The families' default-route reports, seeded and measured, in
+        # turns (seeded, measured, measured, seeded), each tree equal to
+        # phase 5's.
+        walls = {name: {"seeded": [], "measured": []} for name in dirs}
+        routes = {}
+        for name, cd in dirs.items():
+            for mode in ("seeded", "measured", "measured", "seeded"):
+                with pp.mode_override("off" if mode == "seeded" else None):
+                    label = f"platform {mode} {name}"
+                    res, backend, tree, counts = report_counted(label, cd, kernels, os.path.join(root, "reports"),
+                                                                REPORT_FIGURES, name, default_routes=True)
+                add(counts)
+                _same_tree(label, tree, trees[name], "the family's report of phase 5")
+                walls[name][mode].append(round(res.report_wall_s, 4))
+                routes.setdefault(name, {})[mode] = [(r["verb"], r["route"], r["rows"], r["v"], r["e"], r["work"],
+                                                      r["reason"]) for r in backend.analysis_routes]
+                shutil.rmtree(res.report_dir)
+        sums = {mode: round(sum(sum(w[mode]) for w in walls.values()), 4) for mode in ("seeded", "measured")}
+        changed = {name: sum(a != b for a, b in zip(r["seeded"], r["measured"])) for name, r in routes.items()}
+        for name, r in routes.items():
+            log(f"platform routes {name}: seeded {r['seeded']}; measured {r['measured']}")
+        out.update(family_walls=walls, wall_sums=sums, measured_over_seeded=round(sums["measured"] / sums["seeded"], 4),
+                   routes_changed=changed, measured_budgets=measured_budget)
+        log(f"platform reports: seeded {sums['seeded']} s, measured {sums['measured']} s over "
+            f"{2 * len(dirs)} reports each; routes changed {changed}")
+
+        # (d) The families' queries on the measured crossover, each document
+        # equal to the seeded one.
+        q = parse_query(QUERY_TEXT)
+        crossover = derived_query_host_work("cuda")
+        out["query"] = {"crossover": crossover, "families": {}}
+        for name, cd in dirs.items():
+            qm = ingest_corpus(cd, corpus_cache)
+            with pp.mode_override("off"):
+                seeded, s_counts, s_wall = counted_call(f"platform query seeded {name}", kernels, lambda: execute_query(
+                    q, qm, device="cuda", use_cache=False))
+            qroutes = []
+            doc, counts, q_wall = counted_call(f"platform query measured {name}", kernels, lambda: execute_query(
+                q, qm, device="cuda", use_cache=False, routes=qroutes))
+            add(s_counts)
+            add(counts)
+            device_buckets = sum(r["lane"] == "sparse_device" for r in qroutes)
+            if _doc_bytes(doc) != _doc_bytes(seeded) or counts["edge_wave"] != device_buckets or any(
+                    r["lane"] != ("host" if r["work"] < crossover else "sparse_device") for r in qroutes):
+                raise AssertionError(f"platform query {name}: launches {counts} over routes {qroutes}, or the "
+                                     f"document differs from the seeded one")
+            out["query"]["families"][name] = {"seeded_s": round(s_wall, 4), "measured_s": round(q_wall, 4),
+                                              "device_buckets": device_buckets, "buckets": len(qroutes),
+                                              "launches": counts}
+        log(f"platform queries on the measured crossover {crossover}: {json.dumps(out['query'])}")
+
+        # (e) Corrupt: a truncated file stays seeded, with profile.stale, and
+        # calibrates nothing.
+        path = pp.profile_path(prof.key)
+        with open(path, "r+", encoding="utf-8") as fh:
+            fh.truncate(os.path.getsize(path) // 2)
+        pp.reset_active_profile()
+        backend, counts, _, c = first_contact("platform corrupt")
+        seeded_knobs = {"analysis_host_work": 100_000, "diff_host_work": 2_000_000, "synth_host_work": 100_000,
+                        "sparse_device_mem_bytes": 256_000_000}
+        if (c.get("profile.stale") != 1 or c.get("profile.calibrated") or any(counts.values())
+                or {k: getattr(backend, k) for k in seeded_knobs} != seeded_knobs):
+            raise AssertionError(f"platform corrupt: counters {c}, launches {counts}")
+
+        # (f) Off: every constant seeded.
+        with pp.mode_override("off"):
+            backend = TorchBackend(device="cuda")
+            backend.init_graph_db("", molly)
+            if ({k: getattr(backend, k) for k in seeded_knobs} != seeded_knobs
+                    or {r["source"] for r in pp.constant_sources("cuda")} != {"seeded"}
+                    or derived_query_host_work("cuda") != QUERY_HOST_WORK):
+                raise AssertionError("platform off: a constant did not resolve seeded")
+        log("platform corrupt: seeded, profile.stale 1, no calibration; off: every constant seeded")
+
+        # (g) The CLI's --calibrate and prewarm, each in a subprocess.
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        for leg, argv in (("calibrate", ["nemo_tpu_torch.cli", "--calibrate"]),
+                          ("prewarm", ["nemo_tpu_torch.utils.prewarm"])):
+            t = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *argv], cwd=repo, env=env, capture_output=True, text=True,
+                                  timeout=300)
+            if proc.returncode != 0 or ("analysis_host_work =" if leg == "calibrate" else "prewarm done") not in (
+                    proc.stdout):
+                raise AssertionError(f"{leg}: rc {proc.returncode}, stderr {proc.stderr[-2000:]}")
+            if leg == "calibrate":
+                table = {m[1]: float(m[2]) for m in re.finditer(r"^\s*(\w+) = (\S+) \[\w+\]$", proc.stdout, re.M)}
+                _sound_fit(leg, table)
+                out["calibrate_cli_constants"] = table
+                out["calibrate_cli_rejected_rounds"] = int(next(iter(re.findall(
+                    r"^\s*(\d+) probe round\(s\) rejected", proc.stdout, re.M)), 0))
+            out[f"{leg}_cli_s"] = round(time.perf_counter() - t, 4)
+            log(f"{leg} in a subprocess ({out[f'{leg}_cli_s']:.2f} s with the interpreter's start):\n"
+                + proc.stdout.rstrip())
+    finally:
+        os.environ["NEMO_PROFILE"] = "off"
+        os.environ.pop("NEMO_PROFILE_DIR", None)
+        pp.reset_active_profile()
+    print(json.dumps({"platform_profile": out}))
+    shutil.rmtree(root)
+    return launches
+
+
+def _sound_fit(label: str, table: dict) -> None:
+    """Fail unless a calibration on the card resolved (``table``: name ->
+    value) a device slope, measured or seeded, below the measured host unit
+    and an analysis budget inside the fit's clamps (1,000 and 10^8,
+    exclusive): a clamped budget would send every bucket to one lane."""
+    unit, host, budget = (table.get(k) for k in ("sched_device_unit", "sched_host_unit", "analysis_host_work"))
+    if None in (unit, host, budget) or not (unit < host and 1_000 < budget < 100_000_000):
+        raise AssertionError(f"{label}: degenerate fit (device unit {unit}, host unit {host}, "
+                             f"analysis_host_work {budget})")
+
+
 def profile_events(profile_dir: str) -> list[dict]:
     """The events of the one Chrome trace the package's profiler capture
     (run_debug(profile_dir=...), the CLI's --profile) wrote into
@@ -2456,6 +2655,10 @@ def expect_variants(label: str, kernel: str, want: set[str], profile: dict) -> N
 
 
 def main() -> int:
+    # Phases 5-6i route on the seeded constants whatever NEMO_PROFILE the
+    # environment holds; phase 6j turns the profile on in a directory of its
+    # own.  Subprocesses inherit the setting.
+    os.environ["NEMO_PROFILE"] = "off"
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a CUDA card",
               file=sys.stderr)
@@ -2517,24 +2720,25 @@ def main() -> int:
         t = time.perf_counter()
         corpora = corpora_path(work, kernels, dirs, trees)
         log(f"phase 6g wall {time.perf_counter() - t:.1f} s")
-        zk_tree = trees[zk]
-        del trees
         t = time.perf_counter()
         query = query_path(work, kernels, dirs, os.path.join(work, "ingest", "corpus-cache"))
         log(f"phase 6h wall {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        observed = obs_path(work, kernels, dirs, zk_tree, os.path.join(work, "ingest", "corpus-cache"))
+        observed = obs_path(work, kernels, dirs, trees[zk], os.path.join(work, "ingest", "corpus-cache"))
         log(f"phase 6i wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        platform = platform_path(work, kernels, dirs, trees, os.path.join(work, "ingest", "corpus-cache"))
+        log(f"phase 6j wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}, "
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
-        f"observed {observed}")
+        f"observed {observed}, on the platform path {platform}")
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
-            dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed))
+            dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

@@ -92,15 +92,19 @@ def report_tree_bytes(root: str) -> dict[str, bytes]:
 
 
 def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, ingest: str,
-                     result_cache: dict, stream: dict | None = None) -> None:
+                     result_cache: dict, stream: dict | None = None, backend: GraphBackend | None = None) -> None:
     """telemetry.json next to debugging.json: the phase walls, the figure
     pipeline's stats (the frontend's "Run telemetry" section), which ingest
     served the corpus, what the result cache did and, for a map of several
     segments, the stream's and the checkpoints' record; then, as the JAX
     package writes them, the process's metrics snapshot, the trace id of
-    the active trace (None when untraced) and, once the backend module is
+    the active trace (None when untraced), once the backend module is
     loaded in this process, its per-signature kernel cost table and the
-    memory watermarks sampled now."""
+    memory watermarks sampled now and, once the platform profile module is,
+    which routing constants ``backend``'s device and explicit knobs resolve
+    to and where each came from (arg > measured > seeded, platform/
+    profile.py:telemetry_section; also on a report-cache hit, where the
+    backend was never initialized)."""
     doc = {
         "timings": {k: round(v, 6) for k, v in timings.items()},
         "figure_stats": figure_stats,
@@ -117,6 +121,10 @@ def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, 
         if costs:
             doc["kernel_cost"] = costs
         doc["memory"] = tb.sample_memory_watermarks()
+    pp = sys.modules.get("nemo_tpu_torch.platform.profile")
+    dev = getattr(getattr(backend, "executor", None), "device", None)
+    if pp is not None and dev is not None:
+        doc["platform_profile"] = pp.telemetry_section(dev, backend.profile_args())
     with open(os.path.join(report_dir, "telemetry.json"), "w", encoding="utf-8") as fh:
         json.dump(doc, fh, indent=1)
 
@@ -407,6 +415,7 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
             prefetched[1] = _attach_ingest_dir(ex, d)
 
     results: list[DebugResult] = []
+    backends: list = []  # each report's, for its telemetry after the drain
     scheduler = RenderScheduler()
     th: threading.Thread | None = None
     molly = None
@@ -422,7 +431,8 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
                 th = threading.Thread(target=prefetch_next, args=(dirs[k + 1],), daemon=True,
                                       name="nemo-ingest-prefetch")
                 th.start()
-            results.append(run_debug(d, results_root, make_backend(), molly=molly, render_scheduler=scheduler,
+            backends.append(make_backend())
+            results.append(run_debug(d, results_root, backends[-1], molly=molly, render_scheduler=scheduler,
                                      report_name=report_names[k], **kwargs))
             if molly is not None:
                 # The parse's wall on the worker thread, off the critical path.
@@ -439,10 +449,10 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
         scheduler.drain()
         raise
     scheduler.close()
-    for r in results:
+    for r, backend in zip(results, backends):
         r.figure_stats = stats
         _flush_result_cache(r)
-        _write_telemetry(r.report_dir, r.timings, stats, r.ingest, r.result_cache, r.stream)
+        _write_telemetry(r.report_dir, r.timings, stats, r.ingest, r.result_cache, r.stream, backend)
     return results
 
 
@@ -543,7 +553,7 @@ def run_debug(
         if hit:
             timings = timer.as_dict()
             cache_doc = {"state": "report_hit"}
-            _write_telemetry(this_results_dir, timings, None, ingest_kind, cache_doc)
+            _write_telemetry(this_results_dir, timings, None, ingest_kind, cache_doc, backend=backend)
             return DebugResult(molly=molly, report_dir=this_results_dir, timings=timings, figure_stats=None,
                                ingest=ingest_kind, result_cache=cache_doc)
 
@@ -776,7 +786,7 @@ def run_debug(
                 with timer.phase("cache_publish"):
                     _flush_result_cache(result)
                 result.timings = timings = timer.as_dict()
-        _write_telemetry(this_results_dir, timings, fig_stats, ingest_kind, cache_doc, stream_doc)
+        _write_telemetry(this_results_dir, timings, fig_stats, ingest_kind, cache_doc, stream_doc, backend)
         return result
     finally:
         shutil.rmtree(stage_dir, ignore_errors=True)

@@ -84,6 +84,7 @@ from nemo_tpu_torch.ops.sparse_device import (
 )
 from nemo_tpu_torch.ops.sparse_host import sparse_analysis_step, synth_ext_host
 from nemo_tpu_torch.parallel.giant import giant_analysis_host, giant_linear, giant_plan, pad_comp_labels
+from nemo_tpu_torch.platform import profile as _platform_profile
 from nemo_tpu_torch.report.dot import DotGraph
 from nemo_tpu_torch.report.figures import create_diff_dot, create_dot
 
@@ -569,7 +570,13 @@ class TorchBackend(GraphBackend):
     ``sparse_device_mem_bytes`` (dense footprint watermark; 0 disables),
     ``sparse_device_density`` and ``sparse_device_min_v`` (the density
     crossover; density 0 disables).  ``auto`` resolves the same on cpu and
-    cuda.  Buckets run serially in bucket order."""
+    cuda.  Buckets run serially in bucket order.
+
+    The budgets, the watermark and the density default to None: resolved
+    at ``init_graph_db``, after ``platform.ensure_calibrated`` on the
+    executor's device, as the explicit argument, else the device's measured
+    profile, else the seed (platform/profile.py:CONSTANTS).  Until then
+    they hold the argument or the seed."""
 
     #: run_debug's ingest policy reads this: the backend consumes packed
     #: corpus arrays, so ``ingest="auto"`` takes the native loader.
@@ -580,12 +587,12 @@ class TorchBackend(GraphBackend):
         device=None,
         analysis_impl: str = "auto",
         giant_v: int = 4096,
-        sparse_device_mem_bytes: int = 256_000_000,
-        sparse_device_density: float = 1.0 / 256.0,
+        sparse_device_mem_bytes: int | None = None,
+        sparse_device_density: float | None = None,
         sparse_device_min_v: int = 1024,
-        analysis_host_work: int = 100_000,
-        diff_host_work: int = 2_000_000,
-        synth_host_work: int = 100_000,
+        analysis_host_work: int | None = None,
+        diff_host_work: int | None = None,
+        synth_host_work: int | None = None,
         executor: TorchExecutor | None = None,
     ) -> None:
         if analysis_impl not in ANALYSIS_IMPLS:
@@ -593,12 +600,16 @@ class TorchBackend(GraphBackend):
         self.executor = executor if executor is not None else TorchExecutor(device)
         self.analysis_impl = analysis_impl
         self.giant_v = int(giant_v)
-        self.sparse_device_mem_bytes = int(sparse_device_mem_bytes)
-        self.sparse_device_density = float(sparse_device_density)
         self.sparse_device_min_v = int(sparse_device_min_v)
-        self.analysis_host_work = int(analysis_host_work)
-        self.diff_host_work = int(diff_host_work)
-        self.synth_host_work = int(synth_host_work)
+        #: the profile-resolved knobs as given (None: not given)
+        self._given = {
+            "analysis_host_work": analysis_host_work,
+            "diff_host_work": diff_host_work,
+            "synth_host_work": synth_host_work,
+            "sparse_device_mem_bytes": sparse_device_mem_bytes,
+            "sparse_device_density": sparse_device_density,
+        }
+        self._resolve_knobs(_platform_profile.SEEDED)
         #: one record per routed dispatch of the current corpus: verb,
         #: route, rows, v, e, work, reason (the JAX package's
         #: analysis_routes); kept past close_db for the caller to read.
@@ -612,14 +623,29 @@ class TorchBackend(GraphBackend):
         return type(self)(
             analysis_impl=self.analysis_impl,
             giant_v=self.giant_v,
-            sparse_device_mem_bytes=self.sparse_device_mem_bytes,
-            sparse_device_density=self.sparse_device_density,
             sparse_device_min_v=self.sparse_device_min_v,
-            analysis_host_work=self.analysis_host_work,
-            diff_host_work=self.diff_host_work,
-            synth_host_work=self.synth_host_work,
             executor=self.executor,
+            **self._given,
         )
+
+    def _resolve_knobs(self, values: dict) -> None:
+        """Set the profile-resolved knobs: each argument as given, else its
+        constant's value in ``values`` (sparse_device_mem_mb in MB)."""
+        given = self._given
+        mem = given["sparse_device_mem_bytes"]
+        self.sparse_device_mem_bytes = int(values["sparse_device_mem_mb"] * 1e6) if mem is None else int(mem)
+        density = given["sparse_device_density"]
+        self.sparse_device_density = float(values["sparse_device_density"] if density is None else density)
+        for name in ("analysis_host_work", "diff_host_work", "synth_host_work"):
+            setattr(self, name, int(values[name] if given[name] is None else given[name]))
+
+    def profile_args(self) -> dict:
+        """The explicit knobs as profile constants (name -> value in the
+        constant's unit), for the arg > measured > seeded table."""
+        args = {k: v for k, v in self._given.items() if v is not None and k != "sparse_device_mem_bytes"}
+        if self._given["sparse_device_mem_bytes"] is not None:
+            args["sparse_device_mem_mb"] = self._given["sparse_device_mem_bytes"] / 1e6
+        return args
 
     def _release(self, molly: MollyOutput | None) -> None:
         """Drop every per-corpus state and attach ``molly``."""
@@ -651,8 +677,16 @@ class TorchBackend(GraphBackend):
         """Take a packed-first corpus's vocabulary and arrays as they are,
         or pack the Python loader's run objects once into a corpus of the
         same arrays (``conn`` is the reference's graph-store address; the
-        port keeps the signature and needs none).  Host work only: the
-        streamed map calls it on its prefetch thread."""
+        port keeps the signature and needs none).  First, as the JAX
+        package's ``init_graph_db`` does, the platform profile: the first
+        contact with a device under ``NEMO_PROFILE=auto`` and no profile on
+        disk calibrates it once (device work); every later call loads or
+        reuses it, host work only (the streamed map calls it on its
+        prefetch thread).  Then the budgets resolve: argument > measured >
+        seeded."""
+        dev = self.executor.device
+        _platform_profile.ensure_calibrated(dev)
+        self._resolve_knobs(_platform_profile.resolve_constants(dev, self.profile_args()))
         self._release(molly)
         self.analysis_routes = []
         nc = getattr(molly, "native_corpus", None)

@@ -13,6 +13,7 @@ directories, on one device.
         [--replay SRC [--replay-generations N] [--replay-interval-s S]] [--serve PORT] ...
     python -m nemo_tpu_torch.cli query TEXT -faultInjOut <dir> [--device cuda|cpu]
         [--injector ...] [--corpus-cache DIR|off] [--result-cache DIR|off] [--explain]
+    python -m nemo_tpu_torch.cli --calibrate [--device cuda|cpu] [-faultInjOut <dir> ...]
 
 Writes the report tree ``DIR/<corpus>/`` (default ``./results``) of each
 directory; several go through ``run_debug_dirs``, which names the reports
@@ -67,6 +68,17 @@ directory, ingested through the corpus store, and prints its result
 document as JSON; ``--explain`` prints the lowered plan instead and reads
 no corpus.  A malformed query or an unknown name exits 2.
 
+``--profile-mode auto|off|force`` sets the platform profile's mode for the
+run (platform/profile.py; else ``$NEMO_PROFILE``, else ``off``): ``auto``
+loads the device's measured profile and calibrates it once when there is
+none, ``off`` routes on the seeded constants, ``force`` recalibrates once.
+``--calibrate`` recalibrates the device's profile now (bounded by
+``$NEMO_PROFILE_BUDGET_S``, default 8 s, after the build), saves it under
+``$NEMO_PROFILE_DIR`` (default ``~/.cache/nemo_tpu_torch/platform``) and
+prints the constant table; without ``-faultInjOut`` it stops there, with
+it the report routes by the new profile.  Unless a mode is named it runs
+under ``auto``; under ``off`` it refuses (exit 2).
+
 With ``--out FILE`` it writes instead one JSON analysis document (analyze):
 the success and failed iterations, the good run, per-run achieved-antecedent
 goal counts, the four prototype outputs, the missing events of every failed
@@ -95,6 +107,7 @@ from nemo_tpu_torch.analysis.pipeline import INGEST_MODES, run_debug, run_debug_
 from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.adapters import INJECTORS, load_output
 from nemo_tpu_torch.obs import trace as obs_trace
+from nemo_tpu_torch.platform import profile
 
 
 def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", injector: str | None = None) -> dict:
@@ -156,7 +169,7 @@ def main(argv: list[str] | None = None) -> int:
         # only, so the subcommand has a parser of its own.
         return _query_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m nemo_tpu_torch.cli", description=__doc__.split("\n")[0])
-    ap.add_argument("-faultInjOut", dest="fault_inj_out", required=True, nargs="+", metavar="DIR",
+    ap.add_argument("-faultInjOut", dest="fault_inj_out", nargs="+", metavar="DIR",
                     help="fault-injection sweep directory (or directories) to analyze")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--analysis-impl", default="auto", choices=ANALYSIS_IMPLS,
@@ -217,7 +230,52 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--metrics-out", metavar="FILE", default=None,
                     help="after the run, dump the obs metrics registry one-shot in Prometheus text format to "
                          "FILE ('-' for stdout)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="calibrate the device's platform profile now (bounded by $NEMO_PROFILE_BUDGET_S, default "
+                         "8 s, after the build), save it under $NEMO_PROFILE_DIR or ~/.cache/nemo_tpu_torch/platform "
+                         "and print the constant table; recalibrates over an existing profile; without "
+                         "-faultInjOut it exits after calibrating")
+    ap.add_argument("--profile-mode", default=None, choices=("auto", "off", "force"),
+                    help="platform profile: 'auto' loads the measured profile and calibrates once per fingerprint, "
+                         "'off' (the default) routes on the seeded constants, 'force' recalibrates once.  Equivalent "
+                         "env: NEMO_PROFILE")
     args = ap.parse_args(argv)
+    if not args.fault_inj_out and not args.calibrate:
+        ap.error("-faultInjOut is required (unless --calibrate runs standalone)")
+    mode = args.profile_mode
+    if args.calibrate and mode is None and not os.environ.get("NEMO_PROFILE"):
+        mode = "auto"  # asking to calibrate turns the profile on
+    with profile.mode_override(mode):
+        if args.calibrate:
+            code = _calibrate_main(args.device)
+            if not args.fault_inj_out:
+                return code
+        return _report_main(ap, args)
+
+
+def _calibrate_main(device: str) -> int:
+    """--calibrate: one forced calibration of ``device``'s profile, then the
+    resolved constant table (arg > measured > seeded per row, the
+    precedence every consumer uses)."""
+    if profile.profile_mode() == "off":
+        print("platform profile disabled (NEMO_PROFILE=off); nothing to calibrate", file=sys.stderr)
+        return 2
+    prof = profile.ensure_calibrated(device, force=True)
+    fp = prof.fingerprint
+    print(f"platform profile {prof.key} ({fp['platform']}/{fp['device_kind']} x{fp['device_count']}, torch "
+          f"{fp['torch_version']}) calibrated in {prof.calibration_wall_s:.2f}s (build "
+          f"{prof.probes['build_wall_s']:.2f}s) -> {profile.profile_path(prof.key)}")
+    rejected = prof.probes.get("rejected_fits")
+    if rejected:
+        print(f"  {len(rejected)} probe round(s) rejected before the fit (a device slope at or above the host unit)")
+    for row in profile.constant_sources(device):
+        print(f"  {row['name']:>24} = {row['value']} [{row['source']}]")
+    return 0
+
+
+def _report_main(ap, args) -> int:
+    """The report verbs of ``main`` (everything but ``query`` and a
+    standalone ``--calibrate``)."""
     if (args.watch or args.save_corpus or args.out is not None) and len(args.fault_inj_out) != 1:
         ap.error("--watch, --save-corpus and --out take one -faultInjOut directory")
     if args.replay and not args.watch:

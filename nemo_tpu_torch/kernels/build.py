@@ -44,10 +44,14 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (no CUDA toolkit on PATH or under /usr/local/cuda)")
 
 
-def library_path(name: str) -> Path:
+def source_digest(name: str) -> str:
+    """The build digest of csrc/<name>.cu: its source and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:

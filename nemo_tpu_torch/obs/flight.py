@@ -41,6 +41,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import sys
 import threading
 import time
 
@@ -188,6 +189,11 @@ class FlightRecorder:
                 "metrics_delta": _metrics_mod.Metrics.delta(snap, base),
             },
         }
+        # The routing constants live at the anomaly; a sys.modules gate, never
+        # an import: a process that never touched the profile has nothing to say.
+        pp = sys.modules.get("nemo_tpu_torch.platform.profile")
+        if pp is not None:
+            doc["otherData"]["platform_profile"] = pp.telemetry_section()
         safe = "".join(c if c.isalnum() or c in "-_" else "_" for c in reason)
         os.makedirs(self.out_dir, exist_ok=True)
         path = os.path.join(self.out_dir, f"flightrec-{safe}-{self.pid}-{seq:03d}.json")

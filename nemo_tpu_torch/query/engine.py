@@ -17,7 +17,8 @@ A port of the JAX package's ``query/engine.py``:
 
 The JAX package drains the jobs through its heterogeneous scheduler.  The
 port drains them serially, in bucket order, each on the lane that
-scheduler plans with fresh cost models (``query_lane``).
+scheduler plans with fresh cost models under the device's platform
+profile (``query_lane`` against ``derived_query_host_work``).
 """
 
 from __future__ import annotations
@@ -32,15 +33,53 @@ from nemo_tpu_torch import obs
 from nemo_tpu_torch.query.lang import HOP_ADJ, Query, QueryError
 from nemo_tpu_torch.query.plan import QueryPlan, plan_query
 
-#: Bucket work (rows x (V + E)) from which a query job takes the
-#: ``sparse_device`` lane; below it, ``host``.  It is the lane the JAX
-#: package's scheduler plans for a query job with fresh cost models
-#: (nemo_tpu/parallel/sched.py:default_models and HeterogeneousScheduler.
-#: plan): host 1e-6 s a unit; sparse_device a fixed 100,000 x (1e-6 - 5e-8)
-#: = 0.095 s plus 2.5e-7 s a unit; a tie goes to the device.  The two meet
-#: at 0.095 / 7.5e-7 = 126,666.7, so 126,667 is the first work on the
-#: device.  These are the TPU's seeds, not a fit for the H100.
+#: The seeded crossover: ``derived_query_host_work`` with no measured
+#: profile (host 1e-6 s a unit; sparse_device a fixed 100,000 x (1e-6 -
+#: 5e-8) = 0.095 s plus 2.5e-7 s a unit; they meet at 126,666.7).  These
+#: are the TPU's seeds, not a fit for the H100.
 QUERY_HOST_WORK = 126_667
+
+
+def derived_query_host_work(device=None) -> int:
+    """The first bucket work (rows x (V + E)) at which a query job takes the
+    ``sparse_device`` lane: the lane the JAX package's scheduler plans for
+    a query job with fresh cost models (nemo_tpu/parallel/sched.py:
+    default_models and HeterogeneousScheduler.plan) under ``device``'s
+    profile.  Host predicts ``host_unit x work``; sparse_device
+    ``device_fixed + sparse_device_unit x work``, its fixed cost measured,
+    else the analysis budget's worth of the host-device unit spread; a tie
+    goes to the device.  Each constant is measured or seeded
+    (platform/profile.py); with no profile this is QUERY_HOST_WORK."""
+    from nemo_tpu_torch.platform.profile import SEEDED, active_profile
+
+    prof = active_profile(device)
+
+    def measured(name: str) -> float | None:
+        return None if prof is None else prof.measured_value(name)
+
+    def value(name: str) -> float:
+        m = measured(name)
+        return SEEDED[name] if m is None else m
+
+    host_unit = value("sched_host_unit")
+    device_unit = value("sched_device_unit")
+    budget = int(value("analysis_host_work"))
+    fixed = measured("sched_device_fixed")
+    if fixed is None:
+        fixed = budget * max(host_unit - device_unit, 1e-12)
+    fixed, sparse_unit = float(fixed), float(value("sched_sparse_device_unit"))
+
+    def on_device(work: int) -> bool:
+        return fixed + sparse_unit * work <= 0.0 + host_unit * work
+
+    if host_unit <= sparse_unit:
+        return 0 if on_device(0) else 2**63 - 1  # the lines never cross
+    work = max(int(np.ceil(fixed / (host_unit - sparse_unit))), 0)
+    while work > 0 and on_device(work - 1):
+        work -= 1
+    while not on_device(work):
+        work += 1
+    return work
 
 
 def query_lane(work: int, query_host_work: int = QUERY_HOST_WORK) -> str:
@@ -402,7 +441,7 @@ def execute_query(
     device=None,
     result_cache: str | None = None,
     use_cache: bool = True,
-    query_host_work: int = QUERY_HOST_WORK,
+    query_host_work: int | None = None,
     routes: list | None = None,
 ) -> dict:
     """Plan and execute one query over an ingested corpus on ``device``
@@ -415,13 +454,16 @@ def execute_query(
     keyed by ``analysis/delta.py:blob_cache_key``: the whole document
     (namespace ``query``), which a warm repeat returns with no job run, and
     one partial per segment (``query-partial``), so a grown corpus maps
-    only its new segments.  ``query_host_work`` and ``routes``: see
+    only its new segments.  ``query_host_work`` (None:
+    ``derived_query_host_work`` on the device) and ``routes``: see
     :func:`map_segment_runs`."""
     from nemo_tpu_torch.analysis.delta import blob_cache_key, corpus_segments
     from nemo_tpu_torch.device import resolve_device
     from nemo_tpu_torch.store.rcache import resolve_result_cache
 
     dev = resolve_device(device)
+    if query_host_work is None:
+        query_host_work = derived_query_host_work(dev)
     with obs.span("query:plan", agg=q.agg, patterns=len(q.patterns)):
         plan = plan_query(q)
     rc = resolve_result_cache(result_cache) if use_cache else None
@@ -586,6 +628,7 @@ __all__ = [
     "QueryError",
     "QueryPartial",
     "corpus_vocab",
+    "derived_query_host_work",
     "execute_query",
     "finalize",
     "ingest_corpus",

@@ -17,7 +17,9 @@ series for series:
   field for field but walls, paths and generation names;
 * **names**: every series the port's source emits is a row of
   docs/METRICS.md (``tools/metrics_doc.py``'s ``harvest()`` over
-  ``nemo_tpu_torch/``): the port adds no name.
+  ``nemo_tpu_torch/``): the port adds no name;
+* **the platform profile**: one report under a shared measured profile,
+  its ``profile.*`` counters and every other series equal.
 """
 
 import importlib.util
@@ -72,6 +74,8 @@ EXCLUDED = {
                                  "the port has one device and no mesh",
     "analysis.shard.gather_bytes": "the mesh's gather, as kernel.sharded_dispatches",
     "analysis.shard.gather_s": "the mesh's gather, as kernel.sharded_dispatches",
+    "profile.ewma_warm_start": "the scheduler's cross-session EWMA memory waits for the scheduler (Queue A item 2)",
+    "profile.fold_back": "the scheduler's cross-session EWMA memory waits for the scheduler (Queue A item 2)",
 }
 
 #: The port's device lanes (tests/test_torch_report.py).
@@ -153,6 +157,34 @@ def test_report_counters_match_jax_default_routes(corpora, name, tmp_path):
     c = port["counters"]
     assert c["render.figures"] > 0 and c["delta.runs_mapped"] == len(res.molly.runs)
     assert any(k.startswith("kernel.dispatches.") for k in c)
+
+
+def test_report_counters_match_jax_under_one_measured_profile(corpora, tmp_path, monkeypatch):
+    """The same measured constants in each package's own profile file, both
+    packages on auto: the profile's counters (profile.loaded) and every
+    other series equal, the budgets routing both sides alike."""
+    from nemo_tpu.platform import profile as jax_pp
+    from nemo_tpu_torch.platform import profile as pp
+
+    monkeypatch.setenv("NEMO_PROFILE", "auto")
+    monkeypatch.setenv("NEMO_PROFILE_DIR", str(tmp_path / "plat"))
+    consts = {"analysis_host_work": 100.0, "synth_host_work": 100.0, "diff_host_work": 10.0,
+              "sched_host_unit": 3e-7, "sched_device_fixed": 0.004}
+    for mod, fp in ((pp, pp.platform_fingerprint("cpu")), (jax_pp, jax_pp.platform_fingerprint())):
+        mod.reset_active_profile()
+        prof = mod.PlatformProfile(fp)
+        for k, v in consts.items():
+            prof.set_constant(k, v)
+        prof.save()
+    try:
+        (_, port), (_, jax) = _reports(corpora["ZK-1270-racing-sent-flag"], tmp_path, {})
+    finally:
+        pp.reset_active_profile()
+        jax_pp.reset_active_profile()
+    _assert_same(port, jax)
+    c = port["counters"]
+    assert c["profile.loaded"] == 1 and not c.get("profile.calibrated") and not c.get("profile.stale")
+    assert c["kernel.dispatches.fused"] > 0 and c["kernel.dispatches.diff"] == 1
 
 
 @pytest.mark.parametrize("lanes", sorted(DEVICE_LANES))
