@@ -51,8 +51,8 @@ each fatal (non-zero exit, no result line) on failure:
      publish apart), report wall and runs/s printed (a JSON line
      {"ingest_legs": [...]}); then ZK-1270 grown by 200 runs under
      figures=failed, whose report must map only the new segment and equal
-     a from-scratch report; then the same growth through the CLI's
-     defaults (figures=all, both caches on, fresh roots): each of the two
+     a from-scratch report; then the same growth from 400 runs through
+     the CLI's defaults (figures=all, both caches on, fresh roots): each of the two
      reports beside the same corpus's report with both caches off, the
      grown one mapping only the new segment and equal to its from-scratch
      report (a JSON line {"cli_grown": {...}}), and the host's cost of one
@@ -81,7 +81,7 @@ each fatal (non-zero exit, no result line) on failure:
      parses' walls and the shared render drain ({"run_debug_dirs": [...]}),
      every report equal to the cpu report;
   6f. ZK-1270 in the corpus store in three appends, reported (figures
-     failed, fresh result caches) streamed and in memory, each with three
+     none, fresh result caches) streamed and in memory, each with three
      checkpoints, equal to each other and to the cpu report, then again as
      a whole-report hit with no launch ({"stream": {...}}: staged_bytes,
      peak RSS, checkpoints, walls);
@@ -152,6 +152,30 @@ each fatal (non-zero exit, no result line) on failure:
      {...}}: fingerprint, constants with their source, probes, calibration
      and build walls, the families' walls seeded and measured, routes
      changed);
+  6k. the cost-model scheduler (nemo_tpu_torch/parallel/sched.py), each
+     report and query with the launch counts zeroed before and read after:
+     (a) NEMO_SCHED off and on in turns (off, on, on, off) over the sweep,
+     ZK-1270 grown by 200 runs in a store of two segments, the five
+     adversarial families (default routes) and bench.py's query over the
+     six families, each tree equal to its cpu tree and each query document
+     to the off turn's; the walls of each mode, and per on turn each lane's
+     jobs, steals and planned lanes from the decision table; the verdict
+     of the bar for NEMO_SCHED=auto (on beats off on the sweep and the
+     query by more than either mode's spread, slower nowhere); (b) one
+     real fused bucket made into a Job on the card's scheduler: a real
+     out-of-memory on its device execution is raised out of the run,
+     counted, the host never running it, NEMO_BREAKER_FAILURES times; the
+     breaker trips (a flight bundle), refuses the next run (BreakerOpen)
+     and after the cooldown lets one run through as the half-open probe,
+     which launches K1, equals the device output and closes it; the
+     closure wrapper's own error (its library faked to fail) propagates;
+     (c) a job waiting on a spin kernel past NEMO_DISPATCH_TIMEOUT_S ends
+     in DispatchTimeout, its abandoned dispatch records no route, and an
+     abandoned dispatch that raises later has its error raised by the next
+     run; (d) no phase but these injected legs moves
+     analysis.sched.failover, analysis.sched.lane_failure.device,
+     analysis.sched.abandoned_error or
+     sched.breaker.trip ({"sched": {...}});
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -231,8 +255,16 @@ GIANT_FIGURES = {"giant10k": "none", "sd_giantv": "all"}
 #: route phases (6d-6f) run the defaults.
 DEVICE_LANES = dict(analysis_host_work=0, diff_host_work=0, synth_host_work=0)
 #: The streamed corpus of phase 6f: ZK-1270 put in the store in three
-#: appends of these run counts.
+#: appends of these run counts (each segment holds enough runs for a dense
+#: bucket, whose inputs the streamed map stages on the card).
 STREAM_APPENDS = (600, 1200, FAMILY_RUNS)
+#: Phase 6f's figures: none (with failed, their writes took most of the
+#: phase's wall; every check of the phase holds without them).
+STREAM_FIGURES = "none"
+#: Phase 5b's CLI legs: ZK-1270's first CLI_FIRST_RUNS runs, then
+#: INGEST_GROWN_RUNS more, every figure written (a smaller depth than the
+#: other legs': the four legs' figure writes dominated the phase's wall).
+CLI_FIRST_RUNS = 400
 #: Calls per lane at each routed shape of phase 6d.
 LANE_ITERS = 3
 #: Families that phase 5b also reports through the Python loader (the other
@@ -275,6 +307,13 @@ QUERY_FAMILY = "ZK-1270-racing-sent-flag"
 QUERY_BAD = "match wat"
 #: A host-lane budget no bucket reaches.
 QUERY_HOST_ONLY = 10**18
+#: Phase 6k: the modes in turns, and the breaker's knobs of its failover
+#: leg (two failures trip it; a short cooldown; no failover pause).
+SCHED_TURNS = ("off", "on", "on", "off")
+SCHED_BREAKER = {"NEMO_BREAKER_FAILURES": "2", "NEMO_BREAKER_COOLDOWN_S": "1.0", "NEMO_FAILOVER_BACKOFF_S": "0"}
+#: The series that only phase 6k's injected legs may move, in any phase.
+FAILOVER_SERIES = ("analysis.sched.failover", "analysis.sched.lane_failure.device", "sched.breaker.trip",
+                   "analysis.sched.abandoned_error")
 
 
 def log(msg: str) -> None:
@@ -721,9 +760,13 @@ class LaunchLog:
     shape and analysis and keep a copy of the first inputs at each shape."""
 
     def __init__(self):
+        import threading
+
         self.label = None
         self.shapes = {}  # (kernel, key) -> {"args", "kw", "launches": {label: n}}
         self._restore = []
+        # The scheduler's lanes (phase 6k) launch from two threads at once.
+        self._lock = threading.Lock()
 
     def install(self, closure_fn, edge_wave_fn, closure_steps) -> None:
         import nemo_tpu_torch.ops.adjacency as adjacency
@@ -750,18 +793,21 @@ class LaunchLog:
 
     def _proxy(self, name, fn, key_of):
         def proxy(*args, **kw):
-            if self.label is not None and args[0].is_cuda:
-                rec = self.shapes.setdefault((name, key_of(*args, **kw)), {"launches": {}})
-                if "args" not in rec:
-                    rec["args"] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-                    rec["kw"] = dict(kw)
-                rec["launches"][self.label] = rec["launches"].get(self.label, 0) + 1
+            label = self.label
+            if label is not None and args[0].is_cuda:
+                with self._lock:
+                    rec = self.shapes.setdefault((name, key_of(*args, **kw)), {"launches": {}})
+                    if "args" not in rec:
+                        rec["args"] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+                        rec["kw"] = dict(kw)
+                    rec["launches"][label] = rec["launches"].get(label, 0) + 1
             return fn(*args, **kw)
 
         return proxy
 
     def launches(self, kernel: str) -> int:
-        return sum(sum(r["launches"].values()) for (k, _), r in self.shapes.items() if k == kernel)
+        with self._lock:
+            return sum(sum(r["launches"].values()) for (k, _), r in self.shapes.items() if k == kernel)
 
 
 def wave_levels(state, src, dst, mask) -> int:
@@ -1167,8 +1213,8 @@ def cli_report(label: str, argv: list[str], kernels, report_dir: str):
 
 
 def cli_grown(root: str, kernels, zk_dir: str) -> dict:
-    """Phase 5b's CLI leg: ZK-1270's first runs, then INGEST_GROWN_RUNS
-    more, through the CLI's defaults (figures=all, ingest auto) with both
+    """Phase 5b's CLI leg: ZK-1270's first CLI_FIRST_RUNS runs, then
+    INGEST_GROWN_RUNS more, through the CLI's defaults (figures=all, ingest auto) with both
     caches on under fresh roots, each beside the report of the same
     directory with both caches off.  The grown report must map only the
     new segment and equal its from-scratch report.  Returns the launches
@@ -1181,9 +1227,9 @@ def cli_grown(root: str, kernels, zk_dir: str) -> dict:
     caches_off = ["--corpus-cache", "off", "--result-cache", "off"]
     launches = {k.__name__: 0 for k in kernels}
     out, trees = {}, {}
-    n_old = FAMILY_RUNS - INGEST_GROWN_RUNS
+    n_old, n_new = CLI_FIRST_RUNS, CLI_FIRST_RUNS + INGEST_GROWN_RUNS
     for leg, n_runs, caches in (("off_first", n_old, caches_off), ("on_first", n_old, caches_on),
-                                ("on_grown", FAMILY_RUNS, caches_on), ("off_grown", FAMILY_RUNS, caches_off)):
+                                ("on_grown", n_new, caches_on), ("off_grown", n_new, caches_off)):
         grow_corpus_dir(zk_dir, grown, n_runs)
         results = os.path.join(root, "reports", leg)
         wall, tel, trees[leg], counts = cli_report(
@@ -1210,10 +1256,11 @@ def cli_grown(root: str, kernels, zk_dir: str) -> dict:
     return launches
 
 
-def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> tuple[dict, dict]:
+def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> tuple[dict, dict, tuple]:
     """Phase 6: the reports that take the sparse-CSR device tier on cuda.
-    Returns the launches by kernel over them and the giant corpora's
-    directories by name."""
+    Returns the launches by kernel over them, the giant corpora's
+    directories by name and the sweep's (directory, report tree), the tree
+    equal to the cpu report."""
     from nemo_tpu_torch.models.synth import SynthSpec, write_corpus
 
     launches = {k.__name__: 0 for k in kernels}
@@ -1296,6 +1343,7 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> tuple[d
     # the dense buckets are batches, on the block variant.
     expect_variants(f"report {name}", "edge_wave", {"waves_staged", "worklist_warp"}, profile)
     expect_variants(f"report {name}", "closure", {"block"}, profile)
+    sweep = (cd, tree)
 
     # (c) ZK-1270 forced onto the sparse tier: the report equals the dense
     # one of the main path byte for byte, and no dense kernel runs.
@@ -1314,7 +1362,7 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> tuple[d
     # worklist, the diff's shared V = 32 list the staged waves.
     expect_variants(label, "edge_wave", {"worklist_warp", "waves_staged"},
                     profile_family(zk_dir, cuda_root, REPORT_FIGURES, analysis_impl="sparse_device"))
-    return launches, {os.path.basename(cd): cd for cd in giant_dirs}
+    return launches, {os.path.basename(cd): cd for cd in giant_dirs}, sweep
 
 
 def lane_ms(fn, iters: int = LANE_ITERS) -> float:
@@ -1557,7 +1605,7 @@ def dirs_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
 def stream_path(work: str, kernels, zk_dir: str) -> dict:
     """Phase 6f: ZK-1270 put in the corpus store in three appends
     (STREAM_APPENDS runs), then reported on the default routes with
-    figures=failed and a fresh result cache, streamed (NEMO_STREAM=on) and
+    STREAM_FIGURES and a fresh result cache, streamed (NEMO_STREAM=on) and
     in memory (off), each mapping the three segments and publishing three
     checkpoints; the two reports equal each other and the cpu report; then
     the streamed one again as a whole-report hit with no launch.  Prints
@@ -1587,7 +1635,7 @@ def stream_path(work: str, kernels, zk_dir: str) -> dict:
             os.environ["NEMO_STREAM"] = mode
             label = f"stream {mode} {zk}"
             res, _backend, trees[mode], counts = report_counted(
-                label, d, kernels, os.path.join(root, "reports", mode), "failed", zk, ingest="native",
+                label, d, kernels, os.path.join(root, "reports", mode), STREAM_FIGURES, zk, ingest="native",
                 corpus_cache=cc, result_cache=os.path.join(root, f"rc-{mode}"), default_routes=True)
             for k, n in counts.items():
                 launches[k] += n
@@ -1602,7 +1650,7 @@ def stream_path(work: str, kernels, zk_dir: str) -> dict:
         os.environ["NEMO_STREAM"] = "on"
         label = f"stream hit {zk}"
         res, _backend, hit_tree, counts = report_counted(
-            label, d, kernels, os.path.join(root, "reports", "hit"), "failed", zk, ingest="native",
+            label, d, kernels, os.path.join(root, "reports", "hit"), STREAM_FIGURES, zk, ingest="native",
             corpus_cache=cc, result_cache=os.path.join(root, "rc-on"), default_routes=True)
         if res.result_cache != {"state": "report_hit"} or any(counts.values()) or hit_tree != trees["on"]:
             raise AssertionError(f"{label}: result cache {res.result_cache}, launches {counts}")
@@ -1614,7 +1662,7 @@ def stream_path(work: str, kernels, zk_dir: str) -> dict:
             os.environ["NEMO_STREAM"] = saved
     if trees["on"] != trees["off"]:
         raise AssertionError(f"stream {zk}: the streamed report differs from the in-memory one")
-    check_report_cpu_equal(f"stream {zk}", d, trees["on"], os.path.join(root, "cpu"), "failed", zk,
+    check_report_cpu_equal(f"stream {zk}", d, trees["on"], os.path.join(root, "cpu"), STREAM_FIGURES, zk,
                            ingest="python", default_routes=True)
     print(json.dumps({"stream": out}))
     shutil.rmtree(root)
@@ -2514,6 +2562,357 @@ def platform_path(work: str, kernels, dirs: dict, trees: dict, corpus_cache: str
     return launches
 
 
+def _sched_summary(records: list[dict]) -> dict:
+    """Per lane: the jobs it ran, its steals and the lanes they were
+    planned for, from decision-table records."""
+    out: dict = {}
+    for r in records:
+        row = out.setdefault(r["lane"], {"dispatches": 0, "steals": 0, "planned": {}})
+        row["dispatches"] += 1
+        row["steals"] += int(r["stolen"])
+        row["planned"][r["planned"]] = row["planned"].get(r["planned"], 0) + 1
+    return out
+
+
+def sched_turns(root: str, kernels, add, legs: list, mollys: dict) -> dict:
+    """Phase 6k (a): every report leg and bench.py's query over the
+    families under NEMO_SCHED off and on in turns (SCHED_TURNS).  Each
+    report's tree must equal its cpu tree, each query document the off
+    turn's; an off turn runs no scheduler job.  Returns the walls by mode
+    and leg, and each on turn's decision summary."""
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.parallel import sched
+    from nemo_tpu_torch.query.engine import execute_query
+    from nemo_tpu_torch.query.lang import parse_query
+
+    q = parse_query(QUERY_TEXT)
+    walls: dict = {"off": {}, "on": {}}
+    turns, docs = [], {}
+    for turn, mode in enumerate(SCHED_TURNS):
+        os.environ["NEMO_SCHED"] = mode
+        before = obs.metrics.snapshot()
+        for leg, cd, want, figures, name, kw in legs:
+            label = f"sched {mode} {turn} {leg}"
+            res, _backend, tree, counts = report_counted(label, cd, kernels, os.path.join(root, "reports", str(turn)),
+                                                         figures, name, default_routes=True, **kw)
+            add(counts)
+            _same_tree(label, tree, want, "the cpu report")
+            walls[mode].setdefault(leg, []).append(round(res.report_wall_s, 4))
+            shutil.rmtree(res.report_dir)
+        wall = 0.0
+        for name, molly in mollys.items():
+            label = f"sched {mode} {turn} query {name}"
+            doc, counts, w = counted_call(label, kernels, lambda: execute_query(q, molly, device="cuda",
+                                                                                   use_cache=False))
+            add(counts)
+            wall += w
+            got = _doc_bytes(doc)
+            if docs.setdefault(name, got) != got:
+                raise AssertionError(f"{label}: the document differs from the serial one")
+        walls[mode].setdefault("query", []).append(round(wall, 4))
+        counters = obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"]
+        n_jobs = counters.get("analysis.sched.jobs", 0)
+        if (mode == "off") != (n_jobs == 0) or any(counters.get(k) for k in FAILOVER_SERIES):
+            raise AssertionError(f"sched turn {turn} ({mode}): {n_jobs} scheduler jobs, counters "
+                                 f"{ {k: counters.get(k) for k in FAILOVER_SERIES} }")
+        row = {"turn": turn, "mode": mode, "jobs": n_jobs}
+        if n_jobs:
+            row["lanes"] = _sched_summary(sched.sched_snapshot("cuda")[-n_jobs:])
+        turns.append(row)
+        log(f"sched turn {turn} {mode}: walls {json.dumps({k: v[-1] for k, v in walls[mode].items()})}; {row}")
+    return {"walls": walls, "turns": turns}
+
+
+def sched_verdict(walls: dict) -> dict:
+    """The bar for NEMO_SCHED=auto as the default: on beats off on the
+    sweep and on the query by more than the larger spread of either mode,
+    and is slower on no timed leg.  Returns the means, spreads and the
+    verdict of this run."""
+    out = {"mean_s": {}, "spread_s": {}, "slower_on": []}
+    for mode in ("off", "on"):
+        out["mean_s"][mode] = {k: round(sum(v) / len(v), 4) for k, v in walls[mode].items()}
+        out["spread_s"][mode] = {k: round(max(v) - min(v), 4) for k, v in walls[mode].items()}
+    off, on = out["mean_s"]["off"], out["mean_s"]["on"]
+    out["slower_on"] = sorted(k for k in off if on[k] > off[k])
+    gains = {k: off[k] - on[k] > max(out["spread_s"]["off"][k], out["spread_s"]["on"][k]) for k in ("sweep", "query")}
+    out["gains_beyond_spread"] = gains
+    out["meets_bar"] = all(gains.values()) and not out["slower_on"]
+    return out
+
+
+def sched_failover(root: str, kernels, add, zk_dir: str, corpus_cache: str) -> dict:
+    """Phase 6k (b), (c): one real fused bucket of ZK-1270 (device lanes)
+    made into a Job, drained by the card's scheduler.  (b) Its device
+    execution hits a real out-of-memory (an allocation past the card)
+    NEMO_BREAKER_FAILURES times: each time the error is raised out of
+    ``run``, counted (analysis.sched.lane_failure.device), the host never
+    running the job and no route recorded; the breaker trips once with a
+    flight bundle; the next run is refused before any job runs
+    (BreakerOpen); after the cooldown one run is the half-open probe: it
+    launches K1, its output equals the device output and the breaker
+    closes.  A job whose device execution raises the closure wrapper's own
+    error (its library faked to return cudaErrorMemoryAllocation)
+    propagates and leaves the breaker closed.  (c) With
+    NEMO_DISPATCH_TIMEOUT_S below a spin kernel's wall, a job waiting on
+    the spin ends in DispatchTimeout (watchdog.dispatch_timeout), and the
+    abandoned dispatch, which finishes its spin and its launches, records
+    no route; the next run goes through.  A second abandoned dispatch that
+    raises after its spin is counted (analysis.sched.abandoned_error) and
+    its error raised by the next run.  Returns the record and the counters
+    these legs moved."""
+    import glob
+    import threading
+
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend, _gather_rows, _to_host
+    from nemo_tpu_torch.kernels import closure as closure_mod
+    from nemo_tpu_torch.kernels.build import KernelError
+    from nemo_tpu_torch.parallel import sched
+    from nemo_tpu_torch.query.engine import ingest_corpus
+
+    backend = TorchBackend(device="cuda", **DEVICE_LANES)
+    backend.init_graph_db("", ingest_corpus(zk_dir, corpus_cache))
+    plan = backend._plan_fused_inputs()
+    pre_b, post_b = plan["batches"][0]
+    rows = len(pre_b.run_ids)
+    executor_run = backend.executor.run
+
+    def bucket_job(fault=None):
+        """The bucket's Job; ``fault()`` runs before each device dispatch."""
+        jobs, routes = [], []
+        backend._fused_job(jobs, routes, plan, 0, pre_b, post_b, True)
+        if fault is not None:
+            def run(verb, arrays, params, rows=None):
+                fault()
+                return executor_run(verb, arrays, params, rows=rows)
+
+            backend.executor.run = run
+        return jobs[0]
+
+    def out_of_memory():
+        torch.empty(1 << 50, dtype=torch.uint8, device="cuda")  # raises torch.cuda.OutOfMemoryError
+
+    def host_view(res: dict) -> dict:
+        keys = ("pre_holds", "post_holds", "proto_bits", "proto_min_depth", "proto_present", "pre_alive",
+                "post_alive", "pre_type", "post_type", "pre_adj_clean", "post_adj_clean")
+        return {k: _to_host(_gather_rows(res[k], list(range(rows)))) for k in keys}
+
+    def same_output(label, got, want) -> None:
+        bad = sorted(k for k in want if not np.array_equal(got[k], want[k]))
+        if bad:
+            raise AssertionError(f"{label}: the probe's output differs from the device's in {bad}")
+
+    def drain(job):
+        return sched.HeterogeneousScheduler(sched.default_models("cuda", 0), device="cuda").run([job], serial=True)[0]
+
+    def join_abandoned():
+        for th in threading.enumerate():
+            if th.name.startswith("nemo-sched-dispatch-"):
+                th.join(timeout=60)
+
+    def scheduled(label: str, job, raises=None, counted: bool = True):
+        """``job`` drained; with ``raises``, the error type it must end in
+        (returned in place of the result), the host never running it and
+        no route recorded."""
+        n_routes, host_runs = len(backend.analysis_routes), dict(backend.executor.host_runs)
+
+        def fn():
+            try:
+                return drain(job)
+            except BaseException as ex:
+                if raises is None or not isinstance(ex, raises):
+                    raise
+                return ex
+            finally:
+                join_abandoned()  # an abandoned dispatch's launches count here
+                backend.executor.run = executor_run
+
+        if counted:
+            res, counts, _wall = counted_call(label, kernels, fn)
+            add(counts)
+        else:
+            res, counts = fn(), None
+        if raises is not None:
+            if not isinstance(res, raises):
+                raise AssertionError(f"{label}: ran to {type(res).__name__}, not {raises.__name__}")
+            if len(backend.analysis_routes) != n_routes or backend.executor.host_runs != host_runs:
+                raise AssertionError(f"{label}: route records {backend.analysis_routes[n_routes:]}, host runs "
+                                     f"{backend.executor.host_runs} (before {host_runs})")
+        return res, counts
+
+    def moved(d0) -> dict:
+        return obs.Metrics.delta(obs.metrics.snapshot(), d0)["counters"]
+
+    saved = {k: os.environ.get(k) for k in (*SCHED_BREAKER, "NEMO_DISPATCH_TIMEOUT_S")}
+    os.environ.update(SCHED_BREAKER)
+    sched.reset_device_breaker("cuda")
+    flight_dir = os.path.join(root, "flight")
+    prev_flight = obs.flight.recorder()
+    obs.flight.arm(flight_dir)
+    before = obs.metrics.snapshot()
+    out: dict = {}
+    try:
+        ref, counts, _wall = counted_call("sched bucket on the device", kernels,
+                                          lambda: bucket_job().execute("device", "sched", False))
+        add(counts)
+        want = host_view(ref[2])
+        failures = int(SCHED_BREAKER["NEMO_BREAKER_FAILURES"])
+        for i in range(failures):
+            label = f"sched lane failure {i}"
+            d0 = obs.metrics.snapshot()
+            _ex, counts = scheduled(label, bucket_job(out_of_memory), raises=torch.cuda.OutOfMemoryError)
+            dl = moved(d0)
+            if counts["closure"] or dl.get("analysis.sched.lane_failure.device") != 1 or dl.get(
+                    "analysis.sched.failover"):
+                raise AssertionError(f"{label}: launches {counts}, counters {dl}")
+        breaker = sched.device_breaker("cuda")
+        bundles = glob.glob(os.path.join(flight_dir, "flightrec-breaker_trip-*.json"))
+        if breaker.state != breaker.OPEN or len(bundles) != 1:
+            raise AssertionError(f"breaker {breaker.state} after {failures} failures, bundles {bundles}")
+        _ex, counts = scheduled("sched breaker open", bucket_job(), raises=sched.BreakerOpen)
+        if counts["closure"]:
+            raise AssertionError(f"sched breaker open: launches {counts}")
+        time.sleep(float(SCHED_BREAKER["NEMO_BREAKER_COOLDOWN_S"]))
+        res, counts = scheduled("sched half-open probe", bucket_job())
+        rec = sched.sched_snapshot("cuda")[-1]
+        if (rec["lane"], breaker.state) != ("device", breaker.CLOSED) or counts["closure"] <= 0:
+            raise AssertionError(f"sched half-open probe: decision {rec}, breaker {breaker.state}, launches {counts}")
+        same_output("sched half-open probe", host_view(res[2]), want)
+        out["probe_launches"] = counts
+
+        # The wrapper's own error: the closure library returns
+        # cudaErrorMemoryAllocation, whose string reads "out of memory".
+        class FailingLib:
+            _nemo_bound = True
+
+            def nemo_closure(self, *args):
+                return 2
+
+            def nemo_cuda_error_string(self, rc):
+                return b"out of memory"
+
+        real_lib = closure_mod._lib
+        closure_mod._lib = FailingLib
+        for k in kernels:
+            k.launches = 0
+        try:
+            ex, _ = scheduled("sched kernel error", bucket_job(), raises=KernelError, counted=False)
+        finally:
+            closure_mod._lib = real_lib
+        out["kernel_error"] = str(ex)
+        if any(k.launches for k in kernels) or breaker.state != breaker.CLOSED:
+            raise AssertionError(f"sched kernel error: breaker {breaker.state}")
+
+        # (c) The dispatch deadline, below the spin's wall.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        spin_s = time.perf_counter() - t
+        os.environ["NEMO_DISPATCH_TIMEOUT_S"] = str(spin_s / 4)
+
+        def spin():
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+
+        d0 = obs.metrics.snapshot()
+        _ex, counts = scheduled("sched deadline", bucket_job(spin), raises=sched.DispatchTimeout)
+        dl = moved(d0)
+        if (dl.get("watchdog.dispatch_timeout"), dl.get("analysis.sched.lane_failure.device")) != (1, 1) or (
+                counts["closure"] <= 0):
+            raise AssertionError(f"sched deadline: counters {dl}, launches {counts}")
+        out.update(spin_s=round(spin_s, 6), timeout_s=round(spin_s / 4, 6), deadline_launches=counts)
+        os.environ["NEMO_DISPATCH_TIMEOUT_S"] = "0"  # a bucket's dispatch outlasts the spin's deadline
+        res, _ = scheduled("sched after the deadline", bucket_job())
+        same_output("sched after the deadline", host_view(res[2]), want)
+        os.environ["NEMO_DISPATCH_TIMEOUT_S"] = str(spin_s / 4)
+
+        def spin_then_fail():
+            spin()
+            raise KernelError("closure kernel failed: injected after the deadline")
+
+        scheduled("sched abandoned error", bucket_job(spin_then_fail), raises=sched.DispatchTimeout)
+        os.environ["NEMO_DISPATCH_TIMEOUT_S"] = "0"
+        ex, _ = scheduled("sched abandoned error raised", bucket_job(), raises=KernelError)
+        if "injected after the deadline" not in str(ex) or breaker.state != breaker.CLOSED:
+            raise AssertionError(f"sched abandoned error: raised {ex!r}, breaker {breaker.state}")
+        out["abandoned_error"] = str(ex)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        sched.reset_device_breaker("cuda")
+        obs.flight.disarm()
+        if prev_flight is not None:
+            obs.flight.arm(prev_flight.out_dir)
+    counters = moved(before)
+    moved_series = {k: v for k, v in counters.items() if k.startswith(("analysis.sched.", "sched.breaker.",
+                                                                       "watchdog.", "flight.dumps."))}
+    want_moved = {"sched.breaker.trip": 1, "sched.breaker.probe": 1, "sched.breaker.close": 1,
+                  "sched.breaker.short_circuit": 1, "analysis.sched.lane_failure.device": failures + 2,
+                  "analysis.sched.abandoned_error": 1, "analysis.sched.failover": None,
+                  "watchdog.dispatch_timeout": 2, "flight.dumps.breaker_trip": 1,
+                  "flight.dumps.dispatch_watchdog": 1}  # a second bundle waits out the per-reason cooldown
+    if any(moved_series.get(k) != v for k, v in want_moved.items()):
+        raise AssertionError(f"sched failover legs: counters {moved_series}, expected {want_moved}")
+    out["counters"] = moved_series
+    log(f"sched failover legs: {json.dumps(out)}")
+    return out
+
+
+def sched_path(work: str, kernels, dirs: dict, trees: dict, sweep: tuple, corpus_cache: str) -> tuple[dict, dict]:
+    """Phase 6k: the cost-model scheduler on cuda (see the module
+    docstring).  Prints {"sched": {...}}.  Returns the launches by kernel
+    and the counters its injected legs moved."""
+    from nemo_tpu_torch.analysis import pipeline
+    from nemo_tpu_torch.models.synth import ADVERSARIAL_FAMILIES, adversarial_spec, grow_corpus_dir, write_corpus
+    from nemo_tpu_torch.query.engine import ingest_corpus
+    from nemo_tpu_torch.store import resolve_store
+
+    root = os.path.join(work, "sched")
+    launches = {k.__name__: 0 for k in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    # The legs of (a): the sweep; ZK-1270 grown by INGEST_GROWN_RUNS runs in
+    # a corpus store of two segments (the same runs as the family: its tree
+    # is phase 5's); the adversarial families, each beside its cpu tree.
+    zk = "ZK-1270-racing-sent-flag"
+    grown, gcc = os.path.join(root, "grown", zk), os.path.join(root, "grown-corpus-cache")
+    store = resolve_store(gcc)
+    for n in (FAMILY_RUNS - INGEST_GROWN_RUNS, FAMILY_RUNS):
+        grow_corpus_dir(dirs[zk], grown, n)
+        molly, _kind, snap = pipeline._ingest(grown, True, store)
+        if snap is not None:
+            pipeline._populate(store, grown, molly, snap)
+    legs = [("sweep", sweep[0], sweep[1], REPORT_FIGURES, os.path.basename(sweep[0]), {}),
+            ("grown", grown, trees[zk], REPORT_FIGURES, zk, {"ingest": "native", "corpus_cache": gcc})]
+    for fam in ADVERSARIAL_FAMILIES:
+        cd = write_corpus(adversarial_spec(fam, n_runs=ADV_RUNS, seed=ADV_SEED), os.path.join(root, "adversarial"))
+        legs.append((f"adversarial {fam}", cd, _cpu_tree(cd, os.path.join(root, "cpu"), "none", fam), "none", fam, {}))
+    mollys = {name: ingest_corpus(cd, corpus_cache) for name, cd in dirs.items()}
+
+    saved = os.environ.get("NEMO_SCHED")
+    try:
+        out = sched_turns(root, kernels, add, legs, mollys)
+    finally:
+        if saved is None:
+            os.environ.pop("NEMO_SCHED", None)
+        else:
+            os.environ["NEMO_SCHED"] = saved
+    out["verdict"] = sched_verdict(out["walls"])
+    failover = sched_failover(root, kernels, add, dirs[zk], corpus_cache)
+    out["failover"] = failover
+    out["launches"] = launches
+    print(json.dumps({"sched": out}))
+    shutil.rmtree(root)
+    return launches, failover["counters"]
+
+
 def _sound_fit(label: str, table: dict) -> None:
     """Fail unless a calibration on the card resolved (``table``: name ->
     value) a device slope, measured or seeded, below the measured host unit
@@ -2704,7 +3103,7 @@ def main() -> int:
         ingest = ingest_path(work, kernels, dirs, trees)
         log(f"phase 5b wall {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        sparse, giant_dirs = sparse_path(work, kernels, dirs[zk], trees[zk])
+        sparse, giant_dirs, sweep = sparse_path(work, kernels, dirs[zk], trees[zk])
         log(f"phase 6 wall {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         routes = routes_path(work, kernels, dirs, trees, giant_dirs)
@@ -2729,16 +3128,28 @@ def main() -> int:
         t = time.perf_counter()
         platform = platform_path(work, kernels, dirs, trees, os.path.join(work, "ingest", "corpus-cache"))
         log(f"phase 6j wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        scheduled, injected = sched_path(work, kernels, dirs, trees, sweep,
+                                         os.path.join(work, "ingest", "corpus-cache"))
+        log(f"phase 6k wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}, "
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
-        f"observed {observed}, on the platform path {platform}")
+        f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}")
+    from nemo_tpu_torch import obs
+
+    # (6k d) No phase but 6k's injected legs failed a job over or tripped
+    # the breaker: the process's counters equal those legs' deltas.
+    total = obs.metrics.snapshot()["counters"]
+    stray = {k: (total.get(k, 0), injected.get(k, 0)) for k in FAILOVER_SERIES if total.get(k, 0) != injected.get(k, 0)}
+    if stray:
+        raise AssertionError(f"a failover or breaker trip outside phase 6k's injected legs: {stray}")
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
-            dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform))
+            dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

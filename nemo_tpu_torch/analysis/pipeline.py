@@ -100,11 +100,14 @@ def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, 
     package writes them, the process's metrics snapshot, the trace id of
     the active trace (None when untraced), once the backend module is
     loaded in this process, its per-signature kernel cost table and the
-    memory watermarks sampled now and, once the platform profile module is,
-    which routing constants ``backend``'s device and explicit knobs resolve
-    to and where each came from (arg > measured > seeded, platform/
-    profile.py:telemetry_section; also on a report-cache hit, where the
-    backend was never initialized)."""
+    memory watermarks sampled now, once the scheduler module is loaded,
+    the decision table of ``backend``'s device (``sched``: one record per
+    job the scheduler ran in this process, newest last; absent when it ran
+    none, as under the default ``NEMO_SCHED=off``) and, once the platform
+    profile module is, which routing constants ``backend``'s device and
+    explicit knobs resolve to and where each came from (arg > measured >
+    seeded, platform/profile.py:telemetry_section; also on a report-cache
+    hit, where the backend was never initialized)."""
     doc = {
         "timings": {k: round(v, 6) for k, v in timings.items()},
         "figure_stats": figure_stats,
@@ -121,8 +124,13 @@ def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, 
         if costs:
             doc["kernel_cost"] = costs
         doc["memory"] = tb.sample_memory_watermarks()
-    pp = sys.modules.get("nemo_tpu_torch.platform.profile")
     dev = getattr(getattr(backend, "executor", None), "device", None)
+    sch = sys.modules.get("nemo_tpu_torch.parallel.sched")
+    if sch is not None and dev is not None:
+        table = sch.sched_snapshot(dev)
+        if table:
+            doc["sched"] = table
+    pp = sys.modules.get("nemo_tpu_torch.platform.profile")
     if pp is not None and dev is not None:
         doc["platform_profile"] = pp.telemetry_section(dev, backend.profile_args())
     with open(os.path.join(report_dir, "telemetry.json"), "w", encoding="utf-8") as fh:

@@ -19,8 +19,16 @@ sparse (``density``) to ``sparse_device``; else ``dense``.  Runs above
 ``giant_v`` nodes leave the buckets for ``sparse_device`` one at a time.
 The diff goes to the host for a giant good run or within
 ``diff_host_work``, else sparse past the watermark, else dense; the synth
-pass to the host within ``synth_host_work``.  A lane is chosen by the
-recorded route only: a device-lane failure raises, nothing falls back.
+pass to the host within ``synth_host_work``.
+
+The fused buckets, the giant runs and the synth buckets are jobs
+(parallel/sched.py:Job) drained as ``NEMO_SCHED`` says: ``off`` (the
+default) runs each on its routed lane in order on the caller's thread;
+``auto`` and ``on`` drain them through the cost-model scheduler, one worker
+thread per lane, where an unpinned job may run on another lane than its
+route's and a device-side out-of-memory or deadline fails over to the host
+lane, recorded.  Results land by job index either way.  Every other
+device-lane failure raises; nothing falls back silently.
 Packing, bucketing and the report-facing extraction are host numpy.
 
 The report verbs (``pull_pre_post_prov``, ``create_naive_diff_prov``'s
@@ -41,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import os
 import resource
+import threading
 import time
 
 import numpy as np
@@ -67,6 +76,7 @@ from nemo_tpu_torch.graphs.packed import (
 from nemo_tpu_torch.graphs.pgraph import PGraph, PNode
 from nemo_tpu_torch.ingest.datatypes import Goal, MissingEvent, Rule
 from nemo_tpu_torch.ingest.molly import MollyOutput
+from nemo_tpu_torch.kernels.build import thread_loads
 from nemo_tpu_torch.models.pipeline_model import (
     DIFF_PACK_LAYOUT,
     SUMMARY_PACK_LAYOUT,
@@ -83,6 +93,7 @@ from nemo_tpu_torch.ops.sparse_device import (
     synth_ext_candidates,
 )
 from nemo_tpu_torch.ops.sparse_host import sparse_analysis_step, synth_ext_host
+from nemo_tpu_torch.parallel import sched as sched_mod
 from nemo_tpu_torch.parallel.giant import giant_analysis_host, giant_linear, giant_plan, pad_comp_labels
 from nemo_tpu_torch.platform import profile as _platform_profile
 from nemo_tpu_torch.report.dot import DotGraph
@@ -118,6 +129,10 @@ _KERNEL_COSTS: dict[tuple, dict] = {}
 #: Dispatch tick of the memory-watermark throttle.
 _MEM_SAMPLE_TICK = [0]
 
+#: Guards the cost table and the tick: the scheduler's lanes dispatch from
+#: several threads.
+_COST_LOCK = threading.Lock()
+
 
 def _dtype_name(a) -> str:
     d = getattr(a, "dtype", None)
@@ -137,37 +152,40 @@ def _record_kernel_cost(verb: str, sig: tuple, wall_s: float, pad_rows: int) -> 
     wall; every sight bumps its dispatch count.  True on first sight.
     Past ``NEMO_COST_MAX_SIGNATURES`` (default 512) signatures, new ones
     are counted in ``kernel.cost.uncosted_dispatches`` instead."""
-    rec = _KERNEL_COSTS.get(sig)
-    first = rec is None
-    if first:
-        try:
-            cap = int(os.environ.get("NEMO_COST_MAX_SIGNATURES", "512"))
-        except ValueError:
-            cap = 512
-        if len(_KERNEL_COSTS) >= cap:
-            obs.metrics.inc("kernel.cost.uncosted_dispatches")
-            return False
-        rec = _KERNEL_COSTS[sig] = {
-            "verb": verb,
-            "shapes": " ".join(f"{n}[{','.join(map(str, s))}]{d}" for n, s, d in sig[1]),
-            "statics": dict(sig[2]),
-            "flops": None,
-            "bytes_accessed": None,
-            "first_dispatch_s": wall_s,
-            "compiled": False,
-            "dispatches": 0,
-            "pad_rows": int(pad_rows),
-        }
-    rec["dispatches"] += 1
-    rec["pad_rows"] = int(pad_rows)
-    return first
+    with _COST_LOCK:
+        rec = _KERNEL_COSTS.get(sig)
+        first = rec is None
+        if first:
+            try:
+                cap = int(os.environ.get("NEMO_COST_MAX_SIGNATURES", "512"))
+            except ValueError:
+                cap = 512
+            if len(_KERNEL_COSTS) >= cap:
+                obs.metrics.inc("kernel.cost.uncosted_dispatches")
+                return False
+            rec = _KERNEL_COSTS[sig] = {
+                "verb": verb,
+                "shapes": " ".join(f"{n}[{','.join(map(str, s))}]{d}" for n, s, d in sig[1]),
+                "statics": dict(sig[2]),
+                "flops": None,
+                "bytes_accessed": None,
+                "first_dispatch_s": wall_s,
+                "compiled": False,
+                "dispatches": 0,
+                "pad_rows": int(pad_rows),
+            }
+        rec["dispatches"] += 1
+        rec["pad_rows"] = int(pad_rows)
+        return first
 
 
 def kernel_cost_snapshot() -> list[dict]:
     """The per-signature cost table as JSON-able records, most-dispatched
     first: telemetry.json's ``kernel_cost`` section."""
+    with _COST_LOCK:
+        recs = [dict(rec) for rec in _KERNEL_COSTS.values()]
     return sorted(
-        (dict(rec) for rec in _KERNEL_COSTS.values()),
+        recs,
         key=lambda r: (-r["dispatches"], r["verb"], r["shapes"]),
     )
 
@@ -384,12 +402,24 @@ class TorchExecutor:
         #: beside the dispatches so that a result-cache hit can be shown to
         #: compute nothing on either lane.
         self.host_runs: dict[str, int] = {}
+        #: the three counts are bumped by the scheduler's lanes at once
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+
+    @property
+    def last_dispatch_cold(self) -> bool:
+        """Whether this thread's last dispatch paid a one-off cost: the
+        verb's first dispatch on this device in the process, or a kernel
+        library built or loaded during it (the scheduler keeps such walls
+        out of its cost model)."""
+        return getattr(self._tls, "cold", False)
 
     def count_host(self, verb: str) -> None:
         """One host-lane run, counted under the same ``kernel.dispatches.*``
         prefix as the device verbs, as the JAX package counts it: the
         result cache's zero-dispatch evidence sums the prefix."""
-        self.host_runs[verb] = self.host_runs.get(verb, 0) + 1
+        with self._lock:
+            self.host_runs[verb] = self.host_runs.get(verb, 0) + 1
         obs.metrics.inc(f"kernel.dispatches.{verb}")
 
     def run(
@@ -433,7 +463,10 @@ class TorchExecutor:
             span_attrs["rows"] = rows_real
         obs.metrics.inc(f"kernel.dispatches.{verb}")
         obs.metrics.inc("kernel.upload_bytes", upload)
-        self.dispatches[verb] = self.dispatches.get(verb, 0) + 1
+        with self._lock:
+            self.dispatches[verb] = self.dispatches.get(verb, 0) + 1
+        cold = sched_mod.first_dispatch(verb, self.device)
+        loads = thread_loads()
         t0 = time.perf_counter()
         try:
             args = [_on_device(arrays[n], self.device) for n in array_names]
@@ -446,10 +479,13 @@ class TorchExecutor:
                 verb, _cost_signature(verb, arrays, params), wall_s,
                 pad_rows=(b_in - rows_real) if rows_real is not None else 0,
             )
+            self._tls.cold = cold or thread_loads() != loads
             # Watermarks off the hot path: a signature's first dispatch and
             # every 64th (peaks are monotone), plus one at report time.
-            _MEM_SAMPLE_TICK[0] += 1
-            if first or _MEM_SAMPLE_TICK[0] % 64 == 0:
+            with _COST_LOCK:
+                _MEM_SAMPLE_TICK[0] += 1
+                tick = _MEM_SAMPLE_TICK[0]
+            if first or tick % 64 == 0:
                 sample_memory_watermarks()
             slow_ms = _obs_log.slow_dispatch_ms()
             if slow_ms and wall_s * 1000.0 > slow_ms:
@@ -466,7 +502,8 @@ class TorchExecutor:
                 )
             return self._materialize(verb, out, arrays, params, out_names)
         finally:
-            self.wall_s[verb] = self.wall_s.get(verb, 0.0) + time.perf_counter() - t0
+            with self._lock:
+                self.wall_s[verb] = self.wall_s.get(verb, 0.0) + time.perf_counter() - t0
 
     def _materialize(self, verb: str, out, arrays: dict, params: dict, out_names) -> dict:
         keep = self.ON_DEVICE.get(verb, frozenset())
@@ -525,6 +562,11 @@ class _CorpusPacked:
         return self._graphs.get(cond, self._row_by_iter[rid])
 
 
+#: The synth pass's route records by lane: its device lane is the
+#: synth_ext verb, which has no dense form.
+_SYNTH_ROUTE_OF_LANE = {"device": "sparse_device", "host": "sparse"}
+
+
 #: Analysis routes a caller may ask for: per-bucket auto routing, or one
 #: lane forced for every verb: ``dense`` (the fused dense step and diff),
 #: ``sparse`` (the host lane, giants and synth included) or
@@ -570,7 +612,7 @@ class TorchBackend(GraphBackend):
     ``sparse_device_mem_bytes`` (dense footprint watermark; 0 disables),
     ``sparse_device_density`` and ``sparse_device_min_v`` (the density
     crossover; density 0 disables).  ``auto`` resolves the same on cpu and
-    cuda.  Buckets run serially in bucket order.
+    cuda.  The jobs drain as ``NEMO_SCHED`` says (the module's docstring).
 
     The budgets, the watermark and the density default to None: resolved
     at ``init_graph_db``, after ``platform.ensure_calibrated`` on the
@@ -847,88 +889,150 @@ class TorchBackend(GraphBackend):
 
     def _fused(self) -> list[tuple[PackedBatch, PackedBatch, dict]]:
         """Run the analysis step once per joint size bucket and once per
-        giant run, each on its routed lane; cached.  Results are in bucket
-        order, giants last."""
+        giant run, each a job drained by ``_drain``; cached.  Results are in
+        bucket order, giants last, whatever the schedule."""
         if self._fused_out is None:
             assert self.molly is not None
             plan, self._staged_plan = self._staged_plan, None
             if plan is None:
                 plan = self._plan_fused_inputs()
-            tids = plan["tids"]
-            out = []
+            jobs: list[sched_mod.Job] = []
+            routes: list[tuple[str, str]] = []
+            # Unpinned buckets may take any of the three lanes where the
+            # card backs both device lanes and the routes are auto (the JAX
+            # package offers sparse_device on an accelerator only).
+            three = self.analysis_impl == "auto" and self.executor.device.type == "cuda"
             for bi, (pre_b, post_b) in enumerate(plan["batches"]):
-                rows = len(pre_b.run_ids)
-                route, reason, work = self._analysis_route(rows, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
-                rec = self._record_route("fused", route, rows, pre_b.v, pre_b.e, work, reason)
-                # The linear-chain fast path must hold for every run of the
-                # bucket: the AND of its graphs' flags.
-                linear = int(all(self._lin_by_iter[i] for i in pre_b.run_ids))
-                staged = plan["staged"].get(bi)
-                arrays = (_adopt_staged(*staged, self.executor.device) if staged is not None
-                          else _verb_arrays(pre_b, post_b))
-                if route == "sparse":
-                    self.executor.count_host("sparse_fused")
-                    with obs.span("analysis:route", **rec), obs.span("kernel:fused", impl="sparse_host", rows=rows):
-                        res = sparse_analysis_step(pre_b, post_b, v=pre_b.v, comp_linear=bool(linear), **tids)
-                    res = _wrap_sparse_clean(res, pre_b.v)
-                elif route == "sparse_device":
-                    with obs.span("analysis:route", **rec):
-                        res = self._sparse_fused(arrays, pre_b.v, rows, linear, tids)
-                else:
-                    with obs.span("analysis:route", **rec):
-                        res = self.executor.run(
-                            "fused",
-                            arrays,
-                            dict(
-                                v=pre_b.v,
-                                max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), plan["min_d"]),
-                                comp_linear=linear,
-                                num_labels=8,  # unused without the diff tail
-                                with_diff=0,
-                                **tids,
-                            ),
-                            rows=rows,
-                        )
-                out.append((pre_b, post_b, res))
+                self._fused_job(jobs, routes, plan, bi, pre_b, post_b, three)
             if plan["giant_ids"]:
-                out.extend(self._giants(plan["giant_ids"], tids))
+                self._giant_jobs(jobs, routes, plan["giant_ids"], plan["tids"])
+            out = self._drain(jobs, routes)
             for bi, (pre_b, _post_b, _res) in enumerate(out):
                 for row, rid in enumerate(pre_b.run_ids):
                     self._row_of[rid] = (bi, row)
             self._fused_out = out
         return self._fused_out
 
-    def _giants(self, giant_ids: list[int], tids: dict) -> list[tuple[PackedBatch, PackedBatch, dict]]:
-        """Each giant run alone, packed at corpus-common (V, E) buckets: on
-        the host lane under ``analysis_impl="sparse"`` (with giant_plan's
-        union-find labels), else on the sparse device step.  Recorded as the
-        JAX package records them (reason ``giant_impl``, work V + E)."""
+    def _drain(self, jobs: list[sched_mod.Job], routes: list[tuple[str, str]]) -> list:
+        """The jobs' results in job order.  ``NEMO_SCHED`` off, or auto with
+        one job: each job on its routed (lane, reason) in ``routes``, in
+        order, on this thread.  Else through the cost-model scheduler on
+        this device's lanes (parallel/sched.py)."""
+        mode = sched_mod.sched_env()
+        if mode != "off" and (mode == "on" or len(jobs) > 1):
+            dev = self.executor.device
+            scheduler = sched_mod.HeterogeneousScheduler(
+                sched_mod.session_models(dev, self.analysis_host_work), device=dev)
+            return scheduler.run(jobs)
+        return [job.execute(lane, reason, False) for job, (lane, reason) in zip(jobs, routes)]
+
+    def _add_job(self, jobs: list, routes: list, verb: str, rows: int, v: int, e: int, work: int, lane: str,
+                 reason: str, pin_reasons: tuple, lanes: tuple, route_of_lane: dict, run) -> None:
+        """Append a Job, routed to (``lane``, ``reason``) and pinned to its
+        lane where ``reason`` is one of ``pin_reasons``.  Its execute
+        records the route of the lane it runs on (``route_of_lane``) under
+        ``verb`` and runs ``run(lane, job)`` inside the route's span.  The
+        route is recorded once the run returns, and not by a dispatch the
+        scheduler abandoned past its deadline (sched.claim_dispatch)."""
+        job = sched_mod.Job(index=len(jobs), verb=verb, rows=rows, v=v, e=e, work=work, execute=None,
+                            pinned=lane if reason in pin_reasons else None, reason=reason, lanes=lanes)
+        record_verb = "synth" if verb == "synth_ext" else verb
+
+        def execute(run_lane: str, rec_reason: str, stolen: bool):
+            route = route_of_lane[run_lane]
+            with obs.span("analysis:route", verb=record_verb, route=route, rows=rows, v=v, e=e, work=work,
+                          reason=rec_reason):
+                res = run(run_lane, job)
+                if sched_mod.claim_dispatch():
+                    self._record_route(record_verb, route, rows, v, e, work, rec_reason)
+            return res
+
+        job.execute = execute
+        jobs.append(job)
+        routes.append((lane, reason))
+
+    def _taint_if_cold(self, job: sched_mod.Job) -> None:
+        """Keep a wall that paid a one-off cost out of the scheduler's EWMA."""
+        if self.executor.last_dispatch_cold:
+            job.wall_tainted = True
+
+    def _fused_job(self, jobs: list, routes: list, plan: dict, bi: int, pre_b: PackedBatch, post_b: PackedBatch,
+                   three: bool) -> None:
+        """One bucket's job, as the JAX package builds it: pinned by a
+        forced route or the memory watermark; the host lane runs the numpy
+        engine, sparse_device the sparse step, device the dense step."""
+        rows = len(pre_b.run_ids)
+        route, reason, work = self._analysis_route(rows, pre_b.v, pre_b.e, pre_b.is_goal.shape[0])
+        tids = plan["tids"]
+        # The linear-chain fast path must hold for every run of the bucket:
+        # the AND of its graphs' flags.
+        linear = int(all(self._lin_by_iter[i] for i in pre_b.run_ids))
+        lanes = sched_mod.LANES if three or route == "sparse_device" else ("device", "host")
+
+        def run(lane: str, job: sched_mod.Job):
+            if lane == "host":
+                self.executor.count_host("sparse_fused")
+                with obs.span("kernel:fused", impl="sparse_host", rows=rows):
+                    res = sparse_analysis_step(pre_b, post_b, v=pre_b.v, comp_linear=bool(linear), **tids)
+                return (pre_b, post_b, _wrap_sparse_clean(res, pre_b.v))
+            # Staged tensors are adopted on the launching thread's stream.
+            staged = plan["staged"].get(bi)
+            arrays = (_adopt_staged(*staged, self.executor.device) if staged is not None
+                      else _verb_arrays(pre_b, post_b))
+            if lane == "sparse_device":
+                res = self._sparse_fused(arrays, pre_b.v, rows, linear, tids)
+            else:
+                res = self.executor.run(
+                    "fused",
+                    arrays,
+                    dict(
+                        v=pre_b.v,
+                        max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), plan["min_d"]),
+                        comp_linear=linear,
+                        num_labels=8,  # unused without the diff tail
+                        with_diff=0,
+                        **tids,
+                    ),
+                    rows=rows,
+                )
+            self._taint_if_cold(job)
+            return (pre_b, post_b, res)
+
+        self._add_job(jobs, routes, "fused", rows, pre_b.v, pre_b.e, work, sched_mod.LANE_OF_ROUTE[route], reason,
+                      ("forced", "mem"), lanes, sched_mod.ROUTE_OF_LANE, run)
+
+    def _giant_jobs(self, jobs: list, routes: list, giant_ids: list[int], tids: dict) -> None:
+        """A job for each giant run alone, packed at corpus-common (V, E)
+        buckets, pinned (reason ``giant_impl``, work V + E, as the JAX
+        package records them) to the host lane under
+        ``analysis_impl="sparse"`` (with giant_plan's union-find labels),
+        else to the sparse device step."""
         graphs = [self.packed[(rid, c)] for rid in giant_ids for c in ("pre", "post")]
         v_g = bucket_size(max(g.n_nodes for g in graphs))
         e_g = bucket_size(max(1, *(len(g.edges) for g in graphs)))
-        route = "sparse" if self.analysis_impl == "sparse" else "sparse_device"
-        out = []
+        lane = "host" if self.analysis_impl == "sparse" else "sparse_device"
         for rid in giant_ids:
             gpre, gpost = self.packed[(rid, "pre")], self.packed[(rid, "post")]
-            pre_b = pack_batch([rid], [gpre], v_g, e_g)
-            post_b = pack_batch([rid], [gpost], v_g, e_g)
-            rec = self._record_route("giant", route, 1, v_g, e_g, v_g + e_g, "giant_impl")
-            if route == "sparse":
-                _, _, lab_pre = giant_plan(gpre)
-                _, _, lab_post = giant_plan(gpost)
-                self.executor.count_host("sparse_giant")
-                with obs.span("analysis:route", **rec):
+
+            def run(run_lane: str, job: sched_mod.Job, rid=rid, gpre=gpre, gpost=gpost):
+                pre_b = pack_batch([rid], [gpre], v_g, e_g)
+                post_b = pack_batch([rid], [gpost], v_g, e_g)
+                if run_lane == "host":
+                    _, _, lab_pre = giant_plan(gpre)
+                    _, _, lab_post = giant_plan(gpost)
+                    self.executor.count_host("sparse_giant")
                     res = giant_analysis_host(
                         pre_b, post_b, tids["pre_tid"], tids["post_tid"], tids["num_tables"],
                         pad_comp_labels(lab_pre, gpre.n_nodes, v_g), pad_comp_labels(lab_post, gpost.n_nodes, v_g),
                     )
-                res = _wrap_sparse_clean(res, v_g)
-            else:
+                    return (pre_b, post_b, _wrap_sparse_clean(res, v_g))
                 linear = int(giant_linear(gpre) and giant_linear(gpost))
-                with obs.span("analysis:route", **rec):
-                    res = self._sparse_fused(_verb_arrays(pre_b, post_b), v_g, 1, linear, tids)
-            out.append((pre_b, post_b, res))
-        return out
+                res = self._sparse_fused(_verb_arrays(pre_b, post_b), v_g, 1, linear, tids)
+                self._taint_if_cold(job)
+                return (pre_b, post_b, res)
+
+            self._add_job(jobs, routes, "giant", 1, v_g, e_g, v_g + e_g, lane, "giant_impl", ("giant_impl",),
+                          ("device", "host"), sched_mod.ROUTE_OF_LANE, run)
 
     def _sparse_fused(self, arrays: dict, v: int, rows: int, linear: int, tids: dict) -> dict:
         res = self.executor.run("sparse_fused", arrays, dict(v=v, comp_linear=linear, **tids), rows=rows)
@@ -1305,41 +1409,50 @@ class TorchBackend(GraphBackend):
     def synth_candidates(self, iters: list[int]) -> dict[int, list[str]]:
         """Per run in ``iters``: the sorted distinct extension-candidate rule
         tables of its antecedent provenance — one ``synth_ext`` dispatch or
-        one host-twin pass per fused bucket, as ``_synth_route`` records."""
+        one host-twin pass per fused bucket, as ``_synth_route`` records,
+        each bucket a job drained by ``_drain`` (lanes device, the
+        synth_ext verb, and host; pinned by a forced route)."""
         assert self.molly is not None
         want = set(iters)
         out: dict[int, list[str]] = {i: [] for i in iters}
         names = np.asarray(self.vocab.tables.strings, dtype=object)
+        jobs: list[sched_mod.Job] = []
+        routes: list[tuple[str, str]] = []
         for pre_b, _post_b, res in self._fused():
             if not any(rid in want for rid in pre_b.run_ids):
                 continue
             rows = len(pre_b.run_ids)
             route, reason, work = self._synth_route(rows, pre_b.v, pre_b.e)
-            rec = self._record_route("synth", route, rows, pre_b.v, pre_b.e, work, reason)
             holds = np.asarray(res["pre_holds"])
             # The table-bitset width the fused step used for this bucket.
             num_tables = int(np.asarray(res["proto_bits"]).shape[1])
-            if route == "sparse":
-                self.executor.count_host("synth_host")
-                with obs.span("analysis:route", **rec):
-                    bits = synth_ext_host(pre_b, holds, num_tables)
-            else:
-                with obs.span("analysis:route", **rec):
-                    bits = self.executor.run(
-                        "synth_ext",
-                        {
-                            "edge_src": pre_b.edge_src,
-                            "edge_dst": pre_b.edge_dst,
-                            "edge_mask": pre_b.edge_mask,
-                            "is_goal": pre_b.is_goal,
-                            "node_mask": pre_b.node_mask,
-                            "type_id": pre_b.type_id,
-                            "table_id": pre_b.table_id,
-                            "holds": holds,
-                        },
-                        {"v": pre_b.v, "num_tables": num_tables},
-                        rows=rows,
-                    )["ext_bits"]
+
+            def run(lane: str, job: sched_mod.Job, pre_b=pre_b, holds=holds, num_tables=num_tables, rows=rows):
+                if lane == "host":
+                    self.executor.count_host("synth_host")
+                    return pre_b, synth_ext_host(pre_b, holds, num_tables)
+                bits = self.executor.run(
+                    "synth_ext",
+                    {
+                        "edge_src": pre_b.edge_src,
+                        "edge_dst": pre_b.edge_dst,
+                        "edge_mask": pre_b.edge_mask,
+                        "is_goal": pre_b.is_goal,
+                        "node_mask": pre_b.node_mask,
+                        "type_id": pre_b.type_id,
+                        "table_id": pre_b.table_id,
+                        "holds": holds,
+                    },
+                    {"v": pre_b.v, "num_tables": num_tables},
+                    rows=rows,
+                )["ext_bits"]
+                self._taint_if_cold(job)
+                return pre_b, bits
+
+            self._add_job(jobs, routes, "synth_ext", rows, pre_b.v, pre_b.e, work,
+                          "host" if route == "sparse" else "device", reason, ("forced",), ("device", "host"),
+                          _SYNTH_ROUTE_OF_LANE, run)
+        for pre_b, bits in self._drain(jobs, routes):
             nm = names[: bits.shape[1]]
             rows_i, ts = np.nonzero(bits)
             order = np.lexsort((nm[ts], rows_i))

@@ -397,6 +397,9 @@ def _query_main(argv: list[str]) -> int:
                     help="result cache root (default $NEMO_RESULT_CACHE or ~/.cache/nemo_tpu_torch/results)")
     ap.add_argument("--explain", action="store_true",
                     help="print the lowered plan (one line per primitive) and exit without executing")
+    ap.add_argument("--serial", action="store_true",
+                    help="drain query jobs serially instead of through the heterogeneous scheduler (debugging; "
+                         "NEMO_SCHED=off, the default, drains serially anyway)")
     args = ap.parse_args(argv)
     try:
         q = parse_query(args.query)
@@ -413,7 +416,7 @@ def _query_main(argv: list[str]) -> int:
         ap.error(f"fault injector output directory not found: {args.fault_inj_out}")
     molly = ingest_corpus(args.fault_inj_out, args.corpus_cache, args.injector)
     try:
-        doc = execute_query(q, molly, device=args.device, result_cache=args.result_cache)
+        doc = execute_query(q, molly, device=args.device, result_cache=args.result_cache, serial=args.serial)
     except QueryError as ex:
         print(f"query error: {ex}", file=sys.stderr)
         return 2

@@ -7,6 +7,14 @@ Each source ``nemo_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 source rebuilds and an unchanged one is reused.  Nothing is built at import:
 the first call that launches a kernel builds it, and ``build()`` builds
 several sources at once, one ``nvcc`` process each, all started together.
+``load`` and ``build`` hold one process-wide lock, so that two threads'
+first launches build and open a library once.
+
+``KernelError`` is the type of a wrapper's failed launch (CUDA's error
+string in its text) and ``BuildError`` that of a failed build, so that the
+scheduler never reads a kernel's fault or a compiler's "out of memory" as a
+lane's out-of-memory failure; ``count_launch`` bumps a wrapper's
+``launches`` count under a lock, since two lanes may launch at once.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -31,6 +40,33 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
+#: per thread: the libraries this thread built or opened (``thread_loads``)
+_TLS = threading.local()
+_COUNT_LOCK = threading.Lock()
+
+
+class BuildError(RuntimeError):
+    """A kernel or host library could not be built or loaded (the
+    compiler's output in the text)."""
+
+
+class KernelError(RuntimeError):
+    """A kernel wrapper's launch failed: the kernel's own error return,
+    never an out-of-memory of the lane (a RuntimeError subclass, so callers
+    that caught RuntimeError still do)."""
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``: its ``launches`` attribute + 1, locked."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def thread_loads() -> int:
+    """How many kernel libraries this thread has built or opened: a change
+    across a call says the call paid for a build or a load."""
+    return getattr(_TLS, "loads", 0)
 
 
 def nvcc_path() -> str:
@@ -41,7 +77,7 @@ def nvcc_path() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found (no CUDA toolkit on PATH or under /usr/local/cuda)")
+    raise BuildError("nvcc not found (no CUDA toolkit on PATH or under /usr/local/cuda)")
 
 
 def source_digest(name: str) -> str:
@@ -59,6 +95,11 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
     Returns name -> the compiler's report (ptxas register/shared-memory
     lines; "" for a library that was already built).  Raises on any
     compiler failure, with its output."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names: tuple[str, ...]) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -79,7 +120,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
         else:
             os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise BuildError("\n".join(failed))
     return reports
 
 
@@ -87,6 +128,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building it first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build((name,))
-        lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build((name,))
+                lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+                _TLS.loads = thread_loads() + 1
     return lib

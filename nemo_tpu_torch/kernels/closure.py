@@ -24,6 +24,8 @@ from dataclasses import dataclass
 
 import torch
 
+from nemo_tpu_torch.kernels.build import KernelError, count_launch
+
 #: Shared memory a block may use on the H100 (227 KB), and the part of it a
 #: launch plan may take as dynamic shared memory: the rest is kept for the
 #: kernels' static shared variables.
@@ -167,10 +169,10 @@ def launch_plan(adj: torch.Tensor, plan: ClosurePlan, max_len: int | None = None
             torch.cuda.current_stream(adj.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"closure kernel failed: {lib.nemo_cuda_error_string(rc).decode()} (cudaError {rc})"
         )
-    closure.launches += 1
+    count_launch(closure)
     return out
 
 

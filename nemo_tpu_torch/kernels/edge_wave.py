@@ -28,6 +28,8 @@ from dataclasses import dataclass
 
 import torch
 
+from nemo_tpu_torch.kernels.build import KernelError, count_launch
+
 #: Shared memory a block may use on the H100 (227 KB), and the part of it a
 #: launch plan may take as dynamic shared memory: the rest is kept for the
 #: kernels' static shared variables.
@@ -254,10 +256,10 @@ def launch_plan(
             torch.cuda.current_stream(state.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"edge_wave kernel failed: {lib.nemo_edge_wave_error_string(rc).decode()} (cudaError {rc})"
         )
-    edge_wave.launches += 1
+    count_launch(edge_wave)
     return out
 
 

@@ -16,7 +16,8 @@ What the ring holds:
   per dump).
 
 Triggers (``trigger(reason, **ctx)``): a failed watch cycle
-(watch/watcher.py) is the one the port raises.  Each reason has a cooldown
+(watch/watcher.py), the scheduler's breaker trip and its dispatch-deadline
+escalation (parallel/sched.py: ``breaker_trip``, ``dispatch_watchdog``).  Each reason has a cooldown
 (``NEMO_FLIGHT_COOLDOWN_S``, default 30 s), so a failure storm produces ONE
 bundle.  ``trigger`` does nothing while the recorder is unarmed, and the
 port arms it only through ``configure_from_env`` or ``arm``, as the JAX

@@ -24,6 +24,7 @@ which is single-step pushes only.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -41,6 +42,8 @@ _CHECK_EVERY = 4
 #: Per plain fix-point loop (by name): calls, iterations run and host wall
 #: seconds since the process started, or since a caller cleared it.
 LOOP_STATS: dict[str, dict] = {}
+#: the scheduler's lanes may finish loops at once
+_STATS_LOCK = threading.Lock()
 
 
 def _fix_point(name: str, step, x: torch.Tensor, cap: int | None = None) -> torch.Tensor:
@@ -58,10 +61,12 @@ def _fix_point(name: str, step, x: torch.Tensor, cap: int | None = None) -> torc
         it += n
         if torch.equal(prev, x):
             break
-    rec = LOOP_STATS.setdefault(name, {"calls": 0, "iters": 0, "wall_s": 0.0})
-    rec["calls"] += 1
-    rec["iters"] += it
-    rec["wall_s"] += time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    with _STATS_LOCK:
+        rec = LOOP_STATS.setdefault(name, {"calls": 0, "iters": 0, "wall_s": 0.0})
+        rec["calls"] += 1
+        rec["iters"] += it
+        rec["wall_s"] += wall
     return x
 
 

@@ -6,9 +6,10 @@ per platform fingerprint (platform/fingerprint.py), under
 ``~/.cache/nemo_tpu_torch/platform/profile-<key>.json`` (``NEMO_PROFILE_DIR``
 relocates it; the JAX package's profiles live elsewhere, so the two never
 share one).  It holds the calibrator's fitted constants (platform/
-calibrate.py) and the probe measurements they were fitted from.  The
-document keeps the reference's ``ewma`` field, always empty here: the
-scheduler's cross-session memory comes with the scheduler.
+calibrate.py), the probe measurements they were fitted from and, in its
+``ewma`` field, the scheduler's per-(verb, V, E) walls of earlier sessions
+on the same platform (``warm_start`` seeds a session's lane models from
+them; ``fold_back_session`` merges the session's back at exit).
 
 Every consumer resolves each constant by one precedence rule, recorded per
 constant so telemetry can show where a number came from:
@@ -40,6 +41,7 @@ one process each route by their own device's profile.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -227,6 +229,11 @@ _CORRUPT: set[str] = set()
 #: (device, args) of the last resolve_constants: what the flight recorder
 #: reports (telemetry_section() with no device); it has no backend at hand.
 _LAST: dict = {}
+#: scheduler device key -> the profile file its session models were
+#: warm-started from: the one file fold_back_session may write its walls to
+_FOLD_PATHS: dict[str, str] = {}
+#: whether fold_back_session is registered to run at exit
+_FOLD_BACK_REGISTERED = [False]
 
 
 def reset_active_profile() -> None:
@@ -237,6 +244,7 @@ def reset_active_profile() -> None:
         _CALIBRATED.clear()
         _CORRUPT.clear()
         _LAST.clear()
+        _FOLD_PATHS.clear()
     clear_fingerprints()
 
 
@@ -399,3 +407,91 @@ def telemetry_section(device=None, args: dict | None = None) -> dict:
             ewma_classes={lane: len(d) for lane, d in prof.ewma.items()},
         )
     return sect
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's memory across sessions: warm start and fold-back
+# ---------------------------------------------------------------------------
+
+
+def _ewma_key(verb: str, v: int, e: int) -> str:
+    return f"{verb}|{v}|{e}"
+
+
+def _ewma_unkey(key: str) -> tuple[str, int, int] | None:
+    parts = key.split("|")
+    if len(parts) != 3:
+        return None
+    try:
+        return parts[0], int(parts[1]), int(parts[2])
+    except ValueError:
+        return None
+
+
+def warm_start(models: dict, device) -> None:
+    """Seed a session's fresh lane models (parallel/sched.py:session_models)
+    with the per-(verb, V, E) walls ``device``'s profile holds from earlier
+    sessions, and register ``fold_back_session`` for exit.  Nothing without
+    a profile (the mode is off, or none was made)."""
+    from nemo_tpu_torch.parallel.sched import device_key
+
+    if profile_mode() == "off":
+        return
+    fp, path = _locate(device)
+    prof = _active(fp, path)
+    if prof is None:
+        return
+    loaded = 0
+    for lane, model in models.items():
+        for key, per_row in prof.ewma.get(lane, {}).items():
+            parsed = _ewma_unkey(key)
+            if parsed is not None and per_row > 0:
+                model.per_row[parsed] = float(per_row)
+                loaded += 1
+    if loaded:
+        obs.metrics.inc("profile.ewma_warm_start", loaded)
+    with _LOCK:
+        if not _FOLD_BACK_REGISTERED[0]:
+            atexit.register(fold_back_session)
+            _FOLD_BACK_REGISTERED[0] = True
+        _FOLD_PATHS[device_key(device)] = path
+
+
+def fold_back_session() -> None:
+    """Merge every device's measured per-(verb, V, E) walls
+    (parallel/sched.py's session models) into the profile its models were
+    warm-started from, half old and half new, and rewrite each changed
+    file atomically.  A device whose models no profile warm-started folds
+    nothing, so a cpu drain never reaches the card's file.  Registered at
+    exit by ``warm_start``; a failure counts ``profile.fold_back_error``,
+    logs a warning and raises."""
+    import sys
+
+    sch = sys.modules.get("nemo_tpu_torch.parallel.sched")
+    if sch is None:
+        return
+    try:
+        with sch._STATE_LOCK:
+            sessions = {key: {lane: dict(m.per_row) for lane, m in models.items()}
+                        for key, models in sch._SESSION_MODELS.items()}
+        for key, lanes in sessions.items():
+            with _LOCK:
+                prof = _ACTIVE.get(_FOLD_PATHS.get(key, ""))
+            if prof is None:
+                continue
+            folded = 0
+            for lane, per_row in lanes.items():
+                table = prof.ewma.setdefault(lane, {})
+                for (verb, v, e), wall in per_row.items():
+                    k = _ewma_key(verb, v, e)
+                    old = table.get(k)
+                    table[k] = float(wall) if old is None else 0.5 * float(old) + 0.5 * float(wall)
+                    folded += 1
+            if folded:
+                prof.updated = time.time()
+                prof.save()
+                obs.metrics.inc("profile.fold_back", folded)
+    except Exception as ex:
+        obs.metrics.inc("profile.fold_back_error")
+        _log.warning("profile.fold_back_failed", error=f"{type(ex).__name__}: {ex}", action="raised")
+        raise

@@ -15,10 +15,15 @@ A port of the JAX package's ``query/engine.py``:
   fingerprints, analysis ABI) by ``blob_cache_key``.  A warm repeat is a
   cache hit with no job run.
 
-The JAX package drains the jobs through its heterogeneous scheduler.  The
-port drains them serially, in bucket order, each on the lane that
-scheduler plans with fresh cost models under the device's platform
-profile (``query_lane`` against ``derived_query_host_work``).
+Under ``NEMO_SCHED=off`` (the port's default) the jobs drain in bucket
+order on the caller's thread, each on the lane the JAX package's scheduler
+plans with fresh cost models under the device's platform profile
+(``query_lane`` against ``derived_query_host_work``).  Under ``auto`` or
+``on`` they drain through the port's scheduler (parallel/sched.py), as the
+JAX package's do: the device's session lane models (EWMA feedback), work
+stealing between the two lanes, the dispatch deadline and the breaker
+(on the CPU a recorded failover to the host; on the card the failure is
+raised); ``serial`` keeps its plans but runs them on the caller's thread.
 """
 
 from __future__ import annotations
@@ -340,13 +345,22 @@ def map_segment_runs(
     graph_of,
     device,
     query_host_work: int = QUERY_HOST_WORK,
+    pin_lanes: bool = False,
     routes: list | None = None,
+    serial: bool = False,
 ) -> QueryPartial:
     """Map one segment's runs: bucketize their graphs (``graph_of(run) ->
-    PackedGraph | None``), then run each bucket, in bucket order, on the
-    lane ``query_lane`` picks for its work.  ``routes``, when given, gets
-    one record per bucket: rows, v, e, work, lane, reason."""
+    PackedGraph | None``), one job a bucket (verb ``query``, lanes
+    ``sparse_device`` and ``host``), drained as ``NEMO_SCHED`` says (the
+    module's docstring).  Under ``off`` each bucket takes the lane
+    ``query_lane`` picks for its work against ``query_host_work``; under
+    the scheduler, ``pin_lanes`` pins each job to that lane (reason
+    ``forced``).  ``routes``, when given, gets one record per bucket, as the
+    bucket ran: rows, v, e, work, lane, reason (none for a dispatch the
+    scheduler abandoned past its deadline)."""
     from nemo_tpu_torch.graphs.packed import bucketize
+    from nemo_tpu_torch.kernels.build import thread_loads
+    from nemo_tpu_torch.parallel import sched as sched_mod
 
     selected = _filter_runs(runs, plan.run_filter)
     part = QueryPartial(n_runs=len(selected))
@@ -362,21 +376,47 @@ def map_segment_runs(
         return part
     bound = plan.bind(vocab)
     num_tables = max(1, len(vocab.tables))
-    for batch in bucketize(rids, graphs):
-        rows = len(batch.run_ids)
-        work = rows * (batch.v + batch.e)
-        lane = query_lane(work, query_host_work)
-        if routes is not None:
-            routes.append({"rows": rows, "v": batch.v, "e": batch.e, "work": work, "lane": lane,
-                           "reason": "crossover"})
-        obs.metrics.inc("kernel.dispatches.query")
-        obs.metrics.inc(f"query.route.{lane}")
-        obs.metrics.inc("query.rows_scanned", rows)
-        tp = _time_plane(batch) if plan.needs_time else np.full((rows, batch.v), -1, dtype=np.int32)
-        if lane == "host":
-            cap = _eval_host(batch, tp, bound, num_tables)
-        else:
-            cap = _eval_device(batch, tp, bound, num_tables, device)
+    batches = bucketize(rids, graphs)
+
+    def make_execute(batch, job):
+        rows, work = job.rows, job.work
+
+        def execute(lane: str, reason: str, stolen: bool) -> np.ndarray:
+            obs.metrics.inc("kernel.dispatches.query")
+            obs.metrics.inc("query.rows_scanned", rows)
+            tp = _time_plane(batch) if plan.needs_time else np.full((rows, batch.v), -1, dtype=np.int32)
+            if lane == "host":
+                cap = _eval_host(batch, tp, bound, num_tables)
+            else:
+                loads = thread_loads()
+                cold = sched_mod.first_dispatch("query", device)
+                cap = _eval_device(batch, tp, bound, num_tables, device)
+                if cold or thread_loads() != loads:
+                    job.wall_tainted = True
+            if sched_mod.claim_dispatch():
+                obs.metrics.inc(f"query.route.{lane}")
+                if routes is not None:
+                    routes.append({"rows": rows, "v": batch.v, "e": batch.e, "work": work, "lane": lane,
+                                   "reason": reason})
+            return cap
+
+        return execute
+
+    jobs = []
+    for i, batch in enumerate(batches):
+        work = len(batch.run_ids) * (batch.v + batch.e)
+        pin = query_lane(work, query_host_work) if pin_lanes else None
+        job = sched_mod.Job(index=i, verb="query", rows=len(batch.run_ids), v=batch.v, e=batch.e, work=work,
+                            execute=None, pinned=pin, reason="forced" if pin else "sched",
+                            lanes=("sparse_device", "host"), source="query")
+        job.execute = make_execute(batch, job)
+        jobs.append(job)
+    if sched_mod.sched_env() == "off":
+        caps = [job.execute(query_lane(job.work, query_host_work), "crossover", False) for job in jobs]
+    else:
+        scheduler = sched_mod.HeterogeneousScheduler(sched_mod.session_models(device), device=device)
+        caps = scheduler.run(jobs, serial=serial)
+    for batch, cap in zip(batches, caps):
         part.per_run.update(_extract(plan, batch, cap, vocab))
     return part
 
@@ -443,6 +483,7 @@ def execute_query(
     use_cache: bool = True,
     query_host_work: int | None = None,
     routes: list | None = None,
+    serial: bool = False,
 ) -> dict:
     """Plan and execute one query over an ingested corpus on ``device``
     (None: cuda, which raises without a card).  Returns the result document
@@ -455,15 +496,15 @@ def execute_query(
     (namespace ``query``), which a warm repeat returns with no job run, and
     one partial per segment (``query-partial``), so a grown corpus maps
     only its new segments.  ``query_host_work`` (None:
-    ``derived_query_host_work`` on the device) and ``routes``: see
-    :func:`map_segment_runs`."""
+    ``derived_query_host_work`` on the device, resolved once a query) is
+    the off drain's crossover; an explicit one also pins every job to its
+    lane under the scheduler (:func:`map_segment_runs`'s ``pin_lanes``).
+    ``routes`` and ``serial``: see :func:`map_segment_runs`."""
     from nemo_tpu_torch.analysis.delta import blob_cache_key, corpus_segments
     from nemo_tpu_torch.device import resolve_device
     from nemo_tpu_torch.store.rcache import resolve_result_cache
 
     dev = resolve_device(device)
-    if query_host_work is None:
-        query_host_work = derived_query_host_work(dev)
     with obs.span("query:plan", agg=q.agg, patterns=len(q.patterns)):
         plan = plan_query(q)
     rc = resolve_result_cache(result_cache) if use_cache else None
@@ -478,6 +519,7 @@ def execute_query(
         obs.metrics.inc("query.cache.miss")
 
     with obs.span("query:execute", plan=plan.key[:12]):
+        qhw = derived_query_host_work(dev) if query_host_work is None else query_host_work
         vocab = corpus_vocab(molly)
         plan.validate_names(vocab)
         graph_of = _graph_getter(plan, molly, vocab)
@@ -494,7 +536,8 @@ def execute_query(
                     continue
             obs.metrics.inc("query.partial.miss")
             part = map_segment_runs(plan, molly.runs[seg.start : seg.stop], vocab, graph_of, dev,
-                                    query_host_work=query_host_work, routes=routes)
+                                    query_host_work=qhw, pin_lanes=query_host_work is not None, routes=routes,
+                                    serial=serial)
             mapped += 1
             if rc is not None and pkey is not None:
                 rc.put_blob("query-partial", pkey, json.dumps(part.to_json(), sort_keys=True).encode("utf-8"))

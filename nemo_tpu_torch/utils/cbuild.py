@@ -9,7 +9,7 @@ same library safely.  Nothing is built at import: the first load builds.
 
 Unlike the JAX package's loader, nothing here degrades: a missing source, a
 compiler failure (its output included), a library that does not load or an
-ABI mismatch raises ``RuntimeError``.
+ABI mismatch raises ``BuildError`` (a RuntimeError).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import uuid
 from pathlib import Path
 from typing import Callable
 
-from nemo_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR
+from nemo_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, BuildError
 
 HOST_SRC_DIR = CSRC_DIR / "host"
 
@@ -37,7 +37,7 @@ def build_shared_lib(src: Path) -> Path:
     try:
         code = src.read_bytes()
     except OSError as ex:
-        raise RuntimeError(f"host library source {src} unreadable: {ex}") from ex
+        raise BuildError(f"host library source {src} unreadable: {ex}") from ex
     digest = hashlib.sha256(code + "\0".join(GXX_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists():
@@ -48,10 +48,10 @@ def build_shared_lib(src: Path) -> Path:
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as ex:
-        raise RuntimeError(f"g++ could not run for {src.name}: {ex}") from ex
+        raise BuildError(f"g++ could not run for {src.name}: {ex}") from ex
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise BuildError(
             f"g++ failed for {src.name} (rc {proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, lib)
@@ -78,11 +78,11 @@ class NativeLib:
                 lib = ctypes.CDLL(str(path))
                 abi = getattr(lib, self._abi_symbol)
             except (OSError, AttributeError) as ex:
-                raise RuntimeError(f"host library {path} does not load: {ex}") from ex
+                raise BuildError(f"host library {path} does not load: {ex}") from ex
             abi.restype = ctypes.c_int
             got = abi()
             if got != self._abi_version:
-                raise RuntimeError(
+                raise BuildError(
                     f"host library {path}: ABI {got}, expected {self._abi_version}"
                 )
             self._bind(lib)

@@ -94,3 +94,51 @@ def cache_root(arg: str | None, env_name: str, leaf: str) -> str | None:
             return None
         return os.path.expanduser(raw)
     return os.path.join(os.path.expanduser("~"), ".cache", "nemo_tpu_torch", leaf)
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's degraded-operation knobs (parallel/sched.py)
+# ---------------------------------------------------------------------------
+
+
+def sched_env() -> str:
+    """``NEMO_SCHED``: ``off`` (the default; the JAX package's is ``auto``)
+    drains every job list in order on the caller's thread, each job on its
+    routed lane; ``auto`` schedules a list of more than one job on one
+    worker thread per lane; ``on`` schedules every list.  Raises on junk, as
+    the JAX package's does: a typo resolving to a default would change the
+    execution's concurrency in exactly the dimension the caller pinned."""
+    v = os.environ.get("NEMO_SCHED", "off").strip().lower()
+    if v == "auto":
+        return "auto"
+    if v in _TRUE:
+        return "on"
+    if v in _FALSE:
+        return "off"
+    raise ValueError(f"NEMO_SCHED={v!r} (expected auto, on, or off)")
+
+
+def dispatch_timeout_s() -> float:
+    """``NEMO_DISPATCH_TIMEOUT_S`` (default 0, off): the deadline of one
+    device-lane job under the scheduler.  Past it the job's thread is
+    abandoned (a launch cannot be cancelled), the breaker counts a failure
+    and the job fails over to the host lane, recorded."""
+    return env_float("NEMO_DISPATCH_TIMEOUT_S", 0.0)
+
+
+def breaker_failures() -> int:
+    """``NEMO_BREAKER_FAILURES`` (default 3): consecutive device-lane
+    failures that open the device's circuit breaker."""
+    return env_int("NEMO_BREAKER_FAILURES", 3, minimum=1)
+
+
+def breaker_cooldown_s() -> float:
+    """``NEMO_BREAKER_COOLDOWN_S`` (default 30): how long an open breaker
+    plans the device's jobs to the host before one half-open probe."""
+    return env_float("NEMO_BREAKER_COOLDOWN_S", 30.0)
+
+
+def failover_backoff_s() -> float:
+    """``NEMO_FAILOVER_BACKOFF_S`` (default 0.05): base of the jittered
+    backoff slept before a failed device job runs again on the host."""
+    return env_float("NEMO_FAILOVER_BACKOFF_S", 0.05)
