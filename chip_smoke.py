@@ -172,10 +172,30 @@ each fatal (non-zero exit, no result line) on failure:
      (c) a job waiting on a spin kernel past NEMO_DISPATCH_TIMEOUT_S ends
      in DispatchTimeout, its abandoned dispatch records no route, and an
      abandoned dispatch that raises later has its error raised by the next
-     run; (d) no phase but these injected legs moves
+     run; (d) no phase but these injected legs (and 6l's) moves
      analysis.sched.failover, analysis.sched.lane_failure.device,
      analysis.sched.abandoned_error or
      sched.breaker.trip ({"sched": {...}});
+  6l. the chaos harness (nemo_tpu_torch/utils/chaos.py), each report with
+     the launch counts zeroed before and read after: (a) ZK-1270 (1,700
+     runs, sample:8, device lanes) under NEMO_SCHED=on with a breaker that
+     trips at the first failure: fail_dispatch:1 ends the report in
+     ChaosFault, counted, the breaker tripped (a flight bundle), nothing
+     failed over to the host; the next report is refused (BreakerOpen);
+     after the breaker's reset a report launches K1 and equals phase 5's;
+     under NEMO_SCHED=off the fault propagates; (b) wedge_dispatch:1 under
+     NEMO_DISPATCH_TIMEOUT_S=2 ends in DispatchTimeout with no route
+     recorded, and the next report is equal; (c) ZK-1270 in a store of
+     three segments, in memory and streamed: a child on cuda is SIGKILLed
+     after its first segment checkpoint (rc -9, nothing built), the resume
+     maps the two other segments and equals an uninterrupted cuda report
+     and the cpu report (walls under bench.py's chaos_tier names, what the
+     kill left); (d) the CLI in a child SIGKILLed inside the store's
+     publish, then the CLI again, which populates the store and writes the
+     cpu tree; (e) the cost of an unarmed hook beside a disabled span();
+     (f) no phase but 6k's and 6l's injected legs moves chaos.injected.*,
+     analysis.sched.lane_failure.device, analysis.sched.abandoned_error or
+     sched.breaker.trip ({"chaos": {...}});
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -311,9 +331,17 @@ QUERY_HOST_ONLY = 10**18
 #: leg (two failures trip it; a short cooldown; no failover pause).
 SCHED_TURNS = ("off", "on", "on", "off")
 SCHED_BREAKER = {"NEMO_BREAKER_FAILURES": "2", "NEMO_BREAKER_COOLDOWN_S": "1.0", "NEMO_FAILOVER_BACKOFF_S": "0"}
-#: The series that only phase 6k's injected legs may move, in any phase.
+#: The series that only phase 6k's and 6l's injected legs may move, in any
+#: phase (with every chaos.injected.<point>).
 FAILOVER_SERIES = ("analysis.sched.failover", "analysis.sched.lane_failure.device", "sched.breaker.trip",
                    "analysis.sched.abandoned_error")
+#: Phase 6l: ZK-1270's store appends (as phase 5b grows it), the figures of
+#: the killed sweep (sample:N publishes no segment partial), the breaker of
+#: the fail_dispatch leg and the wedge leg's deadline.
+CHAOS_APPENDS = (FAMILY_RUNS - INGEST_GROWN_RUNS, FAMILY_RUNS - INGEST_GROWN_RUNS // 2, FAMILY_RUNS)
+CHAOS_FIGURES = "none"
+CHAOS_BREAKER = {"NEMO_BREAKER_FAILURES": "1", "NEMO_BREAKER_COOLDOWN_S": "3600"}
+CHAOS_TIMEOUT_S = "2"
 
 
 def log(msg: str) -> None:
@@ -2913,6 +2941,315 @@ def sched_path(work: str, kernels, dirs: dict, trees: dict, sweep: tuple, corpus
     return launches, failover["counters"]
 
 
+def _env_set(updates: dict) -> dict:
+    """Set (a value) or unset (None) each variable; returns the old values."""
+    saved = {k: os.environ.get(k) for k in updates}
+    for k, v in updates.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return saved
+
+
+def chaos_dispatch(root: str, kernels, add, zk_dir: str, zk_tree: dict) -> dict:
+    """Phase 6l (a), (b): injected dispatch faults in ZK-1270's report on
+    cuda (1,700 runs, sample:8, device lanes, caches off).  (a) Under
+    NEMO_SCHED=on and a breaker that trips at the first failure,
+    fail_dispatch:1 ends run_debug in ChaosFault: counted (chaos.injected,
+    analysis.sched.lane_failure.device), the breaker tripped with a flight
+    bundle, nothing failed over and the host lane never ran; the next run
+    is refused (BreakerOpen, no launch); after the breaker's reset an
+    uninjected run launches K1 and equals phase 5's tree; under
+    NEMO_SCHED=off the fault propagates with no scheduler series and no
+    host-lane run.  (b) wedge_dispatch:1 under NEMO_DISPATCH_TIMEOUT_S
+    ends in DispatchTimeout (watchdog.dispatch_timeout), no route recorded,
+    the wedged dispatch left asleep on its daemon thread; the next run
+    passes and is equal.  Returns the record."""
+    import glob
+
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.analysis.pipeline import _ingest, run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+    from nemo_tpu_torch.parallel import sched
+    from nemo_tpu_torch.utils import chaos
+
+    zk = os.path.basename(zk_dir)
+    # The attempts fail at their first dispatch: they share one ingest.
+    molly = _ingest(zk_dir, True, None)[0]
+
+    def attempt(label: str, raises, spec: str | None):
+        """ZK-1270's report under NEMO_CHAOS=spec on fresh scheduler
+        models; it must end in ``raises``.  Returns (the counters it moved,
+        launches by kernel), after checking the host lane never ran."""
+        backend = TorchBackend(device="cuda", **DEVICE_LANES)
+        sched.reset_session_models("cuda")
+        chaos.reset()
+        saved = _env_set({"NEMO_CHAOS": spec})
+
+        def fn():
+            try:
+                run_debug(zk_dir, os.path.join(root, "reports", label), backend, figures=REPORT_FIGURES,
+                          report_name=zk, corpus_cache="off", result_cache="off", molly=molly)
+            except raises as ex:
+                return ex
+            raise AssertionError(f"{label}: the report ran to its end, not to {raises.__name__}")
+
+        d0 = obs.metrics.snapshot()
+        try:
+            ex, counts, wall = counted_call(label, kernels, fn)
+        finally:
+            _env_set(saved)
+            chaos.reset()
+        add(counts)
+        moved = obs.Metrics.delta(obs.metrics.snapshot(), d0)["counters"]
+        if backend.executor.host_runs or backend.analysis_routes:
+            raise AssertionError(f"{label}: host-lane runs {backend.executor.host_runs}, routes "
+                                 f"{backend.analysis_routes}")
+        log(f"{label}: {type(ex).__name__}: {ex}; {wall:.3f} s; launches {counts}; counters "
+            f"{ {k: v for k, v in moved.items() if k.startswith(('chaos.', 'analysis.sched.', 'sched.', 'watchdog.'))} }")
+        return moved, counts
+
+    def uninjected(label: str) -> dict:
+        res, _backend, tree, counts = report_counted(label, zk_dir, kernels, os.path.join(root, "reports", label),
+                                                     REPORT_FIGURES, zk)
+        add(counts)
+        _same_tree(label, tree, zk_tree, "phase 5's report")
+        if counts["closure"] <= 0:
+            raise AssertionError(f"{label}: K1 never launched")
+        shutil.rmtree(res.report_dir)
+        return {"report_s": round(res.report_wall_s, 4), "launches": counts}
+
+    out: dict = {}
+    flight_dir = os.path.join(root, "flight")
+    prev_flight = obs.flight.recorder()
+    obs.flight.arm(flight_dir)
+    saved = _env_set({"NEMO_SCHED": "on", **CHAOS_BREAKER, "NEMO_DISPATCH_TIMEOUT_S": None})
+    sched.reset_device_breaker("cuda")
+    try:
+        moved, counts = attempt("chaos fail_dispatch", chaos.ChaosFault, "fail_dispatch:1")
+        want = {"chaos.injected.fail_dispatch": 1, "analysis.sched.lane_failure.device": 1, "sched.breaker.trip": 1,
+                "analysis.sched.failover": None}
+        bundles = glob.glob(os.path.join(flight_dir, "flightrec-breaker_trip-*.json"))
+        if any(moved.get(k) != v for k, v in want.items()) or len(bundles) != 1:
+            raise AssertionError(f"chaos fail_dispatch: counters {moved}, expected {want}; bundles {bundles}")
+        out["fail_dispatch"] = {"counters": {k: moved.get(k) for k in want}, "launches": counts}
+        moved, counts = attempt("chaos breaker open", sched.BreakerOpen, None)
+        if counts["closure"] or moved.get("sched.breaker.short_circuit") != 1:
+            raise AssertionError(f"chaos breaker open: launches {counts}, counters {moved}")
+        sched.reset_device_breaker("cuda")
+        out["after_reset"] = uninjected("chaos after the breaker's reset")
+        os.environ["NEMO_SCHED"] = "off"
+        moved, counts = attempt("chaos fail_dispatch sched off", chaos.ChaosFault, "fail_dispatch:1")
+        if moved.get("chaos.injected.fail_dispatch") != 1 or any(
+                k.startswith(("analysis.sched.", "sched.")) for k in moved):
+            raise AssertionError(f"chaos fail_dispatch sched off: counters {moved}")
+        out["sched_off"] = {"launches": counts}
+
+        # (b) A wedged dispatch past the deadline; the default breaker
+        # threshold, so that the one failure does not trip it.
+        os.environ.update(NEMO_SCHED="on", NEMO_DISPATCH_TIMEOUT_S=CHAOS_TIMEOUT_S)
+        os.environ.pop("NEMO_BREAKER_FAILURES")
+        sched.reset_device_breaker("cuda")
+        t = time.perf_counter()
+        moved, counts = attempt("chaos wedge_dispatch", sched.DispatchTimeout, "wedge_dispatch:1")
+        wedge_s = time.perf_counter() - t
+        want = {"chaos.injected.wedge_dispatch": 1, "watchdog.dispatch_timeout": 1,
+                "analysis.sched.lane_failure.device": 1, "sched.breaker.trip": None, "analysis.sched.failover": None}
+        if any(moved.get(k) != v for k, v in want.items()) or counts["closure"]:
+            raise AssertionError(f"chaos wedge_dispatch: counters {moved}, expected {want}; launches {counts}")
+        out["wedge_dispatch"] = {"wall_s": round(wedge_s, 4), "timeout_s": float(CHAOS_TIMEOUT_S),
+                                 "counters": {k: moved.get(k) for k in want}}
+        out["after_wedge"] = uninjected("chaos after the wedge")
+    finally:
+        _env_set(saved)
+        sched.reset_device_breaker("cuda")
+        sched.reset_session_models("cuda")
+        obs.flight.disarm()
+        if prev_flight is not None:
+            obs.flight.arm(prev_flight.out_dir)
+    return out
+
+
+def _build_listing() -> dict:
+    from nemo_tpu_torch.kernels.build import BUILD_DIR
+
+    return {p.name: p.stat().st_mtime_ns for p in BUILD_DIR.iterdir()}
+
+
+def _killed_child(label: str, argv: list[str], spec: str) -> tuple[float, str]:
+    """``argv`` (a Python child on cuda) under NEMO_CHAOS=spec: it must die
+    by SIGKILL (rc -9) without printing COMPLETED and build nothing (it
+    loads the libraries the smoke built).  Returns (its wall, its stderr's
+    tail)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    before = _build_listing()
+    env = dict(os.environ, NEMO_CHAOS=spec, PYTHONPATH=repo)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], env=env, cwd=repo, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    if proc.returncode != -9 or "COMPLETED" in proc.stdout:
+        raise AssertionError(f"{label}: rc {proc.returncode}, not SIGKILL; stderr {proc.stderr[-2000:]}")
+    if _build_listing() != before:
+        raise AssertionError(f"{label}: the child built a library ({sorted(set(_build_listing()) - set(before))})")
+    log(f"{label}: killed (rc -9) after {wall:.3f} s with the interpreter's start, nothing built")
+    return wall, proc.stderr[-500:]
+
+
+def chaos_kills(root: str, kernels, add, zk_dir: str) -> dict:
+    """Phase 6l (c), (d): real SIGKILLs on cuda.  (c) ZK-1270 in a store of
+    three segments (CHAOS_APPENDS), figures CHAOS_FIGURES, device lanes:
+    in memory and streamed, a child dies after its first segment
+    checkpoint (kill_after_segments:1); the resume in this process maps
+    exactly the two other segments (K1 launched only at their sizes) and
+    its tree equals an uninterrupted cuda report with caches off and the
+    cpu report; the walls under bench.py's chaos_tier names and what the
+    kill left beside the results directory.  (d) The CLI in a child dies
+    inside the store's publish (kill_in_store_publish): tmp wreckage, no
+    header, a miss; the CLI again on cuda populates the store and writes
+    the cpu tree.  Returns the record."""
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.analysis import delta, pipeline
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
+    from nemo_tpu_torch.store import CorpusStore, resolve_store
+
+    zk = os.path.basename(zk_dir)
+    d, cc = os.path.join(root, "corpus", zk), os.path.join(root, "corpus-cache")
+    store = resolve_store(cc)
+    for n in CHAOS_APPENDS:
+        grow_corpus_dir(zk_dir, d, n)
+        molly, _kind, snap = pipeline._ingest(d, True, store)
+        if snap is not None:
+            pipeline._populate(store, d, molly, snap)
+    segs = [s.n_runs for s in delta.corpus_segments(store.load_packed(d))]
+    if len(segs) != len(CHAOS_APPENDS):
+        raise AssertionError(f"chaos {zk}: the store holds segments {segs}")
+    res, _backend, scratch, counts = report_counted(f"chaos scratch {zk}", d, kernels, os.path.join(root, "scratch"),
+                                                    CHAOS_FIGURES, zk, ingest="native")
+    add(counts)
+    scratch_s = res.report_wall_s
+    cpu = _cpu_tree(d, os.path.join(root, "cpu"), CHAOS_FIGURES, zk, default_routes=False, ingest="native")
+    _same_tree(f"chaos scratch {zk}", scratch, cpu, "the cpu report")
+    out: dict = {"segments": segs, "scratch_s": round(scratch_s, 4)}
+
+    def kill_code(results: str, rc: str) -> str:
+        return ("from nemo_tpu_torch.analysis.pipeline import run_debug\n"
+                "from nemo_tpu_torch.backend.torch_backend import TorchBackend\n"
+                f"run_debug({d!r}, {results!r}, TorchBackend('cuda', **{DEVICE_LANES!r}), figures={CHAOS_FIGURES!r}, "
+                f"report_name={zk!r}, ingest='native', corpus_cache={cc!r}, result_cache={rc!r})\n"
+                "print('COMPLETED')\n")
+
+    saved = os.environ.get("NEMO_STREAM")
+    try:
+        for mode in ("off", "on"):
+            os.environ["NEMO_STREAM"] = mode
+            label = f"chaos kill_after_segments:1 stream {mode}"
+            results, rc = os.path.join(root, "reports", mode), os.path.join(root, f"rc-{mode}")
+            child_s, _err = _killed_child(label, ["-c", kill_code(results, rc)], "kill_after_segments:1")
+            left = sorted(os.listdir(results)) if os.path.isdir(results) else []
+            label = f"chaos resume stream {mode}"
+            res, _backend, tree, counts = report_counted(label, d, kernels, results, CHAOS_FIGURES, zk,
+                                                         ingest="native", corpus_cache=cc, result_cache=rc)
+            add(counts)
+            rcd = res.result_cache
+            sizes = sorted({key[0] for (k, key), r in LAUNCH_LOG.shapes.items() if k == "closure"
+                            and label in r["launches"]})
+            if (rcd.get("segments_cached"), rcd.get("segments_mapped")) != (1, 2) or counts["closure"] <= 0 or (
+                    max(sizes) >= segs[0]):
+                raise AssertionError(f"{label}: result cache {rcd}, K1 launches {counts['closure']} at batch sizes "
+                                     f"{sizes} (segments {segs})")
+            _same_tree(label, tree, scratch, "the uninterrupted report")
+            if any(".stage-" in k or ".ckpt-" in k for k in tree):
+                raise AssertionError(f"{label}: a staging directory in the report")
+            out[mode] = {"child_s": round(child_s, 4), "resume_s": round(res.report_wall_s, 4),
+                         "scratch_s": round(scratch_s, 4),
+                         "recovery_overhead": round(res.report_wall_s / scratch_s, 4),
+                         "resumed_segments_cached": rcd["segments_cached"],
+                         "resumed_segments_mapped": rcd["segments_mapped"], "k1_batch_sizes": sizes,
+                         "launches": counts, "left_by_the_kill": left,
+                         "left_files": {n: len(os.listdir(os.path.join(results, n))) for n in left
+                                        if os.path.isdir(os.path.join(results, n))}}
+            log(f"{label}: {json.dumps(out[mode])}")
+    finally:
+        if saved is None:
+            os.environ.pop("NEMO_STREAM", None)
+        else:
+            os.environ["NEMO_STREAM"] = saved
+
+    # (d) The store's publish killed in the CLI; then the CLI again.
+    pcc, results = os.path.join(root, "publish-cache"), os.path.join(root, "reports", "publish")
+    argv = ["-faultInjOut", d, "--device", "cuda", "--results-dir", results, "--figures", CHAOS_FIGURES,
+            "--corpus-cache", pcc, "--result-cache", "off"]
+    child_s, _err = _killed_child("chaos kill_in_store_publish", ["-m", "nemo_tpu_torch.cli", *argv],
+                                  "kill_in_store_publish")
+    pstore = CorpusStore(pcc)
+    final = pstore.store_dir(d)
+    wreck = sorted(n for n in os.listdir(pcc) if ".npack.tmp-" in n)
+    if os.path.exists(os.path.join(final, "header.json")) or not wreck or pstore.probe(d) != "miss":
+        raise AssertionError(f"chaos kill_in_store_publish: {sorted(os.listdir(pcc))} left, probe {pstore.probe(d)}")
+    d0 = obs.metrics.snapshot()
+    wall, tel, tree, counts = cli_report("chaos publish rerun", argv, kernels, os.path.join(results, zk))
+    add(counts)
+    moved = obs.Metrics.delta(obs.metrics.snapshot(), d0)["counters"]
+    if moved.get("store.populate") != 1 or pstore.probe(d) != "hit" or counts["closure"] <= 0:
+        raise AssertionError(f"chaos publish rerun: counters {moved}, probe {pstore.probe(d)}, launches {counts}")
+    _same_tree("chaos publish rerun", tree, cpu, "the cpu report")
+    out["store_publish"] = {"child_s": round(child_s, 4), "wreckage": wreck, "rerun_s": round(wall, 4),
+                            "ingest": tel["ingest"], "launches": counts}
+    log(f"chaos store publish: {json.dumps(out['store_publish'])}")
+    return out
+
+
+def chaos_path(work: str, kernels, dirs: dict, trees: dict) -> tuple[dict, dict]:
+    """Phase 6l: the chaos harness (nemo_tpu_torch/utils/chaos.py) on cuda
+    (see the module docstring).  Prints {"chaos": {...}}.  Returns the
+    launches by kernel and the counters its injected legs moved."""
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.utils import chaos
+
+    root = os.path.join(work, "chaos")
+    zk = "ZK-1270-racing-sent-flag"
+    launches = {k.__name__: 0 for k in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    before = obs.metrics.snapshot()
+    out = chaos_dispatch(root, kernels, add, dirs[zk], trees[zk])
+    injected = obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"]
+    out.update(chaos_kills(root, kernels, add, dirs[zk]))
+
+    # (e) The cost of an unarmed hook beside a disabled span(), on this host.
+    os.environ.pop("NEMO_CHAOS", None)
+    chaos.reset()
+    n = 300_000
+    hook = chaos.on_device_dispatch
+    walls = {}
+    t = time.perf_counter()
+    for _ in range(n):
+        hook("fused")
+    walls["hook"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(n):
+        with obs.span("off", k=1):
+            pass
+    walls["span"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(n):
+        pass
+    walls["bare"] = time.perf_counter() - t
+    out["unarmed_hook_ns"] = round((walls["hook"] - walls["bare"]) / n * 1e9, 2)
+    out["disabled_span_ns"] = round((walls["span"] - walls["bare"]) / n * 1e9, 2)
+    log(f"an unarmed chaos hook costs {out['unarmed_hook_ns']} ns, a disabled span() {out['disabled_span_ns']} ns "
+        f"on this host")
+    out["launches"] = launches
+    print(json.dumps({"chaos": out}))
+    shutil.rmtree(root)
+    series = {k: v for k, v in injected.items() if k in FAILOVER_SERIES or k.startswith("chaos.injected.")}
+    return launches, series
+
+
 def _sound_fit(label: str, table: dict) -> None:
     """Fail unless a calibration on the card resolved (``table``: name ->
     value) a device slope, measured or seeded, below the measured host unit
@@ -3132,24 +3469,33 @@ def main() -> int:
         scheduled, injected = sched_path(work, kernels, dirs, trees, sweep,
                                          os.path.join(work, "ingest", "corpus-cache"))
         log(f"phase 6k wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        chaotic, chaos_injected = chaos_path(work, kernels, dirs, trees)
+        log(f"phase 6l wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the dense main path {dense}, on the ingest paths {ingest}, on the sparse path {sparse}, "
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
-        f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}")
+        f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}, under "
+        f"chaos {chaotic}")
     from nemo_tpu_torch import obs
 
-    # (6k d) No phase but 6k's injected legs failed a job over or tripped
-    # the breaker: the process's counters equal those legs' deltas.
+    # (6k d, 6l f) No phase but 6k's and 6l's injected legs failed a job
+    # over, tripped the breaker or fired a chaos point: the process's
+    # counters equal those legs' deltas.
     total = obs.metrics.snapshot()["counters"]
-    stray = {k: (total.get(k, 0), injected.get(k, 0)) for k in FAILOVER_SERIES if total.get(k, 0) != injected.get(k, 0)}
+    names = set(FAILOVER_SERIES) | {k for k in (*total, *chaos_injected) if k.startswith("chaos.injected.")}
+    stray = {k: (total.get(k, 0), injected.get(k, 0) + chaos_injected.get(k, 0)) for k in sorted(names)
+             if total.get(k, 0) != injected.get(k, 0) + chaos_injected.get(k, 0)}
     if stray:
-        raise AssertionError(f"a failover or breaker trip outside phase 6k's injected legs: {stray}")
+        raise AssertionError(f"a failover, breaker trip or chaos point outside the injected legs of 6k and 6l: "
+                             f"{stray}")
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
-            dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled))
+            dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled,
+            chaotic))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

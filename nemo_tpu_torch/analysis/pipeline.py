@@ -32,6 +32,7 @@ from nemo_tpu_torch.backend.base import GraphBackend
 from nemo_tpu_torch.ingest import adapters
 from nemo_tpu_torch.ingest.molly import MollyOutput
 from nemo_tpu_torch.report.writer import Reporter
+from nemo_tpu_torch.utils import chaos
 from nemo_tpu_torch.utils.env import quarantine_enabled
 from nemo_tpu_torch.utils.timing import PhaseTimer
 
@@ -685,6 +686,9 @@ def run_debug(
                             obs.metrics.inc("delta.partial_checkpoints")
                             _log.info("delta.checkpoint", corpus=fault_inj_out, segment=seg.name,
                                       published=len(published), remaining=len(to_map) - len(published))
+                            # Chaos kill point: SIGKILL after N published
+                            # checkpoints (the resume scenario's crash).
+                            chaos.on_segment_published(len(published))
                     if ok is not None:
                         on_disk[seg.name] = partial
                     else:

@@ -98,6 +98,7 @@ from nemo_tpu_torch.parallel.giant import giant_analysis_host, giant_linear, gia
 from nemo_tpu_torch.platform import profile as _platform_profile
 from nemo_tpu_torch.report.dot import DotGraph
 from nemo_tpu_torch.report.figures import create_diff_dot, create_dot
+from nemo_tpu_torch.utils import chaos as _chaos
 
 #: Shadow-run id offsets of the simplified graphs (preprocessing.go:15) and
 #: of the differential-provenance graphs (differential-provenance.go:40).
@@ -440,6 +441,10 @@ class TorchExecutor:
         the slow-dispatch watchdog (``NEMO_SLOW_DISPATCH_MS``)."""
         if verb not in self.VERBS:
             raise ValueError(f"unknown kernel verb {verb!r}")
+        # Chaos injection point (utils/chaos.py): one env lookup when
+        # NEMO_CHAOS is unset; armed, it fails or wedges the first N
+        # dispatches, before anything is counted or launched.
+        _chaos.on_device_dispatch(verb)
         fn, array_names, param_names, out_names = self.VERBS[verb]
         if verb in self.BATCHED_VERBS and "pack_out" not in params:
             # One bit-packed device->host copy on the card; on the CPU the

@@ -96,7 +96,7 @@ def _emit(level: str, logger: str, event: str, fields: dict) -> None:
         fr.record_log(rec)
     line = json.dumps(rec, default=str)
     with _lock:
-        print(line, file=sys.stderr, flush=True)  # the log sink itself
+        print(line, file=sys.stderr, flush=True)  # lint: allow-print (the log sink itself)
         # NEMO_LOG_FILE is re-read per emit (tests set it mid-run) and
         # opened per record: emits are rare, O_APPEND keeps concurrent
         # writers whole-line atomic, and no handle outlives the record.

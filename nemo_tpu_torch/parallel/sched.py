@@ -20,8 +20,9 @@ unpinned job from another lane's tail.
 
 A device-side failure that is the lane's, not the program's
 (``is_lane_failure``: out of memory, a dispatch past
-``NEMO_DISPATCH_TIMEOUT_S``) counts ``analysis.sched.lane_failure.device``
-and a failure of the device's circuit breaker; ``NEMO_BREAKER_FAILURES``
+``NEMO_DISPATCH_TIMEOUT_S``, an injected ``ChaosFault``) counts
+``analysis.sched.lane_failure.device`` and a failure of the device's
+circuit breaker; ``NEMO_BREAKER_FAILURES``
 consecutive failures open it (``sched.breaker.*``, a ``breaker_trip``
 flight bundle) until a half-open probe after ``NEMO_BREAKER_COOLDOWN_S``
 succeeds.  On the card the failure then propagates, and a run that plans
@@ -73,6 +74,7 @@ from nemo_tpu_torch import obs
 from nemo_tpu_torch.kernels.build import BuildError, KernelError
 from nemo_tpu_torch.obs import log as _obs_log
 from nemo_tpu_torch.utils.backoff import FAILOVER_POLICY, BackoffPolicy
+from nemo_tpu_torch.utils.chaos import ChaosFault
 from nemo_tpu_torch.utils.env import (  # noqa: F401 (sched_env: the reference's name here)
     breaker_cooldown_s,
     breaker_failures,
@@ -191,14 +193,15 @@ class BreakerOpen(RuntimeError):
 def is_lane_failure(ex: BaseException) -> bool:
     """Whether ``ex`` is the device lane's failure, which the job may
     recover from on the host lane: ``torch.cuda.OutOfMemoryError``,
-    ``MemoryError``, ``DispatchTimeout``, or a RuntimeError that says "out
-    of memory".  A kernel wrapper's error (KernelError, even when CUDA's
+    ``MemoryError``, ``DispatchTimeout``, an injected ``ChaosFault``
+    (utils/chaos.py), or a RuntimeError that says "out of memory".  A
+    kernel wrapper's error (KernelError, even when CUDA's
     string for it is "out of memory"), a build failure (BuildError), a
     sticky CUDA error (``torch.AcceleratorError`` or "CUDA error" in the
     text) and everything else are not: they propagate."""
     if isinstance(ex, (KernelError, BuildError)):
         return False
-    if isinstance(ex, (torch.cuda.OutOfMemoryError, MemoryError, DispatchTimeout)):
+    if isinstance(ex, (torch.cuda.OutOfMemoryError, MemoryError, DispatchTimeout, ChaosFault)):
         return True
     accel = getattr(torch, "AcceleratorError", None)
     if accel is not None and isinstance(ex, accel):

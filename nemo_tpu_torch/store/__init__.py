@@ -57,6 +57,7 @@ from nemo_tpu_torch.store.npack import (
     write_segment,
     write_vocab,
 )
+from nemo_tpu_torch.utils import chaos
 
 __all__ = ["CorpusStore", "StoreCorrupt", "attach_store_provenance", "resolve_store", "store_size_bytes"]
 
@@ -303,6 +304,9 @@ class CorpusStore:
         os.makedirs(tmp, exist_ok=True)
         try:
             seg_entry = write_segment(os.path.join(tmp, "seg-000"), payload, STORE_WORKERS)
+            # Chaos kill point: the shard bytes are in tmp, the rename has
+            # not published them (a SIGKILL runs no except below).
+            chaos.on_store_publish()
             if qpos:
                 healthy = sorted(set(range(n_positions)) - qpos)
                 seg_entry["positions"] = healthy

@@ -24,6 +24,8 @@ series for series:
   scheduler on (``analysis.sched.jobs`` and ``sched.breaker.*``), and
   bench.py's query through both schedulers' serial drain on fresh models
   (every ``analysis.sched.*`` counter and wall count);
+* **chaos**: an injected dispatch fault failed over to the host lane by
+  both schedulers, ``chaos.injected.*`` and every other series compared;
 * **names**: the port's only series the JAX package lacks is
   ``PORT_ONLY``'s.
 """
@@ -41,6 +43,7 @@ from nemo_tpu import obs as jax_obs
 from nemo_tpu.analysis.pipeline import _ingest as jax_ingest
 from nemo_tpu.analysis.pipeline import run_debug as jax_run_debug
 from nemo_tpu.analysis.synth import synth_impl_env
+from nemo_tpu.backend import jax_backend as jax_backend_mod
 from nemo_tpu.backend.jax_backend import JaxBackend
 from nemo_tpu.query.engine import run_query_text as jax_run_query_text
 from nemo_tpu.watch import WatchConfig as JaxWatchConfig
@@ -302,6 +305,53 @@ def test_sched_counters_match_jax(tmp_path, monkeypatch):
         return {k: v for k, v in delta["counters"].items() if k == "analysis.sched.jobs" or k.startswith("sched.")}
 
     assert pick(port) == pick(jax) and pick(port)["analysis.sched.jobs"] >= 3
+
+
+def test_chaos_failover_counters_match_jax(tmp_path, monkeypatch):
+    """``fail_dispatch:4`` under both packages' scheduler (on, a breaker
+    that trips at the first failure and stays open, the analysis host
+    budget 1, no FLOPs hint on the JAX side, one failover pause long enough
+    for the idle host lane to steal the other bucket): every series equal,
+    ``chaos.injected.fail_dispatch`` among them, but one, ROADMAP Queue C
+    (h): the JAX package records the failed dense dispatch's route before
+    it runs, the port only a route that ran."""
+    from nemo_tpu.parallel import sched as jax_sched
+    from nemo_tpu.utils import chaos as jax_chaos
+    from nemo_tpu.utils.backoff import BackoffPolicy as JaxBackoffPolicy
+    from nemo_tpu_torch.parallel import sched
+    from nemo_tpu_torch.utils import chaos
+
+    for name, value in (("NEMO_SCHED", "on"), ("NEMO_BREAKER_FAILURES", "1"), ("NEMO_BREAKER_COOLDOWN_S", "3600"),
+                        ("NEMO_ANALYSIS_HOST_WORK", "1"), ("NEMO_FAILOVER_BACKOFF_S", "0.3"),
+                        ("NEMO_CHAOS", "fail_dispatch:4")):
+        monkeypatch.setenv(name, value)
+    # No FLOPs hint prices the JAX device lane (the port has none): it reads
+    # the cost table of every earlier JAX report in the process.
+    monkeypatch.setattr(jax_backend_mod, "sched_device_hint", lambda job: None)
+    p = jax_sched.FAILOVER_POLICY
+    monkeypatch.setattr(jax_sched, "FAILOVER_POLICY", JaxBackoffPolicy(0.3, p.multiplier, p.max_delay_s, p.jitter,
+                                                                       p.budget_s))
+
+    def forget():
+        for mod in (chaos, jax_chaos):
+            mod.reset()
+        sched.reset_device_breaker("cpu")
+        sched.reset_session_models("cpu")
+        jax_sched.reset_device_breaker()
+        jax_sched.reset_session_models()
+
+    forget()
+    corpus = write_corpus(SynthSpec(n_runs=8, seed=3), str(tmp_path / "c"))
+    try:
+        (_, port), (_, jax) = _reports(corpus, tmp_path, {"analysis_host_work": 1})
+    finally:
+        monkeypatch.delenv("NEMO_CHAOS")
+        forget()
+    mine, theirs = _view(port), _view(jax)
+    assert "analysis.route.fused.dense" not in mine
+    assert theirs.pop("analysis.route.fused.dense") == theirs["analysis.sched.lane_failure.device"]
+    assert {k: (mine.get(k), theirs.get(k)) for k in set(mine) | set(theirs) if mine.get(k) != theirs.get(k)} == {}
+    assert mine["chaos.injected.fail_dispatch"] == mine["analysis.sched.failover"] == mine["sched.breaker.trip"] == 1
 
 
 def test_sched_query_counters_match_jax(corpora, monkeypatch, jax_fresh_scheduler):

@@ -7,8 +7,8 @@ constants, ``plan`` with and without an open breaker, the breaker's state
 machine under a patched ``time.monotonic`` and ``run(serial=True)``'s
 decision records, walls aside.  Then the port alone, threaded: results land
 by index, only unpinned jobs are stolen, a forced pin never fails over, a
-lane failure is out of memory or a deadline and nothing else (a kernel's
-own error propagates), on a card-keyed scheduler a lane failure or an open
+lane failure is out of memory, a deadline or an injected ChaosFault and
+nothing else (a kernel's own error propagates), on a card-keyed scheduler a lane failure or an open
 breaker raises and nothing reaches the host, an abandoned dispatch records
 no route and its late error is raised by the next run, cpu and cuda never
 share models or a breaker, the
@@ -33,6 +33,7 @@ from nemo_tpu_torch.kernels.build import BuildError, KernelError, count_launch
 from nemo_tpu_torch.parallel import sched
 from nemo_tpu_torch.platform import profile as pp
 from nemo_tpu_torch.utils.backoff import FAILOVER_POLICY, BackoffPolicy
+from nemo_tpu_torch.utils.chaos import ChaosFault
 from nemo_tpu_torch.utils.env import sched_env
 
 SIDES = {"port": sched, "jax": jax_sched}
@@ -358,6 +359,7 @@ def test_kernel_error_propagates_never_runs_on_host():
     (MemoryError(), True),
     (sched.DispatchTimeout("late"), True),
     (RuntimeError("CUDA out of memory. Tried to allocate 8.00 MiB"), True),
+    (ChaosFault("injected device dispatch failure (verb=fused)"), True),
     (KernelError("closure kernel failed: out of memory (cudaError 2)"), False),
     (KernelError("edge_wave kernel failed: invalid argument (cudaError 1)"), False),
     (BuildError("g++ failed for nemo_native.cpp (rc 1):\ncc1plus: out of memory allocating 65536 bytes"), False),
