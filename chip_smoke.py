@@ -8,8 +8,8 @@ each fatal (non-zero exit, no result line) on failure:
   1. print the card's name and power limit (nvidia-smi); exit if
      torch.cuda.is_available() is False;
   2. build every CUDA kernel of the port from csrc/ (nvcc, sm_90a), one
-     nvcc per source, all at once, and beside them the host ingest engine
-     (csrc/host/nemo_native.cpp, g++);
+     nvcc per source, all at once, and beside them the host ingest and
+     report engines (csrc/host/nemo_native.cpp, nemo_report.cpp; g++);
   3. hold the closure kernel (K1) against its plain PyTorch version on the
      card, bit for bit, at the main path's shapes and on the edge cases of
      nemo_tpu_torch/kernels/cases.py under every launch plan that takes
@@ -190,12 +190,26 @@ each fatal (non-zero exit, no result line) on failure:
      after its first segment checkpoint (rc -9, nothing built), the resume
      maps the two other segments and equals an uninterrupted cuda report
      and the cpu report (walls under bench.py's chaos_tier names, what the
-     kill left); (d) the CLI in a child SIGKILLed inside the store's
+     kill left, which, aged past the store's wreckage age first, the
+     resume must sweep); (d) the CLI in a child SIGKILLed inside the store's
      publish, then the CLI again, which populates the store and writes the
      cpu tree; (e) the cost of an unarmed hook beside a disabled span();
      (f) no phase but 6k's and 6l's injected legs moves chaos.injected.*,
      analysis.sched.lane_failure.device, analysis.sched.abandoned_error or
      sched.breaker.trip ({"chaos": {...}});
+  6m. the figure pipeline (report/native.py, report/render.py) on
+     ZK-1270 (1,700 runs, every figure, device lanes), each report with
+     the launch counts zeroed before and read after and its tree equal to
+     phase 5's (itself equal to the cpu report): (b) the report on a fresh
+     SVG cache, every unique figure rendered; (a) every unique DotGraph of
+     it rendered by the C++ engine and by report/svg.py, equal bytes, each
+     engine's summed ms; (c) again on the warm cache: nothing rendered,
+     every unique figure a cache hit; (d) on a 100-run prefix, cache off,
+     the NEMO_SVG_IMPL=python tree equal to the C++ engine's; (e) the CLI
+     in a child with --svg-cache DIR on that prefix: exit 0, no hit, the
+     cache filled, nothing built ({"figures": {...}}).  Phases 5-6l render
+     with no SVG cache (NEMO_SVG_CACHE=off, the C++ engine), so no report
+     reads a cache an earlier run left;
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -342,6 +356,10 @@ CHAOS_APPENDS = (FAMILY_RUNS - INGEST_GROWN_RUNS, FAMILY_RUNS - INGEST_GROWN_RUN
 CHAOS_FIGURES = "none"
 CHAOS_BREAKER = {"NEMO_BREAKER_FAILURES": "1", "NEMO_BREAKER_COOLDOWN_S": "3600"}
 CHAOS_TIMEOUT_S = "2"
+#: Phase 6m: the runs of the ZK-1270 prefix that the engines' trees and
+#: the CLI leg report on (beside an NVIDIA H100 80GB HBM3 at 700 W a
+#: 1,700-run `all` report took 12-24 s, most of it writing 20,929 files).
+FIGURES_PREFIX_RUNS = 100
 
 
 def log(msg: str) -> None:
@@ -939,7 +957,8 @@ MEM_PEAKS: dict[str, list[int]] = {}
 
 def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, report_name: str,
                    ingest: str = "auto", corpus_cache: str = "off", result_cache: str = "off",
-                   default_routes: bool = False, profile_dir: str | None = None, **backend_kw):
+                   default_routes: bool = False, profile_dir: str | None = None, render_scheduler=None,
+                   **backend_kw):
     """One debugging report on cuda through run_debug, with every kernel's
     launch count set to 0 just before and read just after; the corpus store
     and the result cache are off unless roots are given.  The backend takes
@@ -951,8 +970,11 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     allocator's peak is reset just before, so the memory section of its
     telemetry.json reads this report's device peak, over what was in use
     before it (MEM_PEAKS).
-    ``profile_dir`` goes to run_debug (the package's profiler capture)."""
-    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
+    ``profile_dir`` goes to run_debug (the package's profiler capture).
+    ``render_scheduler`` goes to run_debug too, and is drained (and its
+    result-cache publish flushed) inside the timed wall; its stats become
+    the result's ``figure_stats``."""
+    from nemo_tpu_torch.analysis.pipeline import _flush_result_cache, report_tree_bytes, run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.ops.sparse_device import LOOP_STATS
 
@@ -966,7 +988,11 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     t = time.perf_counter()
     try:
         res = run_debug(cd, out_root, backend, figures=figures, report_name=report_name, ingest=ingest,
-                        corpus_cache=corpus_cache, result_cache=result_cache, profile_dir=profile_dir)
+                        corpus_cache=corpus_cache, result_cache=result_cache, profile_dir=profile_dir,
+                        render_scheduler=render_scheduler)
+        if render_scheduler is not None:
+            res.figure_stats = render_scheduler.drain()
+            _flush_result_cache(res)
     finally:
         LAUNCH_LOG.label = None
     wall = time.perf_counter() - t
@@ -1028,7 +1054,8 @@ def check_report_content(label: str, res, protos: bool = False) -> None:
 def main_path(work: str, kernels) -> tuple[dict, dict, dict]:
     """Phase 5: the debugging report of all six families on cuda.  Returns
     the launches by kernel over the run, the families' directories and
-    their report trees (sample:8), each equal to the cpu report."""
+    their report trees (sample:8; and ZK-1270's with every figure under
+    ``<name>-all``), each equal to the cpu report."""
     from nemo_tpu_torch.analysis.pipeline import run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.models.case_studies import write_all_case_studies, write_case_study
@@ -1067,7 +1094,7 @@ def main_path(work: str, kernels) -> tuple[dict, dict, dict]:
     check_report_content(label, res, protos=True)
     shutil.rmtree(res.report_dir)
     check_report_cpu_equal(label, dirs[zk], tree, cpu_root, "all", f"{zk}-all")
-    del tree
+    trees[f"{zk}-all"] = tree  # phase 6m's reference
 
     for name, cd in dirs.items():
         # The cuda reports read the corpus through the native engine, the
@@ -3104,7 +3131,8 @@ def chaos_kills(root: str, kernels, add, zk_dir: str) -> dict:
     exactly the two other segments (K1 launched only at their sizes) and
     its tree equals an uninterrupted cuda report with caches off and the
     cpu report; the walls under bench.py's chaos_tier names and what the
-    kill left beside the results directory.  (d) The CLI in a child dies
+    kill left beside the results directory, which, once aged past the
+    store's wreckage age, the resume sweeps.  (d) The CLI in a child dies
     inside the store's publish (kill_in_store_publish): tmp wreckage, no
     header, a miss; the CLI again on cuda populates the store and writes
     the cpu tree.  Returns the record."""
@@ -3147,6 +3175,13 @@ def chaos_kills(root: str, kernels, add, zk_dir: str) -> dict:
             results, rc = os.path.join(root, "reports", mode), os.path.join(root, f"rc-{mode}")
             child_s, _err = _killed_child(label, ["-c", kill_code(results, rc)], "kill_after_segments:1")
             left = sorted(os.listdir(results)) if os.path.isdir(results) else []
+            left_files = {n: len(os.listdir(os.path.join(results, n))) for n in left
+                          if os.path.isdir(os.path.join(results, n))}
+            # Aged past the store's wreckage age, the leftover is the
+            # resume's to sweep.
+            aged = time.time() - CorpusStore._WRECKAGE_MAX_AGE_S - 60
+            for n in left:
+                os.utime(os.path.join(results, n), (aged, aged))
             label = f"chaos resume stream {mode}"
             res, _backend, tree, counts = report_counted(label, d, kernels, results, CHAOS_FIGURES, zk,
                                                          ingest="native", corpus_cache=cc, result_cache=rc)
@@ -3161,14 +3196,16 @@ def chaos_kills(root: str, kernels, add, zk_dir: str) -> dict:
             _same_tree(label, tree, scratch, "the uninterrupted report")
             if any(".stage-" in k or ".ckpt-" in k for k in tree):
                 raise AssertionError(f"{label}: a staging directory in the report")
+            if sorted(os.listdir(results)) != [zk]:
+                raise AssertionError(f"{label}: {sorted(os.listdir(results))} beside the results, the kill's aged "
+                                     f"leftover {left} not swept")
             out[mode] = {"child_s": round(child_s, 4), "resume_s": round(res.report_wall_s, 4),
                          "scratch_s": round(scratch_s, 4),
                          "recovery_overhead": round(res.report_wall_s / scratch_s, 4),
                          "resumed_segments_cached": rcd["segments_cached"],
                          "resumed_segments_mapped": rcd["segments_mapped"], "k1_batch_sizes": sizes,
-                         "launches": counts, "left_by_the_kill": left,
-                         "left_files": {n: len(os.listdir(os.path.join(results, n))) for n in left
-                                        if os.path.isdir(os.path.join(results, n))}}
+                         "launches": counts, "left_by_the_kill": left, "left_files": left_files,
+                         "aged_leftover_swept_by_the_resume": True}
             log(f"{label}: {json.dumps(out[mode])}")
     finally:
         if saved is None:
@@ -3248,6 +3285,134 @@ def chaos_path(work: str, kernels, dirs: dict, trees: dict) -> tuple[dict, dict]
     shutil.rmtree(root)
     series = {k: v for k, v in injected.items() if k in FAILOVER_SERIES or k.startswith("chaos.injected.")}
     return launches, series
+
+
+def figures_path(work: str, kernels, zk_dir: str, zk_all_tree: dict) -> dict:
+    """Phase 6m: the figure pipeline (report/native.py, report/render.py) on
+    the card's host, ZK-1270 (1,700 runs, seed 0, every figure, device
+    lanes), each report with the launch counts zeroed before and read
+    after.  ``zk_all_tree`` is phase 5's tree of that report (the C++
+    engine, SVG cache off), which phase 5 held equal to the cpu report.
+    (b) The report on a fresh SVG cache: every unique figure rendered, no
+    hit, the tree equal to phase 5's; (a) every unique DotGraph of it
+    rendered by the C++ engine and by report/svg.py: equal bytes, each
+    engine's summed ms; (c) again on the warm cache: nothing rendered,
+    every unique figure a hit, the tree equal; (d) on the first
+    FIGURES_PREFIX_RUNS runs, cache off, the NEMO_SVG_IMPL=python tree
+    equal to the C++ engine's; (e) the CLI in a child with --svg-cache DIR
+    on that prefix: exit 0, its figures line showing no hit, the cache
+    filled, nothing built.  Prints {"figures": {...}}; returns the
+    launches by kernel."""
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
+    from nemo_tpu_torch.report.native import render_svg_native
+    from nemo_tpu_torch.report.render import RenderScheduler, SvgCache, renderer_version
+    from nemo_tpu_torch.report.svg import render_svg
+
+    class Capturing(RenderScheduler):
+        """A scheduler keeping each unique key's first DotGraph for (a)."""
+
+        def __init__(self, cache: SvgCache) -> None:
+            super().__init__(cache=cache)
+            self.graphs = []
+
+        def submit(self, dot, svg_path: str) -> None:
+            n = len(self._order)
+            super().submit(dot, svg_path)
+            if len(self._order) > n:
+                self.graphs.append(dot)
+
+    root = os.path.join(work, "figures")
+    zk = "ZK-1270-racing-sent-flag"
+    name = f"{zk}-all"
+    launches = {k.__name__: 0 for k in kernels}
+    out: dict = {}
+
+    def report(label: str, env: dict, scheduler=None, cd: str = zk_dir, want: dict | None = zk_all_tree,
+               what: str = "phase 5's report (equal to the cpu report)") -> tuple:
+        saved = _env_set(env)
+        try:
+            res, _backend, tree, counts = report_counted(label, cd, kernels, os.path.join(root, label), "all",
+                                                         name, render_scheduler=scheduler)
+        finally:
+            _env_set(saved)
+        for k, n in counts.items():
+            launches[k] += n
+        if counts["closure"] <= 0:
+            raise AssertionError(f"{label}: K1 never launched")
+        if want is not None:
+            _same_tree(label, tree, want, what)
+        shutil.rmtree(res.report_dir)
+        fs = res.figure_stats
+        return tree, fs, {"report_s": round(res.report_wall_s, 4), **{k: fs[k] for k in (
+            "figures", "unique_figures", "rendered", "figure_cache_hits", "render_s", "serial_render_est_s",
+            "render_wall_s")}}
+
+    # (b) A fresh cache; the scheduler keeps the unique graphs.
+    cache = os.path.join(root, "svg-cache")
+    sched = Capturing(SvgCache(cache))
+    _tree, fs, out["cold"] = report("figures cold cache", {}, sched)
+    sched.close()
+    if fs["rendered"] != fs["unique_figures"] or fs["figure_cache_hits"] != 0:
+        raise AssertionError(f"figures cold cache: stats {fs}")
+
+    # (a) The engines on every unique graph of the report.
+    graphs = sched.graphs
+    if len(graphs) != fs["unique_figures"]:
+        raise AssertionError(f"figures engines: {len(graphs)} graphs captured, {fs['unique_figures']} unique")
+    ms = {"native": 0.0, "python": 0.0}
+    for g in graphs:
+        t = time.perf_counter()
+        a = render_svg_native(g)
+        ms["native"] += time.perf_counter() - t
+        t = time.perf_counter()
+        b = render_svg(g)
+        ms["python"] += time.perf_counter() - t
+        if a != b:
+            raise AssertionError(f"figures engines: the C++ engine differs from report/svg.py on a graph of "
+                                 f"{len(g.nodes)} nodes")
+    out["engines"] = {"unique": len(graphs), "native_ms": round(ms["native"] * 1e3, 3),
+                      "python_ms": round(ms["python"] * 1e3, 3)}
+    log(f"figures engines: {len(graphs)} unique graphs equal in both engines; native "
+        f"{out['engines']['native_ms']} ms, python {out['engines']['python_ms']} ms in all")
+    del graphs, sched
+
+    # (c) The warm cache, through run_debug's own scheduler.
+    _tree, fs, out["warm"] = report("figures warm cache", {"NEMO_SVG_CACHE": cache})
+    if fs["rendered"] != 0 or fs["figure_cache_hits"] != fs["unique_figures"]:
+        raise AssertionError(f"figures warm cache: stats {fs}")
+
+    # (d) The Python renderer's tree against the C++ engine's, on a prefix.
+    prefix = os.path.join(root, "prefix", zk)
+    grow_corpus_dir(zk_dir, prefix, FIGURES_PREFIX_RUNS)
+    tree, _fs, out["native_prefix"] = report(f"figures native {FIGURES_PREFIX_RUNS} runs", {}, cd=prefix, want=None)
+    _tree, _fs, out["python_prefix"] = report(f"figures python {FIGURES_PREFIX_RUNS} runs",
+                                              {"NEMO_SVG_IMPL": "python"}, cd=prefix, want=tree,
+                                              what="the C++ engine's report")
+    out["prefix_runs"] = FIGURES_PREFIX_RUNS
+    del tree
+
+    # (e) The CLI in a child, with a cache of its own.
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cli_cache = os.path.join(root, "cli-svg")
+    before = _build_listing()
+    argv = [sys.executable, "-m", "nemo_tpu_torch.cli", "-faultInjOut", prefix, "--device", "cuda", "--results-dir",
+            os.path.join(root, "cli"), "--figures", "all", "--corpus-cache", "off", "--result-cache", "off",
+            "--svg-cache", cli_cache, "--timings"]
+    t = time.perf_counter()
+    proc = subprocess.run(argv, env=dict(os.environ, PYTHONPATH=repo), cwd=repo, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t
+    line = next((x for x in proc.stdout.splitlines() if " cache hits, " in x), "")
+    if (proc.returncode != 0 or ", 0 cache hits, " not in line or _build_listing() != before
+            or not os.path.isdir(os.path.join(cli_cache, renderer_version()))):
+        raise AssertionError(f"figures CLI: rc {proc.returncode}, figures line {line!r}; stderr "
+                             f"{proc.stderr[-2000:]}")
+    out["cli"] = {"runs": FIGURES_PREFIX_RUNS, "wall_s": round(wall, 4), "figures_line": line}
+    log(f"figures CLI: {line} ({wall:.3f} s with the interpreter's start, the cache filled, nothing built)")
+    out["launches"] = launches
+    print(json.dumps({"figures": out}))
+    shutil.rmtree(root)
+    return launches
 
 
 def _sound_fit(label: str, table: dict) -> None:
@@ -3393,8 +3558,11 @@ def expect_variants(label: str, kernel: str, want: set[str], profile: dict) -> N
 def main() -> int:
     # Phases 5-6i route on the seeded constants whatever NEMO_PROFILE the
     # environment holds; phase 6j turns the profile on in a directory of its
-    # own.  Subprocesses inherit the setting.
-    os.environ["NEMO_PROFILE"] = "off"
+    # own.  Phases 5-6l render with no SVG cache, so that no report reads a
+    # cache an earlier run left; phase 6m sets its own.  Subprocesses
+    # inherit the settings.
+    os.environ.update(NEMO_PROFILE="off", NEMO_SVG_CACHE="off")
+    os.environ.pop("NEMO_SVG_IMPL", None)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a CUDA card",
               file=sys.stderr)
@@ -3410,14 +3578,18 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from nemo_tpu_torch.ingest.native import NATIVE
+    from nemo_tpu_torch.report.native import REPORT
 
     t = time.perf_counter()
-    # The host ingest engine (g++) builds beside the kernels (nvcc).
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        host = pool.submit(NATIVE.load)
+    # The host ingest and report engines (g++) build beside the kernels
+    # (nvcc).
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        hosts = [pool.submit(lib.load) for lib in (NATIVE, REPORT)]
         reports = kbuild.build()
-        host.result()
-    log(f"built {', '.join(kbuild.SOURCES)} and the host ingest engine in {time.perf_counter() - t:.2f} s")
+        for host in hosts:
+            host.result()
+    log(f"built {', '.join(kbuild.SOURCES)} and the host ingest and report engines in "
+        f"{time.perf_counter() - t:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
@@ -3472,6 +3644,9 @@ def main() -> int:
         t = time.perf_counter()
         chaotic, chaos_injected = chaos_path(work, kernels, dirs, trees)
         log(f"phase 6l wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        figured = figures_path(work, kernels, dirs[zk], trees.pop(f"{zk}-all"))
+        log(f"phase 6m wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
@@ -3479,7 +3654,7 @@ def main() -> int:
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
         f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}, under "
-        f"chaos {chaotic}")
+        f"chaos {chaotic}, through the figure pipeline {figured}")
     from nemo_tpu_torch import obs
 
     # (6k d, 6l f) No phase but 6k's and 6l's injected legs failed a job
@@ -3495,7 +3670,7 @@ def main() -> int:
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
             dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled,
-            chaotic))
+            chaotic, figured))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

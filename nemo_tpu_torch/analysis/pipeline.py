@@ -498,6 +498,10 @@ def run_debug(
     SVGs land then, and the result-cache publish waits for
     ``_flush_result_cache``.
 
+    A killed run leaves its staging directory ``<report>.stage-<hex>``
+    beside the report; each run sweeps those of its report that are older
+    than the corpus store's wreckage age (``_sweep_stage_leftovers``).
+
     With a store-served corpus and the result cache on, a repeated request
     restores the whole report tree without initializing the backend (no
     kernel launch), and a grown corpus maps only the segments no cached
@@ -548,6 +552,7 @@ def run_debug(
     iters = molly.get_runs_iters()
     failed_iters = molly.get_failed_runs_iters()
     this_results_dir = os.path.join(results_root, report_name or molly.run_name)
+    _sweep_stage_leftovers(this_results_dir)
     rcache = None if profile_dir else resolve_result_cache(result_cache)
     profiler = _profiler(profile_dir, dev)
     cache_doc: dict = {"state": "off"}
@@ -802,6 +807,34 @@ def run_debug(
         return result
     finally:
         shutil.rmtree(stage_dir, ignore_errors=True)
+
+
+def _sweep_stage_leftovers(this_results_dir: str) -> None:
+    """Remove the staging directories of ``this_results_dir``'s report that
+    a killed run left beside it (``<report>.stage-<hex>``, with its
+    ``.ckpt-`` children, which share the prefix) once they are older than
+    the corpus store's wreckage age; a younger one may belong to a live
+    run and stays.  Each removal is logged."""
+    from nemo_tpu_torch.store import CorpusStore
+
+    parent, name = os.path.split(this_results_dir)
+    try:
+        names = sorted(n for n in os.listdir(parent) if n.startswith(f"{name}.stage-"))
+    except FileNotFoundError:
+        return
+    now = time.time()
+    for n in names:
+        path = os.path.join(parent, n)
+        try:
+            if now - os.path.getmtime(path) < CorpusStore._WRECKAGE_MAX_AGE_S:
+                continue
+            shutil.rmtree(path)
+        except FileNotFoundError:
+            continue  # a concurrent run swept it first
+        except OSError as ex:
+            _log.warning("pipeline.stage_sweep_failed", path=path, error=f"{type(ex).__name__}: {ex}")
+            continue
+        _log.info("pipeline.stage_swept", path=path)
 
 
 def _profiler(profile_dir: str | None, dev):

@@ -6,7 +6,8 @@ directories, on one device.
         [--analysis-impl auto|dense|sparse|sparse_device]
         [--ingest auto|native|python] [--injector auto|molly|trace-json]
         [--corpus-cache DIR|off] [--result-cache DIR|off] [--prefetch]
-        [--save-corpus FILE.npz] [--out analysis.json] [--serve PORT]
+        [--svg-cache DIR|off] [--save-corpus FILE.npz] [--out analysis.json]
+        [--serve PORT]
         [--trace FILE] [--metrics-out FILE|-] [--timings] [--profile DIR]
     python -m nemo_tpu_torch.cli -faultInjOut <dir> --watch [--watch-poll-s S]
         [--watch-debounce-s S] [--watch-max-updates N]
@@ -35,6 +36,11 @@ corpus maps only its new runs.  ``--injector`` names the sweep's layout
 ``trace-json`` (one trace.json) or ``auto`` (default, sniffed; or
 ``$NEMO_INJECTOR``).  ``--save-corpus`` writes the packed corpus of one
 directory as one ``.npz`` (graphs/corpus.py), read by the Python loader.
+Each unique figure renders once, in the C++ engine (``NEMO_SVG_IMPL=python``:
+the Python renderer), and is served from then on by the persistent SVG
+cache, ``--svg-cache`` (default ``$NEMO_SVG_CACHE``, else
+``~/.cache/nemo_tpu_torch/svg``; ``off`` disables), which travels as its
+env var for the length of the call (report/render.py reads it).
 
 ``--watch`` re-debugs the one directory as the injector writes it
 (watch/watcher.py): each batch of new runs is appended to the corpus store,
@@ -108,6 +114,7 @@ from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRun
 from nemo_tpu_torch.ingest.adapters import INJECTORS, load_output
 from nemo_tpu_torch.obs import trace as obs_trace
 from nemo_tpu_torch.platform import profile
+from nemo_tpu_torch.utils.env import env_override
 
 
 def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", injector: str | None = None) -> dict:
@@ -188,6 +195,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--result-cache", default=None, metavar="DIR|off",
                     help="result cache root (default $NEMO_RESULT_CACHE or "
                          "~/.cache/nemo_tpu_torch/results; 'off' disables)")
+    ap.add_argument("--svg-cache", default=None, metavar="DIR|off",
+                    help="persistent SVG cache root (default $NEMO_SVG_CACHE or ~/.cache/nemo_tpu_torch/svg; "
+                         "'off' disables), keyed by render content and renderer version")
     ap.add_argument("--prefetch", action="store_true",
                     help="with several -faultInjOut directories, parse the next corpus on a worker thread "
                          "while the current one is analysed (default: one after the other)")
@@ -245,7 +255,8 @@ def main(argv: list[str] | None = None) -> int:
     mode = args.profile_mode
     if args.calibrate and mode is None and not os.environ.get("NEMO_PROFILE"):
         mode = "auto"  # asking to calibrate turns the profile on
-    with profile.mode_override(mode):
+    svg_env = {} if args.svg_cache is None else {"NEMO_SVG_CACHE": args.svg_cache}
+    with profile.mode_override(mode), env_override(svg_env):
         if args.calibrate:
             code = _calibrate_main(args.device)
             if not args.fault_inj_out:

@@ -5,11 +5,14 @@ Reference: report/webpage.go (Prepare copies the assets template into
 results/<runName>/ and creates figures/, webpage.go:26-50; GenerateFigure
 writes <name>.dot and renders <name>.svg, webpage.go:53-76; GenerateFigures
 names files run_<iter>_<name>, webpage.go:79-99).  SVGs come from the
-pure-Python layout engine (report/svg.py) instead of graphviz.
+built-in layout engine instead of graphviz: the C++ engine
+(csrc/host/nemo_report.cpp), or the Python renderer (report/svg.py) under
+``NEMO_SVG_IMPL=python``.
 
 SVG rendering goes through the Reporter's RenderScheduler
-(report/render.py): deduplicated, and the files land at the scheduler's
-drain().  The .dot files are written at once.
+(report/render.py): deduplicated, served from the persistent SVG cache,
+and the files land at the scheduler's drain().  The .dot files are written
+at once.
 """
 
 from __future__ import annotations

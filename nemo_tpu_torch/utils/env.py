@@ -10,6 +10,7 @@ never which algorithm analyzes the corpus.  An enumerated knob
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 from nemo_tpu_torch.obs import log as obs_log
@@ -18,6 +19,24 @@ _log = obs_log.get_logger("nemo.env")
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
+
+
+@contextlib.contextmanager
+def env_override(updates: dict[str, str]):
+    """Set each variable for the body, then restore the environment: a CLI
+    flag that travels as its env var, as the JAX package's do, without
+    outliving the call (``main()`` may run many times in one process).
+    Subprocesses started inside the body inherit the values."""
+    saved = {k: os.environ.get(k) for k in updates}
+    os.environ.update(updates)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def env_flag(name: str, default: bool) -> bool:

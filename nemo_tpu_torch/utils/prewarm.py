@@ -6,7 +6,7 @@ fused step once.
 
 A port of the JAX package's ``utils/prewarm.py``.  The port has no jit, so
 what a first report would otherwise pay is the build: the nvcc kernels
-(kernels/build.py) and the g++ ingest engine (utils/cbuild.py).  Prewarm
+(kernels/build.py) and the g++ ingest and report engines (utils/cbuild.py).  Prewarm
 builds them all at once, then dispatches one fused step per case-study
 family at the stress signature through ``TorchExecutor``, which creates
 the CUDA context and cuBLAS handles and fills the caching allocator.  It
@@ -82,21 +82,24 @@ def stress_signature(name: str, n_probe: int, b_pad: int):
 
 
 def build_all(device) -> float:
-    """Build the g++ ingest engine and, on cuda, every nvcc kernel, all at
-    once (each a no-op when its library is built).  Returns the wall."""
+    """Build the g++ ingest and report engines and, on cuda, every nvcc
+    kernel, all at once (each a no-op when its library is built).  Returns
+    the wall."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nemo_tpu_torch.device import resolve_device
     from nemo_tpu_torch.ingest.native import NATIVE
     from nemo_tpu_torch.kernels import build as kbuild
+    from nemo_tpu_torch.report.native import REPORT
 
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        engine = pool.submit(NATIVE.load)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        engines = [pool.submit(lib.load) for lib in (NATIVE, REPORT)]
         if dev.type == "cuda":
             kbuild.build()
-        engine.result()
+        for engine in engines:
+            engine.result()
     return time.perf_counter() - t0
 
 

@@ -22,7 +22,12 @@ package's, on the CPU.
   memory and streamed): the resume maps only the segments with no
   checkpoint, its tree equals an uninterrupted report and the JAX
   package's resumed tree, and what the kill leaves beside the results
-  directory is listed for both packages;
+  directory is listed for both packages: the port's staging directory
+  stays while it is young and is swept by the next run once it is older
+  than the store's wreckage age;
+* **the sweep of staging leftovers**: fabricated ``<report>.stage-*``
+  directories beside a report, aged and young, with a ``.ckpt-`` child
+  and another report's: a run removes (and logs) only its own aged ones;
 * **a real SIGKILL inside the store's publish**: no header at the final
   path, the tmp wreckage beside it, a miss; the next populate and load
   succeed; aged wreckage is swept and the lock file survives;
@@ -480,8 +485,45 @@ def test_sigkill_mid_sweep_resumes_byte_equal(sweep_full, stream, tmp_path, monk
     # figures; the JAX package, nothing (it stages in the system temp dir).
     assert left["jax"] is None
     assert len(left["port"]) == 1 and left["port"][0].startswith(f"{name}.stage-")
-    staged = os.listdir(tmp_path / "port" / "res" / left["port"][0])
+    leftover = tmp_path / "port" / "res" / left["port"][0]
+    staged = os.listdir(leftover)
     assert staged and all(f.endswith((".dot", ".svg")) for f in staged)
+    # Once older than the store's wreckage age, the next run sweeps it.
+    aged = time.time() - CorpusStore._WRECKAGE_MAX_AGE_S - 60
+    os.utime(leftover, (aged, aged))
+    d = str(tmp_path / "port" / "staged" / name)
+    again = run_debug(d, str(tmp_path / "port" / "res"), TorchBackend(device="cpu"), corpus_cache=str(
+        tmp_path / "port" / "cc"), result_cache=str(tmp_path / "port" / "rc"))
+    assert again.result_cache["state"] == "report_hit"
+    assert sorted(os.listdir(tmp_path / "port" / "res")) == [name]
+
+
+def test_stage_leftovers_swept_once_aged(corpus_dir, tmp_path, monkeypatch):
+    """Staging directories a killed run left beside its report are removed
+    by the next run of that report once older than the store's wreckage
+    age, each removal logged; a younger one (maybe a live run's) and
+    another report's stay."""
+    name = os.path.basename(corpus_dir)
+    res_root = tmp_path / "res"
+    aged_at = time.time() - CorpusStore._WRECKAGE_MAX_AGE_S - 60
+    made = {}
+    for leaf, aged in ((f"{name}.stage-0a1b2c3d", True), (f"{name}.stage-0a1b2c3d.ckpt-x1y2z3", True),
+                       (f"{name}.stage-young000", False), (f"other.stage-0a1b2c3d", True)):
+        p = res_root / leaf
+        p.mkdir(parents=True)
+        (p / "run_1_spacetime.svg").write_text("<svg/>")
+        if aged:
+            os.utime(p, (aged_at, aged_at))
+        made[leaf] = aged
+    log_file = tmp_path / "log.jsonl"
+    monkeypatch.setenv("NEMO_LOG_FILE", str(log_file))
+    run_debug(corpus_dir, str(res_root), TorchBackend(device="cpu"), figures="none")
+    left = sorted(os.listdir(res_root))
+    assert left == sorted([name, f"{name}.stage-young000", "other.stage-0a1b2c3d"])
+    swept = [json.loads(line)["path"] for line in log_file.read_text().splitlines()
+             if json.loads(line)["event"] == "pipeline.stage_swept"]
+    assert sorted(swept) == sorted(str(res_root / leaf) for leaf, aged in made.items()
+                                   if aged and leaf.startswith(name))
 
 
 # -------------------------------------- a real SIGKILL in the store's publish

@@ -26,6 +26,9 @@ series for series:
   (every ``analysis.sched.*`` counter and wall count);
 * **chaos**: an injected dispatch fault failed over to the host lane by
   both schedulers, ``chaos.injected.*`` and every other series compared;
+* **the SVG cache**: one report cold and then warm, each package on a
+  fresh cache directory of its own (``render.rendered`` and
+  ``render.svg_cache_*``);
 * **names**: the port's only series the JAX package lacks is
   ``PORT_ONLY``'s.
 """
@@ -71,9 +74,7 @@ EXCLUDED = {
     "kernel.cost.bytes_accessed": "XLA cost_analysis; the port's cost table records None",
     "kernel.upload_bytes": "the inputs' dtypes differ: the JAX package narrows the fused planes "
                            "(_narrow_fused_arrays), the port sends its packed dtypes",
-    "render.rendered": "unique renders drawn, against the JAX package's persistent SVG cache",
     "render.render_s": "a wall, not a count",
-    "render.svg_cache_misses": "the persistent SVG cache is not ported",
     "stream.prefetch_stall_s": "a wall, not a count",
     "rcache.restore_s": "a wall, not a count",
     "store.load_s": "a wall, not a count",
@@ -246,6 +247,31 @@ def test_cache_counters_match_jax_cold_warm_grown(tmp_path):
     grown = step("2")
     assert grown["store.append"] == 1 and grown["rcache.partial_hit"] == 1
     assert (grown["delta.runs_cached"], grown["delta.runs_mapped"]) == (7, 3)
+
+
+def test_render_counters_match_jax_cold_and_warm_svg_cache(corpora, tmp_path, monkeypatch):
+    """One report per package with a fresh SVG cache directory of its own,
+    cold and then warm: render.rendered, render.svg_cache_hits and
+    render.svg_cache_misses equal series for series, with every other
+    series."""
+    corpus = corpora["ZK-1270-racing-sent-flag"]
+
+    def step(tag: str):
+        monkeypatch.setenv("NEMO_SVG_CACHE", str(tmp_path / "port-svg"))
+        port = _delta(obs, lambda: run_debug(corpus, str(tmp_path / f"port{tag}"), TorchBackend(device="cpu"),
+                                             figures="all", ingest="native", corpus_cache="off", result_cache="off"))
+        monkeypatch.setenv("NEMO_SVG_CACHE", str(tmp_path / "jax-svg"))
+        jax = _delta(jax_obs, lambda: jax_run_debug(corpus, str(tmp_path / f"jax{tag}"), JaxBackend(), figures="all",
+                                                    ingest="native", corpus_cache="off", result_cache="off"))
+        _assert_same(port[1], jax[1])
+        return port[1]["counters"]
+
+    cold, warm = step("cold"), step("warm")
+    unique = cold["render.unique_figures"]
+    assert cold["render.rendered"] == cold["render.svg_cache_misses"] == unique > 0
+    assert "render.svg_cache_hits" not in cold
+    assert warm["render.svg_cache_hits"] == unique and "render.rendered" not in warm
+    assert "render.svg_cache_misses" not in warm
 
 
 @pytest.fixture
