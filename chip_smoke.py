@@ -49,10 +49,10 @@ each fatal (non-zero exit, no result line) on failure:
      must launch neither kernel), each report equal to the cpu report and
      each leg's ingest wall (the store populate and the cache lookup and
      publish apart), report wall and runs/s printed (a JSON line
-     {"ingest_legs": [...]}); then ZK-1270 grown by 200 runs under
-     figures=failed, whose report must map only the new segment and equal
-     a from-scratch report; then the same growth from 400 runs through
-     the CLI's defaults (figures=all, both caches on, fresh roots): each of the two
+     {"ingest_legs": [...]}); then ZK-1270's first 900 runs, the last 200
+     of them appended, under figures=failed, whose report must map only
+     the new segment and equal a from-scratch report; then the same growth
+     from 200 runs through the CLI's defaults (figures=all, both caches on, fresh roots): each of the two
      reports beside the same corpus's report with both caches off, the
      grown one mapping only the new segment and equal to its from-scratch
      report (a JSON line {"cli_grown": {...}}), and the host's cost of one
@@ -210,6 +210,23 @@ each fatal (non-zero exit, no result line) on failure:
      cache filled, nothing built ({"figures": {...}}).  Phases 5-6l render
      with no SVG cache (NEMO_SVG_CACHE=off, the C++ engine), so no report
      reads a cache an earlier run left;
+  6n. the device mesh (parallel/mesh.py, distributed.py, ring.py and the
+     dense giant step of giant.py), each report with the launch counts
+     zeroed before and read after: (a) ZK-1270 (1,700 runs, sample:8,
+     device lanes) with shard="on", a width-1 mesh on a one-rank NCCL
+     group: its tree equal to phase 5's, every fused dispatch sharded, K1
+     launched as often as in phase 5's report; (b) a world of two
+     processes on this card (gloo: their collectives stage through host
+     memory), joined by init_distributed, SPMD: the same report, equal to
+     phase 5's tree, every fused dispatch on the run mesh; giant10k on the
+     dense node-sharded giant step (giant_impl="device", a node mesh of
+     both ranks), equal to phase 6's tree; ring_reach and closure_sharded
+     at V = 2,048 equal to the dense versions on the card; each rank
+     prints its K1 and K2 launches, wall and device peak on a line of its
+     own (they stay out of the kernels line); (c) giant10k on the dense
+     giant step at width 1 in this process, equal to phase 6's tree, its
+     wall and device peak beside phase 6's sparse_device route's
+     ({"mesh": {...}});
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -282,6 +299,11 @@ SWEEP_SPEC = ("sweep", FAMILY_RUNS, 6, 80)
 REPORT_FIGURES = "sample:8"
 #: Runs the grown ZK-1270 sweep of phase 5b appends to its first ones.
 INGEST_GROWN_RUNS = 200
+#: Phase 5b's grown sweep: ZK-1270's first GROWN_PREFIX_RUNS runs, the
+#: last INGEST_GROWN_RUNS of them appended (on an NVIDIA H100 80GB HBM3 at
+#: 700 W its figures=failed reports of 1,500 and 1,700 runs took 34 s of
+#: the phase's 128 s; a prefix keeps every check at about half the writes).
+GROWN_PREFIX_RUNS = 900
 GIANT_FIGURES = {"giant10k": "none", "sd_giantv": "all"}
 #: The backend knobs that keep every bucket, diff and synth pass off the
 #: host lane: the routes phases 5-6 took before the host lane was ported,
@@ -298,13 +320,13 @@ STREAM_FIGURES = "none"
 #: Phase 5b's CLI legs: ZK-1270's first CLI_FIRST_RUNS runs, then
 #: INGEST_GROWN_RUNS more, every figure written (a smaller depth than the
 #: other legs': the four legs' figure writes dominated the phase's wall).
-CLI_FIRST_RUNS = 400
+CLI_FIRST_RUNS = 200
 #: Calls per lane at each routed shape of phase 6d.
 LANE_ITERS = 3
 #: Families that phase 5b also reports through the Python loader (the other
 #: legs take all six): kept so that the smoke ends well inside its time
 #: limit on the card's slower hosts.
-PYTHON_LEG_FAMILIES = 2
+PYTHON_LEG_FAMILIES = 1
 #: Phase 6g's adversarial families: bench.py's adversarial tier (96 runs,
 #: seed 13, figures none, caches off), on these lanes: (name, TorchBackend
 #: knobs, default routes).
@@ -316,15 +338,16 @@ ADV_LANES = (
 )
 #: Phase 6g's corpora: the family of each leg, the trace-JSON sweep's first
 #: generation, the quarantined positions, the watch legs' replays
-#: (bench.py's watch tier: SynthSpec(n_runs=240, seed=31) in 6
-#: generations; a family in 4).
+#: (bench.py's watch tier, SynthSpec(n_runs=240, seed=31), in 4
+#: generations where bench.py takes 6; a family in 3: cut for the smoke's
+#: time limit).
 TRACE_FAMILY = "CA-2083-hinted-handoff"
 QUARANTINE_FAMILY = "MR-2995-failed-after-expiry"
 QUARANTINE_POSITIONS = (17, 800, 1601)
 WATCH_FAMILY = "pb_asynchronous"
 SAVE_FAMILY = "CA-2434-bootstrap-synchronization"
-WATCH_TIER = (240, 31, 6)
-WATCH_FAMILY_GENERATIONS = 4
+WATCH_TIER = (240, 31, 4)
+WATCH_FAMILY_GENERATIONS = 3
 #: Figures of the legs that need per-segment partials (a sample:N selection
 #: depends on the whole run list, so it has none, and every update would
 #: map every run).
@@ -360,6 +383,15 @@ CHAOS_TIMEOUT_S = "2"
 #: the CLI leg report on (beside an NVIDIA H100 80GB HBM3 at 700 W a
 #: 1,700-run `all` report took 12-24 s, most of it writing 20,929 files).
 FIGURES_PREFIX_RUNS = 100
+#: Phase 6n: the ranks of the spawned world on one card (gloo, host-staged
+#: collectives), the seconds it may take to start and finish, its process
+#: group's timeout, and the ring's and the sharded closure's graph (V
+#: nodes, a random adjacency of about RING_DEGREE out-edges a node, RING_STEPS
+#: ring rotations).
+MESH_RANKS = 2
+MESH_CHILD_TIMEOUT_S = 300
+MESH_GROUP_TIMEOUT_S = 120
+RING_V, RING_DEGREE, RING_STEPS = 2048, 2, 16
 
 
 def log(msg: str) -> None:
@@ -954,6 +986,10 @@ LAUNCH_LOG = LaunchLog()
 #: LaunchLog's inputs)].
 MEM_PEAKS: dict[str, list[int]] = {}
 
+#: Phase 6's giant corpora by name: (the cuda report's tree, its wall),
+#: phase 6n's references for the dense giant step.
+GIANT_REPORTS: dict[str, tuple[dict, float]] = {}
+
 
 def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, report_name: str,
                    ingest: str = "auto", corpus_cache: str = "off", result_cache: str = "off",
@@ -1165,7 +1201,7 @@ def ingest_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     zk = "ZK-1270-racing-sent-flag"
     grown = os.path.join(root, "grown", zk)
     gcc, grc = os.path.join(root, "grown-corpus-cache"), os.path.join(root, "grown-result-cache")
-    n_old = FAMILY_RUNS - INGEST_GROWN_RUNS
+    n_old = GROWN_PREFIX_RUNS - INGEST_GROWN_RUNS
     grow_corpus_dir(dirs[zk], grown, n_old)
     res, _backend, _tree, counts = report_counted(
         f"ingest grown {zk} first {n_old} runs", grown, kernels, os.path.join(root, "reports", "grown0"), "failed",
@@ -1173,7 +1209,7 @@ def ingest_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     for k, n in counts.items():
         launches[k] += n
     shutil.rmtree(res.report_dir)
-    grow_corpus_dir(dirs[zk], grown, FAMILY_RUNS)
+    grow_corpus_dir(dirs[zk], grown, GROWN_PREFIX_RUNS)
     label = f"ingest grown {zk} +{INGEST_GROWN_RUNS} runs"
     res, backend, tree, counts = report_counted(
         label, grown, kernels, os.path.join(root, "reports", "grown1"), "failed", zk, ingest="native",
@@ -1367,6 +1403,7 @@ def sparse_path(work: str, kernels, zk_dir: str, zk_dense_tree: dict) -> tuple[d
             raise AssertionError(f"{name}: no diff overlay in the report")
         check_report_content(name, res)
         check_report_cpu_equal(f"report {name}", cd, tree, cpu_root, figures, name)
+        GIANT_REPORTS[name] = (tree, res.report_wall_s)
     if not host_giant_diffs:
         raise AssertionError("no giant corpus had a giant good run")
     for cd in giant_dirs:
@@ -3415,6 +3452,231 @@ def figures_path(work: str, kernels, zk_dir: str, zk_all_tree: dict) -> dict:
     return launches
 
 
+def _digests(tree: dict) -> dict:
+    import hashlib
+
+    return {k: hashlib.sha256(v).hexdigest() for k, v in tree.items()}
+
+
+def _rank_stage(rank: int, label: str, kernels, fn) -> dict:
+    """One stage of a phase 6n rank: ``fn()`` with the kernels' launch
+    counts zeroed before and read after and the allocator's peak reset;
+    prints the rank's launches, wall and device peak on a line of its own."""
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    row = {"wall_s": round(time.perf_counter() - t, 4), "device_peak_bytes": int(torch.cuda.max_memory_allocated()),
+           "launches": {k.__name__: k.launches for k in kernels}, **out}
+    log(f"6n rank {rank} {label}: K1 {row['launches']['closure']} K2 {row['launches']['edge_wave']} launches, wall "
+        f"{row['wall_s']} s, device peak {row['device_peak_bytes']} bytes")
+    return row
+
+
+def mesh_rank(rank: int, world: int, init: str, zk_dir: str, giant_dir: str, root: str, out) -> None:
+    """Phase 6n (b): one rank of a world of ``world`` processes on one card
+    (gloo, so its collectives stage through host memory), joined by
+    init_distributed.  SPMD: ZK-1270 on the device lanes (every fused
+    dispatch on the run mesh), giant10k on the dense node-sharded giant
+    step (giant_impl="device", a node mesh of the whole world), then
+    ring_reach and closure_sharded at V = RING_V against the dense versions
+    on the card.  Puts (rank, True, rows) or (rank, False, traceback) on
+    ``out``."""
+    import traceback
+
+    try:
+        # Every rank routes alike: the serial drain and no profile (the
+        # backend refuses a world with collectives otherwise).
+        os.environ.update(LOCAL_RANK=str(rank), NEMO_SCHED="off", NEMO_PROFILE="off")
+        import torch.distributed as dist
+
+        from nemo_tpu_torch import obs
+        from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
+        from nemo_tpu_torch.backend.torch_backend import TorchBackend
+        from nemo_tpu_torch.kernels import closure as closure_mod
+        from nemo_tpu_torch.kernels import edge_wave as edge_wave_mod
+        from nemo_tpu_torch.kernels.closure import closure_plain
+        from nemo_tpu_torch.parallel import ring
+        from nemo_tpu_torch.parallel.distributed import init_distributed
+        from nemo_tpu_torch.parallel.giant import default_node_mesh
+
+        init_distributed(init_method=init, world=world, rank=rank, backend="gloo", device="cuda",
+                         timeout_s=MESH_GROUP_TIMEOUT_S)
+        kernels = (closure_mod.closure, edge_wave_mod.edge_wave)
+        rows = {}
+
+        def report(cd: str, name: str, figures: str, **kw) -> dict:
+            before = obs.metrics.snapshot()
+            backend = TorchBackend(device="cuda", **DEVICE_LANES, **kw)
+            res = run_debug(cd, os.path.join(root, f"rank{rank}"), backend, figures=figures, report_name=name,
+                            corpus_cache="off", result_cache="off")
+            c = obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"]
+            giant_v = [x["v"] for x in backend.analysis_routes if x["verb"] == "giant"]
+            out = {"tree": _digests(report_tree_bytes(res.report_dir)), "routes": backend.analysis_routes,
+                   "dispatches": dict(backend.executor.dispatches), "giant_impl_used": backend.giant_impl_used,
+                   "sharded": c.get("kernel.sharded_dispatches", 0),
+                   "gather_bytes": c.get("analysis.shard.gather_bytes", 0), "device": str(backend.executor.device),
+                   "node_mesh": default_node_mesh(giant_v[0]).size if giant_v else None}
+            shutil.rmtree(res.report_dir)
+            return out
+
+        zk = os.path.basename(zk_dir)
+        rows["zk"] = _rank_stage(rank, f"report {zk}", kernels, lambda: report(zk_dir, zk, REPORT_FIGURES))
+        name = os.path.basename(giant_dir)
+        rows["giant"] = _rank_stage(rank, f"report {name} giant_impl=device", kernels,
+                                    lambda: report(giant_dir, name, GIANT_FIGURES[name], giant_impl="device"))
+
+        def ring_check() -> dict:
+            dev = torch.device("cuda")
+            g = torch.Generator().manual_seed(SEED)
+            adj = (torch.rand(RING_V, RING_V, generator=g) < RING_DEGREE / RING_V).to(dev)
+            start = torch.zeros(RING_V, dtype=torch.bool, device=dev)
+            start[:4] = True
+            m = ring.make_node_mesh()
+            reach = ring.ring_reach(m, adj, start, RING_STEPS)
+            clo = ring.closure_sharded(m, adj)
+            want = start.clone()
+            for _ in range(RING_STEPS):
+                want |= (want.float() @ adj.float()) > 0.5
+            return {"reach_equal": bool(torch.equal(reach, want)), "reach": int(reach.sum()),
+                    "closure_equal": bool(torch.equal(clo, closure_plain(adj))), "closure": int(clo.sum()),
+                    "mesh": m.size, "reach_device": str(reach.device)}
+
+        rows["ring"] = _rank_stage(rank, f"ring_reach, closure_sharded V={RING_V}", kernels, ring_check)
+        dist.destroy_process_group()
+        out.put((rank, True, rows))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+
+
+def mesh_path(work: str, kernels, zk_dir: str, zk_tree: dict, giant_dir: str) -> dict:
+    """Phase 6n: the device mesh (parallel/mesh.py, distributed.py,
+    ring.py, giant.py), each report with the launch counts zeroed before
+    and read after: (a) ZK-1270 on the device lanes with shard="on", a
+    width-1 mesh on a one-rank NCCL group: its tree equal to phase 5's,
+    every fused dispatch sharded, K1 launched as often as in phase 5's
+    report; (b) a world of MESH_RANKS processes on this card (mesh_rank),
+    each rank's trees equal to phase 5's ZK-1270 tree and phase 6's
+    giant10k tree, its fused dispatches all sharded, its giants on a node
+    mesh of the whole world, its ring and sharded closure equal to the
+    dense versions; each rank prints its launches, wall and device peak,
+    which stay out of the kernels line; (c) giant10k on the dense giant
+    step at width 1 in this process, equal to phase 6's tree, its wall and
+    device peak beside phase 6's sparse_device route's
+    ({"mesh": {...}}).  Returns the launches by kernel of (a) and (c)."""
+    import torch.distributed as dist
+
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.parallel import mesh
+
+    root = os.path.join(work, "mesh")
+    cuda_root = os.path.join(root, "cuda")
+    launches = {k.__name__: 0 for k in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    out: dict = {}
+    zk = os.path.basename(zk_dir)
+    # (a) Width 1, the mesh forced on.
+    label = f"mesh width 1 {zk}"
+    before = obs.metrics.snapshot()
+    res, backend, tree, counts = report_counted(label, zk_dir, kernels, cuda_root, REPORT_FIGURES, zk, shard="on")
+    add(counts)
+    delta = obs.Metrics.delta(obs.metrics.snapshot(), before)
+    c = delta["counters"]
+    fused = backend.executor.dispatches.get("fused", 0)
+    k1_phase5 = label_launches(f"report {zk}", "closure")
+    if tree != zk_tree:
+        raise AssertionError(f"{label}: the tree differs from phase 5's")
+    if not fused or c.get("kernel.sharded_dispatches") != fused or counts["closure"] != k1_phase5:
+        raise AssertionError(f"{label}: {c.get('kernel.sharded_dispatches')} sharded of {fused} fused dispatches, "
+                             f"K1 {counts['closure']} launches against phase 5's {k1_phase5}")
+    if mesh.world_size() != 1 or "nccl" not in str(dist.get_backend()):
+        raise AssertionError(f"{label}: the width-1 mesh is not a one-rank NCCL group ({dist.get_backend()})")
+    out["width1"] = {"wall_s": round(res.report_wall_s, 4), "launches": counts, "k1_phase5": k1_phase5,
+                     "sharded_dispatches": c["kernel.sharded_dispatches"],
+                     "gather_bytes": c.get("analysis.shard.gather_bytes", 0),
+                     "gather_s": round(delta["histograms"]["analysis.shard.gather_s"]["sum"], 6),
+                     "device_peak_bytes": MEM_PEAKS[label][0], "backend": str(dist.get_backend())}
+    log(f"{label}: equals phase 5's tree; {fused} fused dispatches, all on the mesh; K1 {counts['closure']} "
+        f"launches (phase 5: {k1_phase5})")
+    shutil.rmtree(res.report_dir)
+
+    # (b) Two ranks on this card.
+    giant_name = os.path.basename(giant_dir)
+    giant_tree, giant_wall = GIANT_REPORTS[giant_name]
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    init = "file://" + os.path.join(root, "rendezvous")
+    os.makedirs(root, exist_ok=True)
+    t = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, MESH_RANKS, init, zk_dir, giant_dir, os.path.join(root, "ranks"), q))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    ranks: dict = {}
+    try:
+        for _ in procs:
+            rank, ok, rows = q.get(timeout=MESH_CHILD_TIMEOUT_S)
+            if not ok:
+                raise AssertionError(f"6n rank {rank} failed:\n{rows}")
+            ranks[rank] = rows
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    world_wall = time.perf_counter() - t
+    want_zk, want_giant = _digests(zk_tree), _digests(giant_tree)
+    for rank, rows in sorted(ranks.items()):
+        z, g, r = rows["zk"], rows["giant"], rows["ring"]
+        fused = z["dispatches"].get("fused", 0)
+        giants = [x for x in g["routes"] if x["verb"] == "giant"]
+        if z["tree"] != want_zk or g["tree"] != want_giant:
+            raise AssertionError(f"6n rank {rank}: a tree differs from the single-card report's")
+        if not fused or z["sharded"] != fused or z["launches"]["closure"] <= 0 or not z["device"].startswith("cuda"):
+            raise AssertionError(f"6n rank {rank}: {z['sharded']} sharded of {fused} fused dispatches, launches "
+                                 f"{z['launches']}, device {z['device']}")
+        if (not giants or any((x["route"], x["reason"]) != ("dense", "giant_impl") for x in giants)
+                or g["giant_impl_used"] != "device" or g["node_mesh"] != MESH_RANKS
+                or g["dispatches"].get("giant") != len(giants)):
+            raise AssertionError(f"6n rank {rank}: giants {giants}, node mesh {g['node_mesh']}")
+        if not (r["reach_equal"] and r["closure_equal"] and r["mesh"] == MESH_RANKS):
+            raise AssertionError(f"6n rank {rank}: ring {r}")
+        for part in rows.values():
+            part.pop("tree", None)
+            part.pop("routes", None)
+    out["world"] = {"ranks": MESH_RANKS, "backend": "gloo", "wall_s": round(world_wall, 3), "per_rank": ranks}
+    log(f"6n: {MESH_RANKS} ranks on one card in {world_wall:.1f} s: every tree equals the single-card report's, "
+        f"the ring and the sharded closure the dense versions")
+
+    # (c) giant10k on the dense giant step, width 1.
+    label = f"mesh dense giant {giant_name}"
+    res, backend, tree, counts = report_counted(label, giant_dir, kernels, cuda_root, GIANT_FIGURES[giant_name],
+                                                giant_name, giant_impl="device")
+    add(counts)
+    giants = [x for x in backend.analysis_routes if x["verb"] == "giant"]
+    if tree != giant_tree or not giants or any((x["route"], x["reason"]) != ("dense", "giant_impl") for x in giants):
+        raise AssertionError(f"{label}: tree equal {tree == giant_tree}, giant routes {giants}")
+    out["dense_giant"] = {"wall_s": round(res.report_wall_s, 4), "device_peak_bytes": MEM_PEAKS[label][0],
+                          "sparse_device_wall_s": round(giant_wall, 4),
+                          "sparse_device_peak_bytes": MEM_PEAKS[f"report {giant_name}"][0], "launches": counts}
+    log(f"{label}: equals phase 6's tree; wall {res.report_wall_s:.3f} s, device peak {MEM_PEAKS[label][0]} bytes "
+        f"(sparse_device: {giant_wall:.3f} s, {MEM_PEAKS[f'report {giant_name}'][0]} bytes)")
+    shutil.rmtree(res.report_dir)
+    mesh.close_local_group()
+    print(json.dumps({"mesh": out}))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def _sound_fit(label: str, table: dict) -> None:
     """Fail unless a calibration on the card resolved (``table``: name ->
     value) a device slope, measured or seeded, below the measured host unit
@@ -3647,6 +3909,9 @@ def main() -> int:
         t = time.perf_counter()
         figured = figures_path(work, kernels, dirs[zk], trees.pop(f"{zk}-all"))
         log(f"phase 6m wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        meshed = mesh_path(work, kernels, dirs[zk], trees[zk], giant_dirs["giant10k"])
+        log(f"phase 6n wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
@@ -3654,7 +3919,7 @@ def main() -> int:
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
         f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}, under "
-        f"chaos {chaotic}, through the figure pipeline {figured}")
+        f"chaos {chaotic}, through the figure pipeline {figured}, on the mesh {meshed}")
     from nemo_tpu_torch import obs
 
     # (6k d, 6l f) No phase but 6k's and 6l's injected legs failed a job
@@ -3670,7 +3935,7 @@ def main() -> int:
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
             dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled,
-            chaotic, figured))
+            chaotic, figured, meshed))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

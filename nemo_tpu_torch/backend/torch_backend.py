@@ -7,7 +7,11 @@ named kernels over named numpy arrays and integer params.  Verbs: ``fused``
 clean-copy, chain contraction, prototype bitsets), ``sparse_fused`` (the
 same analysis as gather/scatter waves over the [B,E] edge planes),
 ``diff`` and ``sparse_diff`` (one good-run-anchored dispatch over all failed
-runs, dense or sparse) and ``synth_ext`` (per-run extension candidates).
+runs, dense or sparse), ``synth_ext`` (per-run extension candidates) and
+``giant`` (the dense node-sharded step of one giant run,
+parallel/giant.py).  Under a run mesh (``shard``, parallel/mesh.py) the
+fused and sparse_fused dispatches run on this rank's row block of the
+bucket, and the bucket comes back whole in one gather.
 
 Beside them runs the host lane, the JAX package's exact numpy engine
 (ops/sparse_host.py, ops/diff.py:diff_masks_host,
@@ -16,7 +20,8 @@ the JAX package's device-backend auto (its ``crossover``): a bucket whose
 work ``B x (V + E)`` is within ``analysis_host_work`` goes to the host
 lane; past the dense memory watermark (reason ``mem``) or large and very
 sparse (``density``) to ``sparse_device``; else ``dense``.  Runs above
-``giant_v`` nodes leave the buckets for ``sparse_device`` one at a time.
+``giant_v`` nodes leave the buckets one at a time, for ``sparse_device``
+unless ``giant_impl`` says otherwise.
 The diff goes to the host for a giant good run or within
 ``diff_host_work``, else sparse past the watermark, else dense; the synth
 pass to the host within ``synth_host_work``.
@@ -77,12 +82,7 @@ from nemo_tpu_torch.graphs.pgraph import PGraph, PNode
 from nemo_tpu_torch.ingest.datatypes import Goal, MissingEvent, Rule
 from nemo_tpu_torch.ingest.molly import MollyOutput
 from nemo_tpu_torch.kernels.build import thread_loads
-from nemo_tpu_torch.models.pipeline_model import (
-    DIFF_PACK_LAYOUT,
-    SUMMARY_PACK_LAYOUT,
-    BatchArrays,
-    analysis_step,
-)
+from nemo_tpu_torch.models.pipeline_model import BatchArrays, analysis_step, unpack_summary
 from nemo_tpu_torch.ops.adjacency import build_adjacency
 from nemo_tpu_torch.ops.diff import diff_masks, diff_masks_host
 from nemo_tpu_torch.ops.proto import DEPTH_INF
@@ -93,8 +93,15 @@ from nemo_tpu_torch.ops.sparse_device import (
     synth_ext_candidates,
 )
 from nemo_tpu_torch.ops.sparse_host import sparse_analysis_step, synth_ext_host
+from nemo_tpu_torch.parallel import mesh as mesh_mod
 from nemo_tpu_torch.parallel import sched as sched_mod
-from nemo_tpu_torch.parallel.giant import giant_analysis_host, giant_linear, giant_plan, pad_comp_labels
+from nemo_tpu_torch.parallel.giant import (
+    giant_analysis_host,
+    giant_analysis_step,
+    giant_linear,
+    giant_plan,
+    pad_comp_labels,
+)
 from nemo_tpu_torch.platform import profile as _platform_profile
 from nemo_tpu_torch.report.dot import DotGraph
 from nemo_tpu_torch.report.figures import create_diff_dot, create_dot
@@ -248,6 +255,29 @@ def _k_sparse_fused(*args):
     )
 
 
+def _k_giant(*args):
+    """The dense node-sharded giant step (parallel/giant.py) over one giant
+    run; the label planes carry giant_plan's union-find labels."""
+    pre = BatchArrays(*args[:8])
+    post = BatchArrays(*args[8:16])
+    pre_labels, post_labels = args[16:18]
+    v, pre_tid, post_tid, num_tables, max_depth, comp_linear, proto_depth, pack_out = args[18:]
+    return giant_analysis_step(
+        pre,
+        post,
+        v=v,
+        pre_tid=pre_tid,
+        post_tid=post_tid,
+        num_tables=num_tables,
+        max_depth=max_depth,
+        comp_linear=bool(comp_linear),
+        proto_depth=proto_depth,
+        pre_labels=pre_labels,
+        post_labels=post_labels,
+        pack_out=bool(pack_out),
+    )
+
+
 def _k_diff(edge_src, edge_dst, edge_mask, is_goal, node_mask, label_id, fail_bits, v, max_depth):
     adj_good = build_adjacency(edge_src, edge_dst, edge_mask, v)[0]
     return diff_masks(adj_good, is_goal, node_mask, label_id, fail_bits, max_depth)
@@ -265,24 +295,6 @@ def _k_synth_ext(
 #: Field order of BatchArrays, used to (de)serialize the fused verb's inputs
 #: through the executor's named-array contract.
 _BA_FIELDS = BatchArrays.FIELDS
-
-
-def unpack_summary(
-    packed: np.ndarray, b: int, v: int, t: int, with_diff: bool = False
-) -> dict[str, np.ndarray]:
-    """Inverse of the pack_out folding (SUMMARY_PACK_LAYOUT +
-    DIFF_PACK_LAYOUT): one host np.unpackbits + views."""
-    layout = SUMMARY_PACK_LAYOUT + (DIFF_PACK_LAYOUT if with_diff else ())
-    dims = {"bv": (b, v), "b": (b,), "bt": (b, t), "t": (t,)}
-    flat = np.unpackbits(np.asarray(packed)).astype(bool)
-    out: dict[str, np.ndarray] = {}
-    ofs = 0
-    for name, key in layout:
-        shape = dims[key]
-        n = int(np.prod(shape))
-        out[name] = flat[ofs : ofs + n].reshape(shape)
-        ofs += n
-    return out
 
 
 def _children_of_edges(kept: np.ndarray, v: int):
@@ -359,6 +371,14 @@ class TorchExecutor:
             ("v", "pre_tid", "post_tid", "num_tables", "comp_linear", "pack_out"),
             None,  # dict-returning: output names come from sparse_device_step
         ),
+        "giant": (
+            _k_giant,
+            tuple(f"pre_{f}" for f in _BA_FIELDS)
+            + tuple(f"post_{f}" for f in _BA_FIELDS)
+            + ("pre_comp_labels", "post_comp_labels"),
+            ("v", "pre_tid", "post_tid", "num_tables", "max_depth", "comp_linear", "proto_depth", "pack_out"),
+            None,  # dict-returning: the fused step's keys at B=1 (giant_analysis_step)
+        ),
         "sparse_diff": (
             diff_masks_sparse_device,
             ("edge_src", "edge_dst", "edge_mask", "is_goal", "node_mask", "label_id", "fail_bits"),
@@ -382,17 +402,26 @@ class TorchExecutor:
     _CLEAN = frozenset(
         {"pre_adj_clean", "post_adj_clean", "pre_alive", "post_alive", "pre_type", "post_type"}
     )
-    ON_DEVICE = {"fused": _CLEAN, "sparse_fused": _CLEAN, "diff": frozenset({"edge_keep"})}
+    ON_DEVICE = {"fused": _CLEAN, "sparse_fused": _CLEAN, "giant": _CLEAN, "diff": frozenset({"edge_keep"})}
 
     #: Params that may be absent; 0 selects the generic path, except
     #: pack_out, which the executor resolves for its own device.
     OPTIONAL_PARAMS = frozenset({"comp_linear", "pack_out"})
 
-    #: Verbs batched over the run axis: the ``kernel.batch_rows`` signal.
-    BATCHED_VERBS = frozenset({"fused", "sparse_fused"})
+    #: Array inputs that may be absent: the giant step without host labels
+    #: labels by the exact all-pairs closure.
+    OPTIONAL_ARRAYS = frozenset({"pre_comp_labels", "post_comp_labels"})
 
-    def __init__(self, device=None) -> None:
+    #: Verbs batched over the run axis: the ``kernel.batch_rows`` signal.
+    BATCHED_VERBS = frozenset({"fused", "giant", "sparse_fused"})
+
+    #: Verbs whose run axis the run mesh splits (parallel/mesh.py).
+    SHARDED_VERBS = frozenset({"fused", "sparse_fused"})
+
+    def __init__(self, device=None, shard="auto") -> None:
         self.device = resolve_device(device)
+        #: the run mesh's knob (parallel/mesh.py:shard_plan), validated
+        self.shard = mesh_mod.parse_shard(shard)
         #: dispatches per verb since construction.
         self.dispatches: dict[str, int] = {}
         #: host wall seconds per verb: upload, compute and the copy of the
@@ -446,10 +475,13 @@ class TorchExecutor:
         # dispatches, before anything is counted or launched.
         _chaos.on_device_dispatch(verb)
         fn, array_names, param_names, out_names = self.VERBS[verb]
+        place, n_dev = (mesh_mod.shard_plan(self.shard) if verb in self.SHARDED_VERBS
+                        else (False, 1))
         if verb in self.BATCHED_VERBS and "pack_out" not in params:
             # One bit-packed device->host copy on the card; on the CPU the
-            # "copy" is free.
-            params = dict(params, pack_out=int(self.device.type == "cuda"))
+            # "copy" is free, but a placing mesh gathers the packed summary
+            # there too.
+            params = dict(params, pack_out=int(self.device.type == "cuda" or place))
         statics = [
             int(params.get(n, 0)) if n in self.OPTIONAL_PARAMS else int(params[n])
             for n in param_names
@@ -468,21 +500,40 @@ class TorchExecutor:
             span_attrs["rows"] = rows_real
         obs.metrics.inc(f"kernel.dispatches.{verb}")
         obs.metrics.inc("kernel.upload_bytes", upload)
+        mesh = None
+        b_pad = b_in
+        if place and b_in is not None:
+            # Run-axis sharding: this rank runs the verb on its block of the
+            # (padded) batch; the corpus-level reductions and the one gather
+            # a bucket come after (parallel/mesh.py).
+            mesh = mesh_mod.run_mesh(n_dev, self.device)
+            span_attrs["shard_devices"] = n_dev
+            obs.metrics.inc("kernel.sharded_dispatches")
+            obs.metrics.gauge("analysis.shard.devices", n_dev)
         with self._lock:
             self.dispatches[verb] = self.dispatches.get(verb, 0) + 1
         cold = sched_mod.first_dispatch(verb, self.device)
         loads = thread_loads()
         t0 = time.perf_counter()
         try:
-            args = [_on_device(arrays[n], self.device) for n in array_names]
+            row0 = mesh is not None and bool(params.get("with_diff", 0))
+            if mesh is not None:
+                local, b_pad = mesh_mod.pad_place_named_arrays(arrays, b_in, n_dev, self.device, with_row0=row0)
+                args = [local[n] for n in array_names]
+                statics[param_names.index("pack_out")] = 0  # folded after the reductions
+            else:
+                args = [None if arrays.get(n) is None and n in self.OPTIONAL_ARRAYS
+                        else _on_device(arrays[n], self.device) for n in array_names]
             t_disp = time.perf_counter()
             with obs.span(f"kernel:{verb}", **span_attrs):
                 with _device_annotation(f"nemo:{verb}"):
                     out = fn(*args, *statics)
+                    if mesh is not None:
+                        out = mesh_mod.finish_rows(mesh, out, row0 and mesh.index > 0, _summary_layout(params))
             wall_s = time.perf_counter() - t_disp
             first = _record_kernel_cost(
                 verb, _cost_signature(verb, arrays, params), wall_s,
-                pad_rows=(b_in - rows_real) if rows_real is not None else 0,
+                pad_rows=(b_pad - rows_real) if rows_real is not None else 0,
             )
             self._tls.cold = cold or thread_loads() != loads
             # Watermarks off the hot path: a signature's first dispatch and
@@ -505,10 +556,30 @@ class TorchExecutor:
                     v=int(params["v"]) if "v" in params else None,
                     upload_bytes=upload,
                 )
+            if mesh is not None:
+                return self._gather_sharded(mesh, verb, out, params, b_in, b_pad)
             return self._materialize(verb, out, arrays, params, out_names)
         finally:
             with self._lock:
                 self.wall_s[verb] = self.wall_s.get(verb, 0.0) + time.perf_counter() - t0
+
+    def _gather_sharded(self, mesh, verb: str, out: dict, params: dict, b_in: int, b_pad: int) -> dict:
+        """The one gather of a sharded bucket: the host outputs (the packed
+        summary per rank) in one all-gather, timed and counted (the bytes of
+        the host outputs only, as the reference's), the ON_DEVICE planes in
+        one more, timed too, so that every rank's row gathers see every row;
+        then the summary unpacked on the host and the padding rows shed."""
+        keep = self.ON_DEVICE.get(verb, frozenset())
+        t = time.perf_counter()
+        host, dev = mesh_mod.gather_rows(mesh, out, keep)
+        obs.metrics.observe("analysis.shard.gather_s", time.perf_counter() - t)
+        obs.metrics.inc("analysis.shard.gather_bytes", sum(int(a.nbytes) for a in host.values()))
+        res = mesh_mod.unpack_rows(host, b_pad // mesh.size, int(params["v"]), int(params["num_tables"]),
+                                   bool(params.get("with_diff", 0)))
+        res.update(dev)
+        if b_pad != b_in:
+            res = {k: a if k in mesh_mod.CORPUS_LEVEL else a[:b_in] for k, a in res.items()}
+        return res
 
     def _materialize(self, verb: str, out, arrays: dict, params: dict, out_names) -> dict:
         keep = self.ON_DEVICE.get(verb, frozenset())
@@ -522,12 +593,23 @@ class TorchExecutor:
                         v=int(params["v"]),
                         t=int(params["num_tables"]),
                         with_diff=bool(params.get("with_diff", 0)),
+                        giant=verb == "giant",
                     )
                 )
             return res
         if not isinstance(out, tuple):
             out = (out,)
         return {n: (o if n in keep else o.cpu().numpy()) for n, o in zip(out_names, out)}
+
+
+def _summary_layout(params: dict):
+    """The packed-summary layout of a fused or sparse_fused dispatch under
+    its pack_out, or None."""
+    from nemo_tpu_torch.models.pipeline_model import DIFF_PACK_LAYOUT, SUMMARY_PACK_LAYOUT
+
+    if not int(params.get("pack_out", 0)):
+        return None
+    return SUMMARY_PACK_LAYOUT + (DIFF_PACK_LAYOUT if int(params.get("with_diff", 0)) else ())
 
 
 def _verb_arrays(pre_b: PackedBatch, post_b: PackedBatch) -> dict[str, np.ndarray]:
@@ -575,9 +657,16 @@ _SYNTH_ROUTE_OF_LANE = {"device": "sparse_device", "host": "sparse"}
 #: Analysis routes a caller may ask for: per-bucket auto routing, or one
 #: lane forced for every verb: ``dense`` (the fused dense step and diff),
 #: ``sparse`` (the host lane, giants and synth included) or
-#: ``sparse_device``.  Giant runs never take the dense step: the port has no
-#: dense giant path, so under ``dense`` they take ``sparse_device``.
+#: ``sparse_device``.  Giant runs take the dense node-sharded step only
+#: under ``giant_impl="device"``: under ``dense`` they take
+#: ``sparse_device``.
 ANALYSIS_IMPLS = ("auto", "dense", "sparse", "sparse_device")
+
+#: Giant routes a caller may ask for (the reference's NEMO_GIANT_IMPL):
+#: ``auto`` (the host lane under analysis_impl="sparse", else
+#: sparse_device), ``host``, ``device`` (the dense node-sharded step,
+#: parallel/giant.py:giant_analysis_step) or ``sparse_device``.
+GIANT_IMPLS = ("auto", "host", "device", "sparse_device")
 
 
 def _stage_arrays(arrays: dict[str, np.ndarray], device: torch.device, stream) -> tuple[dict, object, int]:
@@ -619,6 +708,11 @@ class TorchBackend(GraphBackend):
     crossover; density 0 disables).  ``auto`` resolves the same on cpu and
     cuda.  The jobs drain as ``NEMO_SCHED`` says (the module's docstring).
 
+    In a world of several ranks, a backend whose dispatches meet in
+    collectives (``shard`` placing, or ``giant_impl="device"``) needs the
+    same routes on every rank: it raises unless ``NEMO_SCHED`` and the
+    platform profile are off (``_require_spmd_routes``).
+
     The budgets, the watermark and the density default to None: resolved
     at ``init_graph_db``, after ``platform.ensure_calibrated`` on the
     executor's device, as the explicit argument, else the device's measured
@@ -641,11 +735,22 @@ class TorchBackend(GraphBackend):
         diff_host_work: int | None = None,
         synth_host_work: int | None = None,
         executor: TorchExecutor | None = None,
+        giant_impl: str = "auto",
+        shard="auto",
+        max_batch: int | None = None,
     ) -> None:
         if analysis_impl not in ANALYSIS_IMPLS:
             raise ValueError(f"analysis_impl {analysis_impl!r} (expected one of {ANALYSIS_IMPLS})")
-        self.executor = executor if executor is not None else TorchExecutor(device)
+        if giant_impl not in GIANT_IMPLS:
+            raise ValueError(f"giant_impl {giant_impl!r} (expected one of {GIANT_IMPLS})")
+        if max_batch is not None and (isinstance(max_batch, bool) or int(max_batch) != max_batch or max_batch < 1):
+            raise ValueError(f"max_batch={max_batch!r} must be a positive integer or None")
+        self.executor = executor if executor is not None else TorchExecutor(device, shard)
         self.analysis_impl = analysis_impl
+        self.giant_impl = giant_impl
+        self.max_batch = max_batch
+        #: the giant route the last corpus's giant runs took (None: none)
+        self.giant_impl_used: str | None = None
         self.giant_v = int(giant_v)
         self.sparse_device_min_v = int(sparse_device_min_v)
         #: the profile-resolved knobs as given (None: not given)
@@ -672,6 +777,8 @@ class TorchBackend(GraphBackend):
             giant_v=self.giant_v,
             sparse_device_min_v=self.sparse_device_min_v,
             executor=self.executor,
+            giant_impl=self.giant_impl,
+            max_batch=self.max_batch,
             **self._given,
         )
 
@@ -731,11 +838,13 @@ class TorchBackend(GraphBackend):
         reuses it, host work only (the streamed map calls it on its
         prefetch thread).  Then the budgets resolve: argument > measured >
         seeded."""
+        self._require_spmd_routes()
         dev = self.executor.device
         _platform_profile.ensure_calibrated(dev)
         self._resolve_knobs(_platform_profile.resolve_constants(dev, self.profile_args()))
         self._release(molly)
         self.analysis_routes = []
+        self.giant_impl_used = None
         nc = getattr(molly, "native_corpus", None)
         if nc is None:
             from nemo_tpu_torch.store.npack import corpus_from_payload, payload_from_molly
@@ -854,8 +963,13 @@ class TorchBackend(GraphBackend):
         # bucket identically).  Only the bucketed runs count.
         big = len(rows) >= 512
         min_v, min_e, min_t, min_d = (64, 256, 32, 32) if big else (16, 16, 8, 4)
+        # The run mesh's width folds into the bucketizer's run-axis pad, so
+        # a placing mesh never pads a batch again (parallel/mesh.py).
+        ex = self.executor
+        shard_mult = mesh_mod.shard_device_count(ex.shard)
         with obs.span("analysis:pack", runs=len(rows)):
-            batches = bucketize_pairs_corpus(self._corpus_graphs, rows, nc.iteration, min_v=min_v, min_e=min_e)
+            batches = bucketize_pairs_corpus(self._corpus_graphs, rows, nc.iteration, self.max_batch, min_v=min_v,
+                                             min_e=min_e, shard_multiple=shard_mult)
         return {
             "batches": batches,
             "giant_ids": giant_ids,
@@ -923,6 +1037,7 @@ class TorchBackend(GraphBackend):
         one job: each job on its routed (lane, reason) in ``routes``, in
         order, on this thread.  Else through the cost-model scheduler on
         this device's lanes (parallel/sched.py)."""
+        self._require_spmd_routes()
         mode = sched_mod.sched_env()
         if mode != "off" and (mode == "on" or len(jobs) > 1):
             dev = self.executor.device
@@ -930,6 +1045,25 @@ class TorchBackend(GraphBackend):
                 sched_mod.session_models(dev, self.analysis_host_work), device=dev)
             return scheduler.run(jobs)
         return [job.execute(lane, reason, False) for job, (lane, reason) in zip(jobs, routes)]
+
+    def _require_spmd_routes(self) -> None:
+        """Raise where ranks of one world could route apart while their
+        dispatches meet in collectives: a placing run mesh or the giant
+        verb's node mesh, in a world of more than one rank, under the
+        cost-model scheduler (its lane choice and steals follow each rank's
+        own walls) or a platform profile (each host's own measurements).
+        A rank that dispatched where another did not would pair unrelated
+        buckets in one all-reduce, or wait out the group's timeout."""
+        if mesh_mod.world_size() < 2:
+            return
+        if not (mesh_mod.shard_plan(self.executor.shard)[0] or self.giant_impl == "device"):
+            return
+        sched, profile = sched_mod.sched_env(), _platform_profile.profile_mode()
+        if sched != "off" or profile != "off":
+            raise RuntimeError(
+                f"a world of {mesh_mod.world_size()} ranks with collectives on the analysis path needs the same "
+                f"routes on every rank: set NEMO_SCHED=off (is {sched}) and NEMO_PROFILE=off (is {profile})"
+            )
 
     def _add_job(self, jobs: list, routes: list, verb: str, rows: int, v: int, e: int, work: int, lane: str,
                  reason: str, pin_reasons: tuple, lanes: tuple, route_of_lane: dict, run) -> None:
@@ -1009,35 +1143,56 @@ class TorchBackend(GraphBackend):
     def _giant_jobs(self, jobs: list, routes: list, giant_ids: list[int], tids: dict) -> None:
         """A job for each giant run alone, packed at corpus-common (V, E)
         buckets, pinned (reason ``giant_impl``, work V + E, as the JAX
-        package records them) to the host lane under
-        ``analysis_impl="sparse"`` (with giant_plan's union-find labels),
-        else to the sparse device step."""
+        package records them) to the lane giant_impl resolves to: the host
+        lane (with giant_plan's union-find labels), the dense node-sharded
+        step (``device``: the giant verb, with the labels and giant_plan's
+        collapsed depth bound) or the sparse device step."""
         graphs = [self.packed[(rid, c)] for rid in giant_ids for c in ("pre", "post")]
         v_g = bucket_size(max(g.n_nodes for g in graphs))
         e_g = bucket_size(max(1, *(len(g.edges) for g in graphs)))
-        lane = "host" if self.analysis_impl == "sparse" else "sparse_device"
+        impl = self.giant_impl
+        if impl == "auto":
+            impl = "host" if self.analysis_impl == "sparse" else "sparse_device"
+        self.giant_impl_used = impl
         for rid in giant_ids:
             gpre, gpost = self.packed[(rid, "pre")], self.packed[(rid, "post")]
 
             def run(run_lane: str, job: sched_mod.Job, rid=rid, gpre=gpre, gpost=gpost):
                 pre_b = pack_batch([rid], [gpre], v_g, e_g)
                 post_b = pack_batch([rid], [gpost], v_g, e_g)
+                if run_lane == "sparse_device":
+                    linear = int(giant_linear(gpre) and giant_linear(gpost))
+                    res = self._sparse_fused(_verb_arrays(pre_b, post_b), v_g, 1, linear, tids)
+                    self._taint_if_cold(job)
+                    return (pre_b, post_b, res)
+                lin_pre, depth_pre, lab_pre = giant_plan(gpre)
+                lin_post, depth_post, lab_post = giant_plan(gpost)
+                pre_labels = pad_comp_labels(lab_pre, gpre.n_nodes, v_g)
+                post_labels = pad_comp_labels(lab_post, gpost.n_nodes, v_g)
                 if run_lane == "host":
-                    _, _, lab_pre = giant_plan(gpre)
-                    _, _, lab_post = giant_plan(gpost)
                     self.executor.count_host("sparse_giant")
-                    res = giant_analysis_host(
-                        pre_b, post_b, tids["pre_tid"], tids["post_tid"], tids["num_tables"],
-                        pad_comp_labels(lab_pre, gpre.n_nodes, v_g), pad_comp_labels(lab_post, gpost.n_nodes, v_g),
-                    )
+                    res = giant_analysis_host(pre_b, post_b, tids["pre_tid"], tids["post_tid"], tids["num_tables"],
+                                              pre_labels, post_labels)
                     return (pre_b, post_b, _wrap_sparse_clean(res, v_g))
-                linear = int(giant_linear(gpre) and giant_linear(gpost))
-                res = self._sparse_fused(_verb_arrays(pre_b, post_b), v_g, 1, linear, tids)
+                arrays = dict(_verb_arrays(pre_b, post_b), pre_comp_labels=pre_labels, post_comp_labels=post_labels)
+                res = self.executor.run(
+                    "giant",
+                    arrays,
+                    dict(
+                        v=v_g,
+                        max_depth=bucket_size(max(pre_b.max_depth, post_b.max_depth), 4),
+                        comp_linear=int(lin_pre and lin_post),
+                        proto_depth=bucket_size(max(depth_pre, depth_post), 8),
+                        **tids,
+                    ),
+                    rows=1,
+                )
                 self._taint_if_cold(job)
-                return (pre_b, post_b, res)
+                # The clean adjacencies come back as contracted edge lists.
+                return (pre_b, post_b, _wrap_sparse_clean(res, v_g))
 
-            self._add_job(jobs, routes, "giant", 1, v_g, e_g, v_g + e_g, lane, "giant_impl", ("giant_impl",),
-                          ("device", "host"), sched_mod.ROUTE_OF_LANE, run)
+            self._add_job(jobs, routes, "giant", 1, v_g, e_g, v_g + e_g, impl,
+                          "giant_impl", ("giant_impl",), ("device", "host"), sched_mod.ROUTE_OF_LANE, run)
 
     def _sparse_fused(self, arrays: dict, v: int, rows: int, linear: int, tids: dict) -> dict:
         res = self.executor.run("sparse_fused", arrays, dict(v=v, comp_linear=linear, **tids), rows=rows)

@@ -237,12 +237,18 @@ def bucketize(run_ids: list[int], graphs: list[PackedGraph]) -> list[PackedBatch
     return [pack_batch(rids, gs, v, e) for (v, e), (rids, gs) in sorted(groups.items())]
 
 
-def _pad_run_axis(n_runs: int, max_batch: int | None) -> int:
-    """Power-of-two run-axis pad (capped at max_batch), so differently-sized
-    corpora share one batch shape."""
+def _pad_run_axis(n_runs: int, max_batch: int | None, shard_multiple: int = 1) -> int:
+    """The run-axis pad: a power-of-two bucket (capped at max_batch), so
+    differently-sized corpora share one batch shape, rounded UP to the run
+    mesh's width, so that placing the batch on the mesh never pads it again
+    (parallel/mesh.py:place_rows).  The multiple may push the pad past
+    max_batch by fewer than shard_multiple rows: they would exist as mesh
+    padding anyway."""
     b_pad = bucket_size(n_runs, 8)
     if max_batch:
         b_pad = min(b_pad, max_batch)
+    if shard_multiple > 1:
+        b_pad = -(-b_pad // shard_multiple) * shard_multiple
     return b_pad
 
 
@@ -386,13 +392,15 @@ def bucketize_pairs_corpus(
     max_batch: int | None = None,
     min_v: int = 16,
     min_e: int = 16,
+    shard_multiple: int = 1,
 ) -> list[tuple[PackedBatch, PackedBatch]]:
     """Joint size-bucketing of corpus rows, built by array slicing: both
     conditions of a run share one bucket, padded to the pair's common
     (V, E) — the shape contract of the fused analysis step
     (models/pipeline_model.py), which takes the pre and post batches of the
     same runs in one dispatch.  Run order is kept within a bucket, the run
-    axis is padded to a power of two, and min_v/min_e floor the bucket dims.
+    axis is padded as _pad_run_axis says (shard_multiple: the run mesh's
+    width), and min_v/min_e floor the bucket dims.
     max_depth is the corpus-wide DAG bound rather than each bucket's:
     relaxation past the longest path changes nothing."""
     corpus = cg.corpus
@@ -414,7 +422,7 @@ def bucketize_pairs_corpus(
         step = max_batch or len(rws)
         for s in range(0, len(rws), step):
             chunk = rws[s : s + step]
-            b_pad = _pad_run_axis(len(chunk), max_batch)
+            b_pad = _pad_run_axis(len(chunk), max_batch, shard_multiple)
             run_ids = [int(iterations[r]) for r in chunk]
             batches.append(
                 (

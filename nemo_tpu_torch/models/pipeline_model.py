@@ -72,8 +72,7 @@ def batch_from_numpy(fields: dict[str, np.ndarray], device=None) -> BatchArrays:
 
 # The bool summary outputs folded into one bit-packed device->host transfer
 # under pack_out=True, in pack order; the shape key resolves with b=batch,
-# v=nodes, t=num_tables (backend/torch_backend.py:unpack_summary is the
-# inverse).
+# v=nodes, t=num_tables (unpack_summary is the inverse).
 SUMMARY_PACK_LAYOUT = (
     ("pre_holds", "bv"),
     ("post_holds", "bv"),
@@ -90,6 +89,17 @@ DIFF_PACK_LAYOUT = (
     ("diff_node_keep", "bv"),
     ("diff_frontier_rule", "bv"),
     ("diff_missing_goal", "bv"),
+)
+
+# The giant verb's folded layout (parallel/giant.py): its output set has no
+# proto_inter/proto_union; the backend merges a giant's prototype bitsets
+# with the buckets' host-side.
+GIANT_PACK_LAYOUT = (
+    ("pre_holds", "bv"),
+    ("post_holds", "bv"),
+    ("achieved_pre", "b"),
+    ("proto_bits", "bt"),
+    ("proto_present", "bt"),
 )
 
 
@@ -109,6 +119,28 @@ def fold_packed_summary(out: dict, layout) -> None:
     """Replace `layout`'s bool outputs in `out` with one bit-packed
     "packed_summary" vector, in place."""
     out["packed_summary"] = packbits(torch.cat([out.pop(name).reshape(-1) for name, _ in layout]))
+
+
+def unpack_summary(
+    packed: np.ndarray, b: int, v: int, t: int, with_diff: bool = False, giant: bool = False
+) -> dict[str, np.ndarray]:
+    """Inverse of the pack_out folding (SUMMARY_PACK_LAYOUT +
+    DIFF_PACK_LAYOUT, or GIANT_PACK_LAYOUT for the giant verb): one host
+    np.unpackbits + views."""
+    if giant:
+        layout = GIANT_PACK_LAYOUT
+    else:
+        layout = SUMMARY_PACK_LAYOUT + (DIFF_PACK_LAYOUT if with_diff else ())
+    dims = {"bv": (b, v), "b": (b,), "bt": (b, t), "t": (t,)}
+    flat = np.unpackbits(np.asarray(packed)).astype(bool)
+    out: dict[str, np.ndarray] = {}
+    ofs = 0
+    for name, key in layout:
+        shape = dims[key]
+        n = int(np.prod(shape))
+        out[name] = flat[ofs : ofs + n].reshape(shape)
+        ofs += n
+    return out
 
 
 def widen_batch(ba: BatchArrays) -> BatchArrays:

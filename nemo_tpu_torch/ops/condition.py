@@ -27,6 +27,19 @@ def mark_condition_holds(
     root = is_goal & node_mask & (table_id == cond_tid) & ~in_degree_any(adj)
     rule = step_forward(root, adj) & ~is_goal & node_mask & (table_id == cond_tid)
     trig = step_forward(rule, adj) & is_goal & node_mask
+    return holds_of_triggers(trig, is_goal, table_id, node_mask, cond_tid, num_tables)
+
+
+def holds_of_triggers(
+    trig: torch.Tensor,
+    is_goal: torch.Tensor,
+    table_id: torch.Tensor,
+    node_mask: torch.Tensor,
+    cond_tid: int,
+    num_tables: int,
+) -> torch.Tensor:
+    """cond_holds [B,V] from the trigger goals g [B,V]: every goal of the
+    condition's table or of any g's table, where any g exists."""
     any_trig = trig.any(dim=-1, keepdim=True)
     trig_tables = table_bitset(trig, table_id, num_tables)  # [B,T]
     tid = table_id.clamp(0, num_tables - 1).long()

@@ -2,7 +2,8 @@
 
 Array form of the reference's SimplifyProv pass
 (graphing/preprocessing.go:351-387); port of the JAX package's
-``ops/simplify.py`` (closure labels, pointer-doubling labels, matmul rewire).
+``ops/simplify.py`` (closure, pointer-doubling or given labels; matmul or
+scatter rewire).
 
   * clean_masks: keep all goals; keep rules with both an incoming and an
     outgoing goal edge; keep edge g->r iff r has an out-goal, r->g iff r has
@@ -15,9 +16,10 @@ Array form of the reference's SimplifyProv pass
     minimum-index head rule; external goal predecessors of head rules and
     goal successors of tail rules rewire to it; everything else in the
     component dies (preprocessing.go:66-348).  Component labels come from the
-    closure kernel (K1) or, for verified-linear chains, pointer doubling;
-    edge rewiring is two boolean matmuls that move columns/rows onto the
-    representative slot.
+    closure kernel (K1), pointer doubling (verified-linear chains) or the
+    caller (host union-find labels); edge rewiring moves columns/rows onto
+    the representative slot by two boolean matmuls or, on the giant step,
+    by O(V^2) scatters.
 """
 
 from __future__ import annotations
@@ -75,12 +77,20 @@ def collapse_chains(
     type_id: torch.Tensor,  # [B,V]
     alive: torch.Tensor,  # [B,V]
     comp_doubling: bool = False,
+    rewire: str = "matmul",
+    comp_labels: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (adj_new, alive_new, type_new).
 
-    Component labels: the all-pairs closure (exact for ANY member
-    structure), or with comp_doubling pointer doubling — linear chains only
-    (caller-verified with chains_linear_host)."""
+    Component labels (any consistent member-index-valued label works): the
+    all-pairs closure (exact for ANY member structure); ``comp_labels``
+    [B,V], precomputed labels (the giant step's host union-find labels);
+    or with comp_doubling pointer doubling — linear chains only
+    (caller-verified with chains_linear_host).
+
+    rewire: "matmul" moves pred/succ edges onto representatives with two
+    boolean matmuls (O(V^3), fine batched at small V); "scatter" moves the
+    set entries themselves (O(V^2), the giant step)."""
     v = adj.shape[-1]
     dev = adj.device
     idx = torch.arange(v, device=dev, dtype=torch.int32)
@@ -93,7 +103,9 @@ def collapse_chains(
     chain_goal = is_goal & alive & in_from_next & out_to_next
     member = next_rule | chain_goal
 
-    if comp_doubling:
+    if comp_labels is not None:
+        lab = torch.where(member, comp_labels.to(torch.int32), fill)
+    elif comp_doubling:
         lab = _labels_doubling(a, member, v, idx)
     else:
         und = (a | a.transpose(-1, -2)) & member[..., None] & member[..., None, :]
@@ -120,11 +132,24 @@ def collapse_chains(
     # Edge moves onto the representative slot: external-goal predecessors of
     # heads rewire to the rep's column, goal successors of tails to its row.
     ext_goal = is_goal & alive & ~member
-    on_rep = rep_of_node[..., None] == idx
-    head_map = on_rep & head[..., None] & node_collapsible[..., None]
-    tail_map = on_rep & tail[..., None] & node_collapsible[..., None]
-    pred_edges = bool_matmul(a & ext_goal[..., None], head_map)  # goal -> rep
-    succ_edges = bool_matmul(tail_map.transpose(-1, -2), a & ext_goal[..., None, :])  # rep -> goal
+    if rewire == "matmul":
+        on_rep = rep_of_node[..., None] == idx
+        head_map = on_rep & head[..., None] & node_collapsible[..., None]
+        tail_map = on_rep & tail[..., None] & node_collapsible[..., None]
+        pred_edges = bool_matmul(a & ext_goal[..., None], head_map)  # goal -> rep
+        succ_edges = bool_matmul(tail_map.transpose(-1, -2), a & ext_goal[..., None, :])  # rep -> goal
+    elif rewire == "scatter":
+        pred_src = a & ext_goal[..., None] & (head & node_collapsible)[..., None, :]
+        succ_src = a & (tail & node_collapsible)[..., None] & ext_goal[..., None, :]
+        rep = rep_of_node.long()
+        pred_edges = torch.zeros_like(a)
+        bb, i, j = pred_src.nonzero(as_tuple=True)
+        pred_edges[bb, i, rep[bb, j]] = True  # column j onto the rep's column
+        succ_edges = torch.zeros_like(a)
+        bb, i, j = succ_src.nonzero(as_tuple=True)
+        succ_edges[bb, rep[bb, i], j] = True  # row i onto the rep's row
+    else:
+        raise ValueError(f"unknown rewire {rewire!r} (expected matmul or scatter)")
 
     kill = node_collapsible
     adj_new = (a & ~kill[..., None] & ~kill[..., None, :]) | pred_edges | succ_edges

@@ -11,6 +11,9 @@ series for series:
   dense; then with the corpus store and the result cache on, cold, warm
   and grown.  Every counter series of either delta is compared but the
   ``EXCLUDED`` ones, and every histogram's observation count;
+* **the run mesh**: ZK-1270 with the port's mesh forced on against the
+  JAX side's default sharding, the mesh's ``SHARD_SERIES`` included (the
+  port's default does not place, and emits none of them);
 * **the query**: bench.py's query over the families, its ``query.*`` and
   ``kernel.dispatches.query`` counters, lanes forced both ways;
 * **the watch loop**: the events of one replay, from both watchers, equal
@@ -80,11 +83,16 @@ EXCLUDED = {
     "store.load_s": "a wall, not a count",
     "stream.stage_s": "a wall, not a count",
     "watch.update_latency_s": "a wall, not a count",
-    "kernel.sharded_dispatches": "the JAX side shards the fused dispatch over the suite's 8 virtual CPU devices; "
-                                 "the port has one device and no mesh",
-    "analysis.shard.gather_bytes": "the mesh's gather, as kernel.sharded_dispatches",
-    "analysis.shard.gather_s": "the mesh's gather, as kernel.sharded_dispatches",
 }
+
+#: The run mesh's series.  The JAX side shards its fused dispatches over the
+#: suite's 8 virtual CPU devices by default (the suite keeps it sharded:
+#: ROADMAP Queue C's hazard note); the port's default, shard="auto" in one
+#: process, does not place.  So against the port's default these series are
+#: left out of the JAX side, and the port must emit none of them; with the
+#: port's mesh forced on (test_report_counters_match_jax_sharded) they are
+#: compared series for series.
+SHARD_SERIES = ("kernel.sharded_dispatches", "analysis.shard.gather_bytes", "analysis.shard.gather_s")
 
 #: Series the port emits that the JAX package has no counterpart of, each
 #: with its reason (ROADMAP Queue C carries the same list).
@@ -144,16 +152,22 @@ def _delta(obs_mod, fn):
     return out, obs_mod.Metrics.delta(obs_mod.metrics.snapshot(), before)
 
 
-def _view(delta: dict) -> dict:
+def _view(delta: dict, left_out=()) -> dict:
     """The compared view of one delta: every counter and every
-    histogram's count, the EXCLUDED series left out."""
-    out = {k: v for k, v in delta["counters"].items() if k not in EXCLUDED}
-    out.update({f"{k}#count": h["count"] for k, h in delta["histograms"].items() if k not in EXCLUDED})
+    histogram's count, the EXCLUDED series and ``left_out`` left out."""
+    out = {k: v for k, v in delta["counters"].items() if k not in EXCLUDED and k not in left_out}
+    out.update({f"{k}#count": h["count"] for k, h in delta["histograms"].items()
+                if k not in EXCLUDED and k not in left_out})
     return out
 
 
-def _assert_same(port: dict, jax: dict) -> None:
-    mine, theirs = _view(port), _view(jax)
+def _assert_same(port: dict, jax: dict, port_sharded: bool = False) -> None:
+    """Every series equal; against the port's default (``port_sharded``
+    False) the mesh's series are the JAX side's only, and the port emits
+    none of them (SHARD_SERIES)."""
+    if not port_sharded:
+        assert not any(k in SHARD_SERIES for k in (*port["counters"], *port["histograms"]))
+    mine, theirs = _view(port), _view(jax, () if port_sharded else SHARD_SERIES)
     diff = {k: (mine.get(k), theirs.get(k)) for k in sorted(set(mine) | set(theirs)) if mine.get(k) != theirs.get(k)}
     assert diff == {}
 
@@ -173,6 +187,34 @@ def test_report_counters_match_jax_default_routes(corpora, name, tmp_path):
     c = port["counters"]
     assert c["render.figures"] > 0 and c["delta.runs_mapped"] == len(res.molly.runs)
     assert any(k.startswith("kernel.dispatches.") for k in c)
+
+
+@pytest.fixture
+def port_mesh_on():
+    """The port's run mesh forced on: a one-rank group in this process,
+    closed after the test."""
+    from nemo_tpu_torch.parallel import mesh
+
+    yield {"shard": "on"}
+    mesh.close_local_group()
+
+
+@pytest.mark.parametrize("lanes", ["default", "dense"])
+def test_report_counters_match_jax_sharded(corpora, lanes, tmp_path, monkeypatch, port_mesh_on):
+    """ZK-1270 with the port's mesh forced on against the JAX side's default
+    sharding: every series equal, the mesh's (SHARD_SERIES) included."""
+    kw = dict(port_mesh_on)
+    if lanes == "dense":  # as test_report_counters_match_jax_device_lanes
+        monkeypatch.setenv("NEMO_ANALYSIS_IMPL", "dense")
+        monkeypatch.setenv("NEMO_SYNTH_HOST_WORK", "0")
+        kw.update(DEVICE_LANES["dense"])
+    (_, port), (_, jax) = _reports(corpora["ZK-1270-racing-sent-flag"], tmp_path, kw)
+    _assert_same(port, jax, port_sharded=True)
+    c = port["counters"]
+    if lanes == "dense":
+        assert c["kernel.sharded_dispatches"] == c["kernel.dispatches.fused"] > 0
+        assert c["analysis.shard.gather_bytes"] > 0
+        assert port["histograms"]["analysis.shard.gather_s"]["count"] == c["kernel.sharded_dispatches"]
 
 
 def test_report_counters_match_jax_under_one_measured_profile(corpora, tmp_path, monkeypatch):
