@@ -225,8 +225,29 @@ each fatal (non-zero exit, no result line) on failure:
      prints its K1 and K2 launches, wall and device peak on a line of its
      own (they stay out of the kernels line); (c) giant10k on the dense
      giant step at width 1 in this process, equal to phase 6's tree, its
-     wall and device peak beside phase 6's sparse_device route's
-     ({"mesh": {...}});
+     wall and device peak beside phase 6's sparse_device route's; (d) the
+     same through the CLI (--giant-impl device), its tree equal to phase
+     6's ({"mesh": {...}});
+  6o. the sidecar (service/, serve/, backend/service_backend.py) on the
+     card, its handlers driven through the loopback (the server's method
+     table in this process, request and response as wire bytes; the
+     card's machine has no grpc), every loopback call with the launch
+     counts zeroed before and read after: (a) Health reports the card;
+     (b) every verb of TorchExecutor.VERBS, its inputs recorded from small
+     reports (ZK-1270 at 200 runs on the device lanes and on
+     sparse_device, a deep synthetic corpus on the giant verb), as Kernel
+     request bytes decoded, run and encoded again, each output equal to
+     TorchExecutor.run's on the card and on the cpu; (c) eight threads'
+     concurrent proto requests of one signature, under NEMO_SCHED off and
+     on: fewer K1 launches than requests, serve.batch.coalesced_requests
+     above 0, each demuxed output equal to its solo run; (d) admission at
+     max_inflight 1, max_queue 2, the slot held: a burst of 6 sheds 4 with
+     RESOURCE_EXHAUSTED and nemo-retry-after-s, the 2 queued run once it
+     frees; (e) two concurrent identical AnalyzeDir requests on ZK-1270
+     (1,700 runs, phase 5b's corpus store): byte-identical responses from
+     one fused step; (f) run_debug over ServiceBackend on the loopback:
+     ZK-1270's tree equal to phase 5's; (g) one Query RPC's document equal
+     to the library's ({"service": {...}});
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -392,6 +413,12 @@ MESH_RANKS = 2
 MESH_CHILD_TIMEOUT_S = 300
 MESH_GROUP_TIMEOUT_S = 120
 RING_V, RING_DEGREE, RING_STEPS = 2048, 2, 16
+#: Phase 6o: the runs of the small ZK-1270 corpus whose dispatches give the
+#: Kernel RPC its inputs, the concurrent proto requests of the batching
+#: leg (rows each) and their gather window, and the admission leg's burst.
+SERVICE_RECORD_RUNS = 200
+SERVICE_BATCH_REQUESTS, SERVICE_BATCH_ROWS, SERVICE_BATCH_WINDOW_S = 8, 4, 0.05
+SERVICE_BURST = 6
 
 
 def log(msg: str) -> None:
@@ -3671,8 +3698,314 @@ def mesh_path(work: str, kernels, zk_dir: str, zk_tree: dict, giant_dir: str) ->
     log(f"{label}: equals phase 6's tree; wall {res.report_wall_s:.3f} s, device peak {MEM_PEAKS[label][0]} bytes "
         f"(sparse_device: {giant_wall:.3f} s, {MEM_PEAKS[f'report {giant_name}'][0]} bytes)")
     shutil.rmtree(res.report_dir)
+
+    # (d) The same through the CLI's flag.
+    label = f"mesh CLI --giant-impl device {giant_name}"
+    cli_root = os.path.join(root, "cli")
+    wall, _tel, tree, counts = cli_report(
+        label, ["-faultInjOut", giant_dir, "--device", "cuda", "--results-dir", cli_root, "--figures",
+                GIANT_FIGURES[giant_name], "--giant-impl", "device", "--corpus-cache", "off", "--result-cache", "off"],
+        kernels, os.path.join(cli_root, giant_name))
+    add(counts)
+    if tree != giant_tree:
+        raise AssertionError(f"{label}: the tree differs from phase 6's")
+    out["cli_dense_giant"] = {"wall_s": round(wall, 4), "launches": counts}
+    log(f"{label}: equals phase 6's tree; wall {wall:.3f} s")
     mesh.close_local_group()
     print(json.dumps({"mesh": out}))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _host_out(out: dict) -> dict:
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)) for k, v in out.items()}
+
+
+def _edge_set(out: dict, cond: str) -> set:
+    """The kept (row, src, dst) triples of a contracted edge list."""
+    src, dst, mask = (np.asarray(out[f"{cond}_clean_{k}"]) for k in ("src", "dst", "mask"))
+    rows = np.broadcast_to(np.arange(src.shape[0])[:, None], src.shape)
+    return set(zip(rows[mask].tolist(), src[mask].tolist(), dst[mask].tolist()))
+
+
+def _same_outputs(label: str, got: dict, want: dict) -> None:
+    """Equal keys and equal arrays; a contracted edge list compares as its
+    set of kept edges (its order is the device's)."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(got)} against {sorted(want)}")
+    for cond in ("pre", "post"):
+        if f"{cond}_clean_src" in want and _edge_set(got, cond) != _edge_set(want, cond):
+            raise AssertionError(f"{label}: {cond}'s contracted edges differ")
+    for k, w in want.items():
+        if k.endswith(("_clean_src", "_clean_dst", "_clean_mask")):
+            continue
+        g = np.asarray(got[k])
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{label}: output {k!r} differs ({g.shape} {g.dtype} against {w.shape} {w.dtype})")
+
+
+def record_verbs(root: str, small: str, deep: str, small_kw: dict) -> dict:
+    """verb -> (arrays, params) of the largest dispatch of every verb of
+    TorchExecutor.VERBS: recorded from cpu reports of ``small`` (under
+    ``small_kw``: fused, diff, synth_ext; then sparse_device forced:
+    sparse_fused, sparse_diff) and of ``deep`` at giant_v 64 (giant);
+    condition, simplify and proto built from the fused dispatch's
+    consequent planes.  The card tests record theirs with it too."""
+    from nemo_tpu_torch.analysis.pipeline import run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend, TorchExecutor
+
+    class Recorder(TorchExecutor):
+        def __init__(self):
+            super().__init__("cpu")
+            self.seen = {}
+
+        def run(self, verb, arrays, params, rows=None):
+            host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.array(v))
+                    for k, v in arrays.items() if v is not None}
+            size = sum(a.nbytes for a in host.values())
+            if size > self.seen.get(verb, (None, None, -1))[2]:
+                self.seen[verb] = (host, dict(params), size)
+            return super().run(verb, arrays, params, rows)
+
+    rec = Recorder()
+    for cd, kw in ((small, small_kw), (small, {"analysis_impl": "sparse_device"}),
+                   (deep, {"giant_impl": "device", "giant_v": 64})):
+        run_debug(cd, os.path.join(root, "record-reports"), TorchBackend(executor=rec, **kw), figures="none",
+                  corpus_cache="off", result_cache="off")
+    verbs = {verb: (arrays, params) for verb, (arrays, params, _) in rec.seen.items()}
+    fa, fp = verbs["fused"]
+    post = {k[len("post_"):]: v for k, v in fa.items() if k.startswith("post_")}
+    verbs["condition"] = ({k: post[k] for k in ("edge_src", "edge_dst", "edge_mask", "is_goal", "table_id",
+                                                 "node_mask")},
+                          {"v": fp["v"], "cond_tid": fp["post_tid"], "num_tables": fp["num_tables"]})
+    verbs["simplify"] = ({k: post[k] for k in ("edge_src", "edge_dst", "edge_mask", "is_goal", "type_id",
+                                                "node_mask")}, {"v": fp["v"]})
+    simp = TorchExecutor("cpu").run("simplify", *verbs["simplify"])
+    achieved = np.ones(post["is_goal"].shape[0], dtype=bool)
+    achieved[1::3] = False
+    verbs["proto"] = ({"adj": simp["adj"], "is_goal": post["is_goal"], "alive": simp["alive"],
+                       "table_id": post["table_id"], "achieved_pre": achieved},
+                      {"num_tables": fp["num_tables"], "max_depth": fp["max_depth"]})
+    missing = set(TorchExecutor.VERBS) - set(verbs)
+    if missing:
+        raise AssertionError(f"no recorded inputs for {sorted(missing)}")
+    return verbs
+
+
+def service_path(work: str, kernels, dirs: dict, trees: dict, corpus_cache: str) -> dict:
+    """Phase 6o: the sidecar on the card through the loopback (see the
+    module docstring).  Prints {"service": {...}}.  Returns the launches by
+    kernel of the loopback calls."""
+    import threading
+
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.analysis.pipeline import report_tree_bytes, run_debug
+    from nemo_tpu_torch.backend.service_backend import ServiceBackend
+    from nemo_tpu_torch.backend.torch_backend import TorchExecutor
+    from nemo_tpu_torch.query import parse_query
+    from nemo_tpu_torch.query.engine import execute_query, ingest_corpus
+    from nemo_tpu_torch.serve.admission import AdmissionController
+    from nemo_tpu_torch.serve.batch import KernelBatcher
+    from nemo_tpu_torch.serve.coalesce import SingleFlight
+    from nemo_tpu_torch.service import codec, wire
+    from nemo_tpu_torch.service.client import RemoteAnalyzer
+    from nemo_tpu_torch.service.server import Loopback, RpcError, StatusCode, _Impl
+
+    root = os.path.join(work, "service")
+    os.makedirs(root, exist_ok=True)
+    zk = "ZK-1270-racing-sent-flag"
+    launches = {k.__name__: 0 for k in kernels}
+    out: dict = {}
+
+    def call(label: str, fn):
+        res, counts, wall = counted_call(label, kernels, fn)
+        for k, n in counts.items():
+            launches[k] += n
+        return res, counts, wall
+
+    # The sidecar's operator settings: phase 5b's corpus store, no result
+    # cache, so that every request computes.
+    saved = _env_set({"NEMO_CORPUS_CACHE": corpus_cache, "NEMO_RESULT_CACHE": "off"})
+    try:
+        lb = Loopback("cuda")
+
+        # (a) Health.
+        (health, _, _) = call("service Health", lambda: RemoteAnalyzer(lb).health())
+        if health["platform"] != "gpu" or health["device_count"] != torch.cuda.device_count():
+            raise AssertionError(f"6o Health: {health}")
+        out["health"] = {k: health[k] for k in ("platform", "device_count", "version")}
+
+        # (b) Every verb as wire bytes, on the largest dispatches of ZK-1270
+        # at SERVICE_RECORD_RUNS runs and of a deep synthetic corpus.
+        from nemo_tpu_torch.models.case_studies import write_case_study
+        from nemo_tpu_torch.models.synth import SynthSpec, write_corpus
+
+        rec_root = os.path.join(root, "record")
+        verbs = record_verbs(root, write_case_study(zk, SERVICE_RECORD_RUNS, SEED, rec_root),
+                             write_corpus(SynthSpec(n_runs=3, seed=5, eot=60, name="deep"), rec_root), DEVICE_LANES)
+        cuda_ex, cpu_ex = TorchExecutor("cuda"), TorchExecutor("cpu")
+        out["verbs"] = {}
+        for verb in sorted(TorchExecutor.VERBS):
+            arrays, params = verbs[verb]
+            req = codec.kernel_request_to_pb(verb, arrays, params).SerializeToString()
+            (raw, ctx), counts, wall = call(f"service Kernel {verb}", lambda req=req: lb.call("Kernel", req))
+            got = codec.kernel_response_from_pb(wire.KernelResponse.FromString(raw))
+            _same_outputs(f"6o Kernel {verb} vs cuda", got, _host_out(cuda_ex.run(verb, arrays, params)))
+            _same_outputs(f"6o Kernel {verb} vs cpu", got, _host_out(cpu_ex.run(verb, arrays, params)))
+            out["verbs"][verb] = {"request_bytes": len(req), "response_bytes": len(raw), "wall_s": round(wall, 4),
+                                  "launches": counts}
+        log(f"6o (b): every verb through the Kernel RPC's bytes equals TorchExecutor.run on cuda and cpu: "
+            f"{json.dumps(out['verbs'])}")
+
+        # (c) Eight concurrent proto requests, one signature.
+        pa, pp = verbs["proto"]
+        reqs = [{k: v[i * SERVICE_BATCH_ROWS:(i + 1) * SERVICE_BATCH_ROWS] for k, v in pa.items()}
+                for i in range(SERVICE_BATCH_REQUESTS)]
+        solo = [_host_out(cuda_ex.run("proto", r, pp)) for r in reqs]
+        out["batch"] = {}
+        for sched in ("off", "on"):
+            sched_saved = _env_set({"NEMO_SCHED": sched})
+            lb.impl.batcher = KernelBatcher(window_s=SERVICE_BATCH_WINDOW_S)
+            results: list = [None] * len(reqs)
+            gate = threading.Barrier(len(reqs))
+
+            def send(i: int) -> None:
+                client = RemoteAnalyzer(lb)
+                gate.wait()
+                results[i] = client.kernel("proto", reqs[i], pp)
+
+            def burst():
+                threads = [threading.Thread(target=send, args=(i,)) for i in range(len(reqs))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+                return [t.is_alive() for t in threads]
+
+            try:
+                before = obs.metrics.snapshot()
+                alive, counts, wall = call(f"service batch proto NEMO_SCHED={sched}", burst)
+                c = obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"]
+            finally:
+                _env_set(sched_saved)
+            if any(alive) or any(r is None for r in results):
+                raise AssertionError(f"6o (c) NEMO_SCHED={sched}: a request did not return")
+            for i, (g, w) in enumerate(zip(results, solo)):
+                _same_outputs(f"6o (c) request {i}", g, w)
+            k1 = counts["closure"]
+            if not 0 < k1 < len(reqs) or c.get("serve.batch.coalesced_requests", 0) <= 0:
+                raise AssertionError(f"6o (c) NEMO_SCHED={sched}: K1 {k1} launches for {len(reqs)} requests, "
+                                     f"coalesced {c.get('serve.batch.coalesced_requests', 0)}")
+            out["batch"][sched] = {"requests": len(reqs), "k1_launches": k1,
+                                   "launches": c.get("serve.batch.launches", 0),
+                                   "coalesced_requests": c.get("serve.batch.coalesced_requests", 0),
+                                   "wall_s": round(wall, 4)}
+        lb.impl.batcher = KernelBatcher()
+        log(f"6o (c): {len(reqs)} concurrent proto requests, each equal to its solo run: {out['batch']}")
+
+        # (d) Admission: one slot, a queue of 2, the slot held.
+        impl = _Impl("cuda")
+        impl.admission = AdmissionController(max_inflight=1, max_queue=2)
+        lb_adm = Loopback(impl=impl)
+        ca, cp = verbs["condition"]
+        hog = impl.admission.enqueue("hog")
+        outcomes: list = [None] * SERVICE_BURST
+
+        def ask(i: int) -> None:
+            try:
+                RemoteAnalyzer(lb_adm, retries=1).kernel("condition", ca, cp)
+                outcomes[i] = "ok"
+            except RpcError as ex:
+                md = dict(ex.trailing_metadata())
+                outcomes[i] = (ex.code().name, float(md.get("nemo-retry-after-s", 0)))
+
+        def admission_burst():
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(SERVICE_BURST)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 30
+            while sum(o is not None for o in outcomes) < SERVICE_BURST - 2 or impl.admission.queued < 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"6o (d): the burst never settled: {outcomes}")
+                time.sleep(0.01)
+            shed_first = list(outcomes)
+            hog.release()
+            for t in threads:
+                t.join(timeout=60)
+            return shed_first
+
+        shed_first, counts, wall = call("service admission", admission_burst)
+        shed = [o for o in outcomes if o != "ok"]
+        if (len(shed) != SERVICE_BURST - 2 or any(o[0] != StatusCode.RESOURCE_EXHAUSTED.name or o[1] <= 0 for o in shed)
+                or outcomes.count("ok") != 2):
+            raise AssertionError(f"6o (d): outcomes {outcomes}")
+        out["admission"] = {"burst": SERVICE_BURST, "shed": len(shed), "served": 2,
+                            "retry_after_s": [o[1] for o in shed], "launches": counts}
+        log(f"6o (d): a burst of {SERVICE_BURST} at max_inflight 1, max_queue 2: {len(shed)} shed with retry-after "
+            f"{[o[1] for o in shed]}, 2 served")
+
+        # (e) Single flight on ZK-1270.
+        lb.impl.flights = SingleFlight(linger_s=60)
+        body = json.dumps({"dir": os.path.abspath(dirs[zk])}).encode("utf-8")
+        got: list = [None, None]
+        gate2 = threading.Barrier(2)
+
+        def analyze_dir(i: int) -> None:
+            gate2.wait()
+            raw, ctx = lb.call("AnalyzeDir", body)
+            got[i] = (raw, dict(ctx.trailing_metadata()))
+
+        def pair():
+            threads = [threading.Thread(target=analyze_dir, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+
+        before = obs.metrics.snapshot()
+        _, counts, wall = call("service AnalyzeDir single flight", pair)
+        c = obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"]
+        if any(g is None for g in got) or got[0][0] != got[1][0]:
+            raise AssertionError("6o (e): the two AnalyzeDir responses differ")
+        roles = sorted(g[1].get("nemo-coalesce") for g in got)
+        if c.get("serve.analyze_chunks", 0) != 1 or roles != ["hit", "leader"]:
+            raise AssertionError(f"6o (e): {c.get('serve.analyze_chunks')} fused steps, roles {roles}")
+        resp = codec.outputs_from_pb(wire.AnalyzeResponse.FromString(got[0][0]))
+        if resp["proto_bits"].shape[0] != FAMILY_RUNS:
+            raise AssertionError(f"6o (e): {resp['proto_bits'].shape[0]} runs in the response")
+        out["single_flight"] = {"response_bytes": len(got[0][0]), "fused_steps": 1, "roles": roles,
+                                "wall_s": round(wall, 4), "launches": counts}
+        lb.impl.flights = SingleFlight()
+        log(f"6o (e): two concurrent AnalyzeDir on {zk}: byte-identical {len(got[0][0])}-byte responses from one "
+            f"fused step ({roles}), {wall:.3f} s")
+
+        # (f) The report over ServiceBackend.
+        def report():
+            return run_debug(dirs[zk], os.path.join(root, "reports"), ServiceBackend(target=lb, **DEVICE_LANES),
+                             figures=REPORT_FIGURES, report_name=zk, corpus_cache="off", result_cache="off")
+
+        res, counts, wall = call(f"service report {zk}", report)
+        if report_tree_bytes(res.report_dir) != trees[zk] or counts["closure"] <= 0:
+            raise AssertionError(f"6o (f): the ServiceBackend tree equals phase 5's: "
+                                 f"{report_tree_bytes(res.report_dir) == trees[zk]}; launches {counts}")
+        out["report"] = {"wall_s": round(wall, 4), "launches": counts}
+        log(f"6o (f): run_debug over ServiceBackend on the loopback: {zk}'s tree equals phase 5's; wall {wall:.3f} s, "
+            f"launches {counts}")
+        shutil.rmtree(res.report_dir)
+
+        # (g) One Query RPC.
+        qbody = json.dumps({"dir": os.path.abspath(dirs[zk]), "query": QUERY_TEXT}).encode("utf-8")
+        (raw, ctx), counts, wall = call("service Query", lambda: lb.call("Query", qbody))
+        want = execute_query(parse_query(QUERY_TEXT), ingest_corpus(dirs[zk], corpus_cache), device="cuda",
+                             use_cache=False)
+        if _doc_bytes(json.loads(raw)) != _doc_bytes(want):
+            raise AssertionError("6o (g): the Query RPC's document differs from the library's")
+        out["query"] = {"wall_s": round(wall, 4), "launches": counts, "rcache": dict(ctx.trailing_metadata())
+                        .get("nemo-rcache")}
+        log(f"6o (g): the Query RPC's document equals the library's; wall {wall:.3f} s, launches {counts}")
+    finally:
+        _env_set(saved)
+    print(json.dumps({"service": out}))
     shutil.rmtree(root, ignore_errors=True)
     return launches
 
@@ -3912,6 +4245,9 @@ def main() -> int:
         t = time.perf_counter()
         meshed = mesh_path(work, kernels, dirs[zk], trees[zk], giant_dirs["giant10k"])
         log(f"phase 6n wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        served = service_path(work, kernels, dirs, trees, os.path.join(work, "ingest", "corpus-cache"))
+        log(f"phase 6o wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
@@ -3919,7 +4255,8 @@ def main() -> int:
         f"on the default routes {routes}, on the lanes' device calls {lanes}, through run_debug_dirs {several}, "
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
         f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}, under "
-        f"chaos {chaotic}, through the figure pipeline {figured}, on the mesh {meshed}")
+        f"chaos {chaotic}, through the figure pipeline {figured}, on the mesh {meshed}, through the sidecar "
+        f"{served}")
     from nemo_tpu_torch import obs
 
     # (6k d, 6l f) No phase but 6k's and 6l's injected legs failed a job
@@ -3935,7 +4272,7 @@ def main() -> int:
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
             dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled,
-            chaotic, figured, meshed))
+            chaotic, figured, meshed, served))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

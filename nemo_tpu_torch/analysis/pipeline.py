@@ -554,6 +554,10 @@ def run_debug(
     this_results_dir = os.path.join(results_root, report_name or molly.run_name)
     _sweep_stage_leftovers(this_results_dir)
     rcache = None if profile_dir else resolve_result_cache(result_cache)
+    if rcache is not None and hasattr(backend, "require_spmd_routes"):
+        # Before the first lookup: in a world whose ranks meet in
+        # collectives, a hit on one rank alone would strand the others.
+        backend.require_spmd_routes(result_cache=True)
     profiler = _profiler(profile_dir, dev)
     cache_doc: dict = {"state": "off"}
 

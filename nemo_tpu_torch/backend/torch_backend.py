@@ -84,8 +84,10 @@ from nemo_tpu_torch.ingest.molly import MollyOutput
 from nemo_tpu_torch.kernels.build import thread_loads
 from nemo_tpu_torch.models.pipeline_model import BatchArrays, analysis_step, unpack_summary
 from nemo_tpu_torch.ops.adjacency import build_adjacency
+from nemo_tpu_torch.ops.condition import mark_condition_holds
 from nemo_tpu_torch.ops.diff import diff_masks, diff_masks_host
-from nemo_tpu_torch.ops.proto import DEPTH_INF
+from nemo_tpu_torch.ops.proto import DEPTH_INF, all_rule_bits, proto_rule_bits
+from nemo_tpu_torch.ops.simplify import clean_masks, collapse_chains
 from nemo_tpu_torch.ops.sparse_device import (
     CsrAdjRows,
     diff_masks_sparse_device,
@@ -219,6 +221,22 @@ def sample_memory_watermarks() -> dict:
     return out
 
 
+def _k_condition(edge_src, edge_dst, edge_mask, is_goal, table_id, node_mask, v, cond_tid, num_tables):
+    adj = build_adjacency(edge_src, edge_dst, edge_mask, v)
+    return mark_condition_holds(adj, is_goal, table_id, node_mask, cond_tid, num_tables)
+
+
+def _k_simplify(edge_src, edge_dst, edge_mask, is_goal, type_id, node_mask, v):
+    adj = build_adjacency(edge_src, edge_dst, edge_mask, v)
+    adj_clean, alive = clean_masks(adj, is_goal, node_mask)
+    return collapse_chains(adj_clean, is_goal, type_id, alive)
+
+
+def _k_proto(adj, is_goal, alive, table_id, achieved_pre, num_tables, max_depth):
+    bits, min_depth = proto_rule_bits(adj, is_goal, alive, table_id, achieved_pre, num_tables, max_depth)
+    return bits, min_depth, all_rule_bits(is_goal, alive, table_id, num_tables)
+
+
 def _k_fused(*args):
     pre = BatchArrays(*args[:8])
     post = BatchArrays(*args[8:16])
@@ -343,6 +361,27 @@ class TorchExecutor:
     and integer params, run on one device."""
 
     VERBS = {
+        # The single-verb kernel API (the JAX package's), run-batched:
+        # [B,E] edges, [B,V] nodes, [B,V,V] adj.  The sidecar's batcher
+        # merges these three (and synth_ext) across requests.
+        "condition": (
+            _k_condition,
+            ("edge_src", "edge_dst", "edge_mask", "is_goal", "table_id", "node_mask"),
+            ("v", "cond_tid", "num_tables"),
+            ("holds",),
+        ),
+        "simplify": (
+            _k_simplify,
+            ("edge_src", "edge_dst", "edge_mask", "is_goal", "type_id", "node_mask"),
+            ("v",),
+            ("adj", "alive", "type_id"),
+        ),
+        "proto": (
+            _k_proto,
+            ("adj", "is_goal", "alive", "table_id", "achieved_pre"),
+            ("num_tables", "max_depth"),
+            ("bits", "min_depth", "present"),
+        ),
         "diff": (
             _k_diff,
             ("edge_src", "edge_dst", "edge_mask", "is_goal", "node_mask", "label_id", "fail_bits"),
@@ -711,7 +750,8 @@ class TorchBackend(GraphBackend):
     In a world of several ranks, a backend whose dispatches meet in
     collectives (``shard`` placing, or ``giant_impl="device"``) needs the
     same routes on every rank: it raises unless ``NEMO_SCHED`` and the
-    platform profile are off (``_require_spmd_routes``).
+    platform profile are off and, in run_debug, the result cache too
+    (``require_spmd_routes``).
 
     The budgets, the watermark and the density default to None: resolved
     at ``init_graph_db``, after ``platform.ensure_calibrated`` on the
@@ -838,7 +878,7 @@ class TorchBackend(GraphBackend):
         reuses it, host work only (the streamed map calls it on its
         prefetch thread).  Then the budgets resolve: argument > measured >
         seeded."""
-        self._require_spmd_routes()
+        self.require_spmd_routes()
         dev = self.executor.device
         _platform_profile.ensure_calibrated(dev)
         self._resolve_knobs(_platform_profile.resolve_constants(dev, self.profile_args()))
@@ -1037,7 +1077,7 @@ class TorchBackend(GraphBackend):
         one job: each job on its routed (lane, reason) in ``routes``, in
         order, on this thread.  Else through the cost-model scheduler on
         this device's lanes (parallel/sched.py)."""
-        self._require_spmd_routes()
+        self.require_spmd_routes()
         mode = sched_mod.sched_env()
         if mode != "off" and (mode == "on" or len(jobs) > 1):
             dev = self.executor.device
@@ -1046,14 +1086,18 @@ class TorchBackend(GraphBackend):
             return scheduler.run(jobs)
         return [job.execute(lane, reason, False) for job, (lane, reason) in zip(jobs, routes)]
 
-    def _require_spmd_routes(self) -> None:
+    def require_spmd_routes(self, result_cache: bool = False) -> None:
         """Raise where ranks of one world could route apart while their
         dispatches meet in collectives: a placing run mesh or the giant
         verb's node mesh, in a world of more than one rank, under the
         cost-model scheduler (its lane choice and steals follow each rank's
-        own walls) or a platform profile (each host's own measurements).
-        A rank that dispatched where another did not would pair unrelated
-        buckets in one all-reduce, or wait out the group's timeout."""
+        own walls), a platform profile (each host's own measurements) or,
+        with ``result_cache`` (run_debug asks before its first lookup), a
+        result cache: a rank whose cache holds the report or a segment's
+        partial would skip the dispatches, and so the collectives, that the
+        others wait in.  A rank that dispatched where another did not would
+        pair unrelated buckets in one all-reduce, or wait out the group's
+        timeout."""
         if mesh_mod.world_size() < 2:
             return
         if not (mesh_mod.shard_plan(self.executor.shard)[0] or self.giant_impl == "device"):
@@ -1063,6 +1107,12 @@ class TorchBackend(GraphBackend):
             raise RuntimeError(
                 f"a world of {mesh_mod.world_size()} ranks with collectives on the analysis path needs the same "
                 f"routes on every rank: set NEMO_SCHED=off (is {sched}) and NEMO_PROFILE=off (is {profile})"
+            )
+        if result_cache:
+            raise RuntimeError(
+                f"a world of {mesh_mod.world_size()} ranks with collectives on the analysis path needs the same "
+                "dispatches on every rank, and a result cache may serve one rank and not another: turn it off "
+                "(run_debug(result_cache=\"off\"), the CLI's --result-cache off, or NEMO_RESULT_CACHE=off)"
             )
 
     def _add_job(self, jobs: list, routes: list, verb: str, rows: int, v: int, e: int, work: int, lane: str,
@@ -1150,9 +1200,7 @@ class TorchBackend(GraphBackend):
         graphs = [self.packed[(rid, c)] for rid in giant_ids for c in ("pre", "post")]
         v_g = bucket_size(max(g.n_nodes for g in graphs))
         e_g = bucket_size(max(1, *(len(g.edges) for g in graphs)))
-        impl = self.giant_impl
-        if impl == "auto":
-            impl = "host" if self.analysis_impl == "sparse" else "sparse_device"
+        impl = self._giant_route()
         self.giant_impl_used = impl
         for rid in giant_ids:
             gpre, gpost = self.packed[(rid, "pre")], self.packed[(rid, "post")]
@@ -1193,6 +1241,13 @@ class TorchBackend(GraphBackend):
 
             self._add_job(jobs, routes, "giant", 1, v_g, e_g, v_g + e_g, impl,
                           "giant_impl", ("giant_impl",), ("device", "host"), sched_mod.ROUTE_OF_LANE, run)
+
+    def _giant_route(self) -> str:
+        """giant_impl resolved: ``auto`` takes the host lane under
+        analysis_impl="sparse", else sparse_device."""
+        if self.giant_impl != "auto":
+            return self.giant_impl
+        return "host" if self.analysis_impl == "sparse" else "sparse_device"
 
     def _sparse_fused(self, arrays: dict, v: int, rows: int, linear: int, tids: dict) -> dict:
         res = self.executor.run("sparse_fused", arrays, dict(v=v, comp_linear=linear, **tids), rows=rows)

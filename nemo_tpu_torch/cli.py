@@ -3,7 +3,9 @@ directories, on one device.
 
     python -m nemo_tpu_torch.cli -faultInjOut <dir> [<dir> ...] [--device cuda|cpu]
         [--results-dir DIR] [--figures all|failed|sample:N|none]
-        [--analysis-impl auto|dense|sparse|sparse_device]
+        [--analysis-impl auto|dense|sparse|sparse_device] [--shard auto|on|off]
+        [--giant-impl auto|host|device|sparse_device] [--max-batch N]
+        [--graph-backend torch|service [-graphDBConn HOST:PORT]]
         [--ingest auto|native|python] [--injector auto|molly|trace-json]
         [--corpus-cache DIR|off] [--result-cache DIR|off] [--prefetch]
         [--svg-cache DIR|off] [--save-corpus FILE.npz] [--out analysis.json]
@@ -96,6 +98,19 @@ lane for every bucket, the diff and the synth pass: ``dense``, ``sparse``
 (the host lane) or ``sparse_device`` (giant runs take the sparse device
 step unless ``sparse``); ``auto`` routes each by the JAX package's
 device-backend rules, with the host-lane work budgets of TorchBackend.
+``--shard``, ``--giant-impl`` and ``--max-batch`` are TorchBackend's
+``shard`` (the run mesh: ``on`` places even at one rank, ``auto`` only in a
+world of several), ``giant_impl`` (``device``: the dense node-sharded giant
+step) and ``max_batch`` (runs a dispatch at most); the JAX CLI reads them
+from ``NEMO_SHARD``, ``NEMO_GIANT_IMPL`` and ``NEMO_MAX_BATCH``.
+``-faultInjOut`` is also spelled ``--fault-inj-out``.
+
+``--graph-backend service`` runs the device verbs on a sidecar at
+``-graphDBConn HOST:PORT`` (``--graph-db-conn``; start it with
+``python -m nemo_tpu_torch.service.server``), through ServiceBackend; the
+report is TorchBackend's, byte for byte.  ``--device`` is then the
+sidecar's business and not read.  ``torch`` (the default) runs them in
+this process.
 """
 
 from __future__ import annotations
@@ -110,17 +125,21 @@ import time
 import torch
 
 from nemo_tpu_torch.analysis.pipeline import INGEST_MODES, run_debug, run_debug_dirs
-from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, NoSuccessfulRunError, TorchBackend
+from nemo_tpu_torch.backend.torch_backend import ANALYSIS_IMPLS, GIANT_IMPLS, NoSuccessfulRunError, TorchBackend
 from nemo_tpu_torch.ingest.adapters import INJECTORS, load_output
 from nemo_tpu_torch.obs import trace as obs_trace
 from nemo_tpu_torch.platform import profile
 from nemo_tpu_torch.utils.env import env_override
 
 
-def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", injector: str | None = None) -> dict:
-    """The analysis document of one corpus (see the module docstring)."""
+def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", injector: str | None = None,
+            backend=None) -> dict:
+    """The analysis document of one corpus (see the module docstring), on
+    ``backend`` (default: a TorchBackend of ``device`` and
+    ``analysis_impl``)."""
     timings: dict[str, float] = {}
-    backend = TorchBackend(device=device, analysis_impl=analysis_impl)
+    if backend is None:
+        backend = TorchBackend(device=device, analysis_impl=analysis_impl)
     dev = backend.executor.device
 
     def phase(name, fn, *args):
@@ -169,6 +188,16 @@ def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", inject
     }
 
 
+def _positive_int(text: str) -> int:
+    try:
+        n = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{text!r} is not an integer") from None
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"{n} is not a positive integer")
+    return n
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "query":
@@ -176,12 +205,25 @@ def main(argv: list[str] | None = None) -> int:
         # only, so the subcommand has a parser of its own.
         return _query_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m nemo_tpu_torch.cli", description=__doc__.split("\n")[0])
-    ap.add_argument("-faultInjOut", dest="fault_inj_out", nargs="+", metavar="DIR",
+    ap.add_argument("-faultInjOut", "--fault-inj-out", dest="fault_inj_out", nargs="+", metavar="DIR",
                     help="fault-injection sweep directory (or directories) to analyze")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--analysis-impl", default="auto", choices=ANALYSIS_IMPLS,
                     help="force one lane for every verb: dense, sparse (host) or sparse_device "
                          "(default auto: per bucket)")
+    ap.add_argument("--shard", default="auto", choices=("auto", "on", "off"),
+                    help="the run mesh: on places the fused dispatches on it even at one rank, auto only in a "
+                         "world of several (torch.distributed), off never")
+    ap.add_argument("--giant-impl", default="auto", choices=GIANT_IMPLS,
+                    help="giant runs: host, device (the dense node-sharded step), sparse_device, or auto (the host "
+                         "under --analysis-impl sparse, else sparse_device)")
+    ap.add_argument("--max-batch", type=_positive_int, default=None, metavar="N",
+                    help="at most N runs a fused dispatch (default: one dispatch a bucket)")
+    ap.add_argument("--graph-backend", default="torch", choices=("torch", "service"),
+                    help="run the device verbs in this process (torch) or on the sidecar at -graphDBConn "
+                         "(service)")
+    ap.add_argument("-graphDBConn", "--graph-db-conn", dest="graph_db_conn", default="127.0.0.1:50051",
+                    metavar="HOST:PORT", help="the sidecar's address under --graph-backend service")
     ap.add_argument("--results-dir", default=os.path.join(os.getcwd(), "results"),
                     help="root directory of the report (default ./results)")
     ap.add_argument("--figures", default="all", metavar="POLICY",
@@ -297,6 +339,8 @@ def _report_main(ap, args) -> int:
         ap.error("--serve serves the report: no --out")
     if args.profile and args.out is not None:
         ap.error("--profile captures the report's analysis: no --out")
+    if args.graph_backend == "service" and args.shard != "auto":
+        ap.error("--shard places this process's dispatches: not with --graph-backend service")
 
     # Tracing: the flag wins, NEMO_TRACE is the env equivalent.  The trace
     # is written explicitly before the final prints (so the path is
@@ -311,7 +355,12 @@ def _report_main(ap, args) -> int:
         obs_trace.configure_from_env()
 
     def make_backend():
-        return TorchBackend(device=args.device, analysis_impl=args.analysis_impl)
+        knobs = dict(analysis_impl=args.analysis_impl, giant_impl=args.giant_impl, max_batch=args.max_batch)
+        if args.graph_backend == "service":
+            from nemo_tpu_torch.backend.service_backend import ServiceBackend
+
+            return ServiceBackend(target=args.graph_db_conn, **knobs)
+        return TorchBackend(device=args.device, shard=args.shard, **knobs)
 
     kw = dict(figures=args.figures, ingest=args.ingest, corpus_cache=args.corpus_cache,
               result_cache=args.result_cache, injector=args.injector)
@@ -322,8 +371,7 @@ def _report_main(ap, args) -> int:
     # run again in this process.
     try:
         if args.out is not None:
-            doc = analyze(args.fault_inj_out[0], device=args.device, analysis_impl=args.analysis_impl,
-                          injector=args.injector)
+            doc = analyze(args.fault_inj_out[0], injector=args.injector, backend=make_backend())
             with open(args.out, "w", encoding="utf-8") as f:
                 json.dump(doc, f, indent=1)
             results = []
@@ -341,7 +389,8 @@ def _report_main(ap, args) -> int:
     if args.out is not None:
         print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
     for res in results:
-        print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {args.device} -> {res.report_dir}"
+        where = args.device if args.graph_backend == "torch" else f"the sidecar at {args.graph_db_conn}"
+        print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {where} -> {res.report_dir}"
               f" (ingest {res.ingest}, result cache {res.result_cache['state']})")
     fs = results[-1].figure_stats if results else None
     if fs and fs["figures"]:
@@ -397,7 +446,7 @@ def _query_main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(prog="python -m nemo_tpu_torch.cli query",
                                  description="Run one ad-hoc provenance query over a corpus directory.")
     ap.add_argument("query", help="query text, e.g. 'from pre match goal[holds=true] -> @rule tables'")
-    ap.add_argument("-faultInjOut", dest="fault_inj_out", default=None, metavar="DIR",
+    ap.add_argument("-faultInjOut", "--fault-inj-out", dest="fault_inj_out", default=None, metavar="DIR",
                     help="fault-injection sweep directory to query")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--injector", default=None, choices=("auto", *INJECTORS),
@@ -436,9 +485,6 @@ def _query_main(argv: list[str]) -> int:
     return 0
 
 
-#: Held by every POST /query: the request threads of the report server
-#: never drive the device at once.
-_QUERY_LOCK = threading.Lock()
 
 
 def query_http_handler(serve_dir: str, resolve_molly, **query_kw):
@@ -451,6 +497,7 @@ def query_http_handler(serve_dir: str, resolve_molly, **query_kw):
     import http.server
 
     from nemo_tpu_torch.query import run_query_text
+    from nemo_tpu_torch.query.engine import QUERY_LOCK
 
     class Handler(http.server.SimpleHTTPRequestHandler):
         def do_POST(self):  # noqa: N802 - http.server API
@@ -462,7 +509,7 @@ def query_http_handler(serve_dir: str, resolve_molly, **query_kw):
                 req = json.loads(self.rfile.read(n).decode("utf-8") or "{}")
                 if not isinstance(req, dict):
                     raise ValueError("request body must be a JSON object")
-                with _QUERY_LOCK:
+                with QUERY_LOCK:
                     doc = run_query_text(str(req.get("query", "")), resolve_molly(req), **query_kw)
                 body, status = json.dumps(doc).encode("utf-8"), 200
             except Exception as ex:  # the query box shows the error inline; the server goes on

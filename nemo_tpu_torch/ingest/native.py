@@ -369,3 +369,46 @@ def corpus_step_static(c) -> dict:
     plus comp_linear, the AND of the per-graph parse-time checks."""
     lin = bool(np.asarray(c.pre.chain_linear).all() and np.asarray(c.post.chain_linear).all())
     return dict(c.static_kwargs, comp_linear=lin)
+
+
+def packed_host_available(output_dir: str) -> bool:
+    """Whether ``pack_molly_dir_host`` serves this directory: a warm corpus
+    store serves it by mmap, else the engine parses it.  The port's engine
+    builds or raises (utils/cbuild.py), so a failed build raises here
+    rather than returning False, unlike the JAX package's quiet degrade."""
+    from nemo_tpu_torch.store import resolve_store
+
+    store = resolve_store()
+    if store is not None and store.probe(output_dir) in ("hit", "grown"):
+        return True
+    NATIVE.load()
+    return True
+
+
+def pack_molly_dir_host(output_dir: str, timings: dict | None = None):
+    """Directory -> (the packed corpus, analysis_step statics): host numpy
+    arrays with no device transfer, for the sidecar client's chunk
+    producers.  The corpus store (``NEMO_CORPUS_CACHE``) is consulted
+    first and serves a warm hit by mmap (appending a grown directory's new
+    runs first); a miss parses with the engine and never populates the
+    store (the report pipeline and the sidecar's AnalyzeDir are the
+    populating producers).  ``timings["linear_check_s"]``: the host cost of
+    the corpus-level comp_linear flag, an AND over the engine's per-graph
+    checks (0 on a store hit)."""
+    import time
+
+    from nemo_tpu_torch.store import resolve_store
+
+    store = resolve_store()
+    if store is not None:
+        c = store.load_corpus(output_dir)
+        if c is not None:
+            if timings is not None:
+                timings["linear_check_s"] = 0.0
+            return c, corpus_step_static(c)
+    c = ingest_native(output_dir, with_node_ids=False)
+    t0 = time.perf_counter()
+    static = corpus_step_static(c)
+    if timings is not None:
+        timings["linear_check_s"] = time.perf_counter() - t0
+    return c, static

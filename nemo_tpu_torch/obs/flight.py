@@ -1,7 +1,7 @@
 """Flight recorder: postmortem capture without a trace having been on.
 
-A copy of the JAX package's ``obs/flight.py`` without the admission
-shed-burst detector (it waits with the serving tier).  A bounded ring of
+A copy of the JAX package's ``obs/flight.py`` (less the fleet's
+lease-steal trigger, which comes with the fleet).  A bounded ring of
 recent activity that costs almost nothing while nothing is wrong, dumped
 as a self-contained bundle the moment an anomaly trigger fires.
 
@@ -17,7 +17,9 @@ What the ring holds:
 
 Triggers (``trigger(reason, **ctx)``): a failed watch cycle
 (watch/watcher.py), the scheduler's breaker trip and its dispatch-deadline
-escalation (parallel/sched.py: ``breaker_trip``, ``dispatch_watchdog``).  Each reason has a cooldown
+escalation (parallel/sched.py: ``breaker_trip``, ``dispatch_watchdog``),
+a burst of admission sheds (serve/admission.py via ``note_shed``:
+``shed_burst``).  Each reason has a cooldown
 (``NEMO_FLIGHT_COOLDOWN_S``, default 30 s), so a failure storm produces ONE
 bundle.  ``trigger`` does nothing while the recorder is unarmed, and the
 port arms it only through ``configure_from_env`` or ``arm``, as the JAX
@@ -35,6 +37,8 @@ Knobs (warn-and-default, parsed lazily so this module stays stdlib-only):
     NEMO_FLIGHT_SPANS=2048     span ring capacity
     NEMO_FLIGHT_LOGS=512       log-record ring capacity
     NEMO_FLIGHT_COOLDOWN_S=30  per-reason dump cooldown
+    NEMO_FLIGHT_SHED_BURST=5   sheds within the window that count as a burst
+    NEMO_FLIGHT_SHED_WINDOW_S=10   the shed burst window
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ __all__ = [
     "arm",
     "configure_from_env",
     "disarm",
+    "note_shed",
     "recorder",
     "trigger",
 ]
@@ -89,6 +94,8 @@ class FlightRecorder:
         max_spans: int | None = None,
         max_logs: int | None = None,
         cooldown_s: float | None = None,
+        shed_burst: int | None = None,
+        shed_window_s: float | None = None,
     ) -> None:
         self.out_dir = out_dir or os.environ.get("NEMO_FLIGHT_DIR", "").strip() or _default_dir()
         self.pid = os.getpid()
@@ -103,6 +110,11 @@ class FlightRecorder:
         # path takes no lock; only trigger() locks, to copy consistently.
         self._spans: collections.deque = collections.deque(maxlen=self.max_spans)
         self._logs: collections.deque = collections.deque(maxlen=self.max_logs)
+        self.shed_burst = shed_burst if shed_burst is not None else _env_int("NEMO_FLIGHT_SHED_BURST", 5)
+        self.shed_window_s = (
+            shed_window_s if shed_window_s is not None else _env_float("NEMO_FLIGHT_SHED_WINDOW_S", 10.0)
+        )
+        self._sheds: collections.deque = collections.deque(maxlen=max(1, self.shed_burst))
         self._lock = threading.Lock()
         self._last_dump: dict[str, float] = {}
         self._seq = 0
@@ -124,6 +136,15 @@ class FlightRecorder:
 
     def record_log(self, rec: dict) -> None:
         self._logs.append(rec)
+
+    def note_shed(self, reason: str = "", tenant: str = "") -> None:
+        """The shed-burst detector: a trigger fires when ``shed_burst``
+        sheds land within ``shed_window_s`` (one shed is load shedding at
+        work; a burst is an incident)."""
+        now = time.monotonic()
+        self._sheds.append(now)
+        if len(self._sheds) >= self.shed_burst and now - self._sheds[0] <= self.shed_window_s:
+            self.trigger("shed_burst", shed_reason=reason, tenant=tenant, sheds=len(self._sheds))
 
     def trigger(self, reason: str, **ctx) -> str | None:
         """Dump a bundle for ``reason`` unless its cooldown is still
@@ -242,6 +263,13 @@ def trigger(reason: str, **ctx) -> str | None:
     if rec is None:
         return None
     return rec.trigger(reason, **ctx)
+
+
+def note_shed(reason: str = "", tenant: str = "") -> None:
+    """One admission shed, fed to the armed recorder's burst detector."""
+    rec = _RECORDER
+    if rec is not None:
+        rec.note_shed(reason, tenant)
 
 
 def configure_from_env() -> FlightRecorder | None:

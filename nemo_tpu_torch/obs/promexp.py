@@ -1,13 +1,14 @@
 """Prometheus text-format exposition of the obs metrics registry.
 
-A copy of the JAX package's ``obs/promexp.py`` without its HTTP endpoint
-(``start_http_server`` serves the sidecar's ``--metrics-port``; it waits
-with the serving tier).  Renders ``obs.metrics.snapshot()`` in Prometheus
+A copy of the JAX package's ``obs/promexp.py`` (its HTTP endpoint without
+the fleet router's federated page and extra routes).  Renders ``obs.metrics.snapshot()`` in Prometheus
 exposition format 0.0.4: counters as ``_total`` series, gauges bare,
 histograms as cumulative ``_bucket{le=...}`` series plus ``_sum`` and
 ``_count``.  Dotted registry names map to metric names by sanitization
 (``kernel.dispatches.fused`` -> ``nemo_kernel_dispatches_fused``).  The
-CLI's ``--metrics-out FILE`` writes it once after a run.
+CLI's ``--metrics-out FILE`` writes it once after a run;
+``start_http_server`` serves it, and ``/healthz``, for the sidecar's
+``--metrics-port``.
 
 ``parse_prometheus_text`` is the matching parser the tests and the smoke
 round-trip the text through.
@@ -15,7 +16,9 @@ round-trip the text through.
 
 from __future__ import annotations
 
+import json
 import re
+import threading
 
 from .metrics import HIST_BUCKETS
 from .metrics import metrics as _global_metrics
@@ -24,6 +27,7 @@ __all__ = [
     "parse_prometheus_text",
     "render_prometheus",
     "sanitize_name",
+    "start_http_server",
 ]
 
 NAMESPACE = "nemo"
@@ -156,3 +160,57 @@ def parse_prometheus_text(text: str) -> dict:
         if tname in families and families[tname]["type"] is None:
             families[tname]["type"] = t
     return families
+
+
+def start_http_server(port: int, health=None):
+    """The metrics endpoint on a daemon thread; returns (the
+    ThreadingHTTPServer, its bound port).  ``/metrics``: the process-global
+    registry as Prometheus text.  ``/healthz``: the JSON of ``health()``
+    (the sidecar passes its Health state), else ``{"status": "SERVING"}``;
+    status 503 unless it says SERVING.  ``port=0`` binds an ephemeral
+    port; the caller owns ``shutdown()``."""
+    import http.server
+
+    from . import log as obs_log
+
+    log = obs_log.get_logger("nemo.metrics")
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (stdlib handler contract)
+            path = self.path.split("?", 1)[0]
+            status = 200
+            if path == "/metrics":
+                try:
+                    text = render_prometheus()
+                except Exception as ex:  # a scrape fails; the server goes on
+                    log.warning("metrics.render_failed", error=repr(ex))
+                    self.send_error(500)
+                    return
+                body, ctype = text.encode("utf-8"), "text/plain; version=0.0.4; charset=utf-8"
+            elif path == "/healthz":
+                doc = {"status": "SERVING"}
+                if health is not None:
+                    try:
+                        doc = health()
+                    except Exception as ex:  # reported as the probe's answer
+                        doc = {"status": "NOT_SERVING", "error": repr(ex)}
+                body, ctype = json.dumps(doc).encode("utf-8"), "application/json"
+                if doc.get("status") != "SERVING":
+                    status = 503
+            else:
+                self.send_error(404)
+                return
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):  # stdlib's stderr lines -> obs log
+            log.debug("metrics.http", detail=fmt % args)
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", port), Handler)
+    bound = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True, name="nemo-metrics-http").start()
+    log.info("metrics.listening", port=bound)
+    return httpd, bound

@@ -1,8 +1,9 @@
 """Span tracer: nested, thread-aware spans -> Chrome-trace-event JSON.
 
-A copy of the JAX package's ``obs/trace.py`` without the adoption of
-spans recorded by other processes (the port has no render pool and no
-sidecar, so every span is recorded in the process that exports it).
+A copy of the JAX package's ``obs/trace.py``.  The sidecar
+(service/server.py) hands a traced client the spans one request recorded
+(``mark``/``spans_since``, or ``drain_spans`` on a pathless collector
+tracer), and the client merges them into its own trace (``adopt``).
 
 Format: the Chrome Trace Event "JSON Object Format": a top-level object
 with a ``traceEvents`` array of complete ("ph": "X") events plus process
@@ -10,8 +11,9 @@ and thread name metadata ("ph": "M") events.  Perfetto's UI and
 trace_processor load it directly.
 
 Clock: event timestamps are microseconds of CLOCK_MONOTONIC
-(``time.perf_counter_ns() // 1000``); the exporter normalizes to the
-earliest event.
+(``time.perf_counter_ns() // 1000``); the exporter normalizes to this
+process's earliest event and re-bases an adopted clock domain from
+another machine.
 
 Disabled-mode cost: ``span()`` reads one module global and returns a shared
 null context manager: no allocation, no string work.
@@ -88,8 +90,69 @@ class Tracer:
             if thread_name is not None:
                 self._thread_names.setdefault((pid, tid), thread_name)
 
+    def set_process_name(self, pid: int, name: str) -> None:
+        with self._lock:
+            self._process_names[pid] = name
+
+    def adopt(self, spans: list[dict], process_name: str | None = None) -> None:
+        """Merge spans serialized by another process (the ``drain_spans``
+        wire shape: name/ts/dur/pid/tid[/args][/thread_name]), each tagged
+        ``span_origin``.  Spans claiming this process's pid are skipped: an
+        in-process sidecar hands back spans this tracer already holds."""
+        origin = process_name or "remote"
+        for s in spans:
+            pid = int(s["pid"])
+            if pid == self.pid:
+                continue
+            self.add_span(s["name"], int(s["ts"]), int(s["dur"]), args={**(s.get("args") or {}), "span_origin": origin},
+                          pid=pid, tid=int(s.get("tid", 0)), thread_name=s.get("thread_name"))
+            if process_name is not None:
+                self.set_process_name(pid, process_name)
+
+    @staticmethod
+    def _serialize(events: list[dict], names: dict[tuple[int, int], str]) -> list[dict]:
+        out = []
+        for ev in events:
+            s = dict(ev)
+            s.pop("ph", None)
+            tn = names.get((ev["pid"], ev["tid"]))
+            if tn:
+                s["thread_name"] = tn
+            out.append(s)
+        return out
+
+    def drain_spans(self) -> list[dict]:
+        """Every recorded span in the cross-process wire shape ``adopt``
+        reads, clearing the buffer."""
+        with self._lock:
+            events, self._events = self._events, []
+            names = dict(self._thread_names)
+        return self._serialize(events, names)
+
+    def mark(self) -> int:
+        """The span count now: ``spans_since(mark)`` serializes what was
+        recorded after it (one request's spans)."""
+        with self._lock:
+            return len(self._events)
+
+    def spans_since(self, mark: int) -> list[dict]:
+        """The spans recorded after ``mark``, without clearing (a tracer
+        that writes its own file keeps them)."""
+        with self._lock:
+            events = list(self._events[mark:])
+            names = dict(self._thread_names)
+        return self._serialize(events, names)
+
+    #: An adopted clock domain whose origin is further than this (1 hour,
+    #: in us) from this process's is another machine's CLOCK_MONOTONIC and
+    #: is re-based; a same-machine adoption shares the clock.
+    _FOREIGN_CLOCK_US = 3_600_000_000
+
     def export(self, path: str | None = None) -> str:
-        """Write the trace file; returns the path written."""
+        """Write the trace file; returns the path written.  Times are
+        relative to this process's earliest span; an adopted clock domain
+        (``span_origin``) from another machine is re-based to its own
+        earliest span."""
         path = path or self.path
         if not path:
             raise ValueError("no trace output path configured")
@@ -97,7 +160,18 @@ class Tracer:
             events = list(self._events)
             thread_names = dict(self._thread_names)
             process_names = dict(self._process_names)
-        base = min((e["ts"] for e in events), default=0)
+
+        def _origin(e: dict) -> str | None:
+            return (e.get("args") or {}).get("span_origin")
+
+        local_ts = [e["ts"] for e in events if _origin(e) is None]
+        base = min(local_ts, default=min((e["ts"] for e in events), default=0))
+        domain_min: dict[str, int] = {}
+        for e in events:
+            o = _origin(e)
+            if o is not None:
+                domain_min[o] = min(domain_min.get(o, e["ts"]), e["ts"])
+        shift = {o: m - base for o, m in domain_min.items() if abs(m - base) > self._FOREIGN_CLOCK_US}
         out = []
         for pid, name in sorted(process_names.items()):
             out.append({"name": "process_name", "ph": "M", "pid": pid, "tid": 0, "args": {"name": name}})
@@ -105,7 +179,7 @@ class Tracer:
             out.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid, "args": {"name": name}})
         for e in events:
             e = dict(e)
-            e["ts"] -= base
+            e["ts"] -= base + shift.get(_origin(e), 0)
             out.append(e)
         doc = {
             "traceEvents": out,

@@ -29,6 +29,7 @@ raised); ``serial`` keeps its plans but runs them on the caller's thread.
 from __future__ import annotations
 
 import json
+import threading
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -454,6 +455,12 @@ def corpus_vocab(molly):
                 vocab.tables.intern(ru.table)
                 vocab.labels.intern(ru.label)
     return vocab
+
+
+#: Held by every query that a serving surface runs (the report server's
+#: ``POST /query``, the sidecar's Query RPC): their request threads never
+#: run two queries on the device at once.
+QUERY_LOCK = threading.Lock()
 
 
 def ingest_corpus(fault_inj_out: str, corpus_cache: str | None = None, injector: str | None = None):

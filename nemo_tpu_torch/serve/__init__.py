@@ -1,0 +1,48 @@
+"""The serving tier of the sidecar: a copy of the JAX package's ``serve/``
+without the fleet (the router and the autoscaler).
+
+The sidecar (service/server.py) threads every work RPC through this
+policy layer:
+
+  * :mod:`nemo_tpu_torch.serve.admission`: a bounded admission queue with
+    per-tenant round-robin fairness, an in-flight cap, RESOURCE_EXHAUSTED
+    plus retry-after load shedding, and the drain flag SIGTERM flips;
+  * :mod:`nemo_tpu_torch.serve.coalesce`: single-flight deduplication of
+    concurrent identical requests, keyed on the result cache's content
+    address: N subscribers, one analysis, byte-identical responses;
+  * :mod:`nemo_tpu_torch.serve.batch`: cross-request continuous batching:
+    compatible kernel dispatches of different in-flight requests merge
+    into one padded launch through ``parallel/sched.py``'s job queue.
+
+Importing it loads numpy and obs only; torch loads when a merged launch
+runs.
+"""
+
+from __future__ import annotations
+
+from .admission import (
+    AdmissionController,
+    AdmissionRejected,
+    Ticket,
+    controller,
+    reset_controller,
+    slo_snapshot,
+)
+from .batch import BATCHABLE_VERBS, KernelBatcher, batcher, reset_batcher
+from .coalesce import SingleFlight, flights, reset_flights
+
+__all__ = [
+    "AdmissionController",
+    "AdmissionRejected",
+    "BATCHABLE_VERBS",
+    "KernelBatcher",
+    "SingleFlight",
+    "Ticket",
+    "batcher",
+    "controller",
+    "flights",
+    "reset_batcher",
+    "reset_controller",
+    "reset_flights",
+    "slo_snapshot",
+]

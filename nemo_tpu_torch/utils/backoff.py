@@ -1,6 +1,6 @@
-"""The jittered exponential backoff of the scheduler's failover: a copy of
-the JAX package's ``utils/backoff.py`` trimmed to the policy, its session
-and ``FAILOVER_POLICY`` (the RPC client's policy comes with the sidecar).
+"""The jittered exponential backoff of the scheduler's failover and of the
+sidecar client's retries: a copy of the JAX package's ``utils/backoff.py``
+(``FAILOVER_POLICY``, ``RPC_POLICY``).
 
 Attempt k waits ``base * multiplier**k``, capped at ``max_delay``, scaled
 by a uniform ``1 ± jitter`` factor (jitter keeps a burst of failures from
@@ -66,3 +66,9 @@ class BackoffSession:
 #: failing jobs never stalls a drain.  The scheduler takes its base from
 #: ``NEMO_FAILOVER_BACKOFF_S`` (utils/env.py), whose default is this one.
 FAILOVER_POLICY = BackoffPolicy(base_s=0.05, multiplier=2.0, max_delay_s=1.0, jitter=0.5, budget_s=5.0)
+
+
+#: The sidecar client's retries (service/client.py): UNAVAILABLE and the
+#: server's ``nemo-retry-after-s`` throttle hint share it; a request that
+#: cannot land within a minute of waiting in all fails.
+RPC_POLICY = BackoffPolicy(base_s=0.2, multiplier=2.0, max_delay_s=10.0, jitter=0.25, budget_s=60.0)

@@ -10,7 +10,10 @@
   non-CUDA device raises;
 * the new ingest and cache flags leave the device at cuda, ``ingest="auto"``
   on TorchBackend resolves to the native engine, and the port's engine is
-  its own copy, built into the port's build directory.
+  its own copy, built into the port's build directory;
+* only the sidecar's transport imports grpc: no port module imports grpc
+  or protobuf at its top, and the sidecar's ``--device cuda`` raises
+  without a card.
 """
 
 import os
@@ -173,3 +176,22 @@ def test_engine_is_the_ports_own_copy():
     assert NATIVE.src == PORT / "csrc" / "host" / "nemo_native.cpp"
     assert Path(lib._name).parent == PORT / "build"
     assert lib.nemo_abi_version() == 5
+
+
+_TOP_LEVEL_GRPC = re.compile(r"^(import\s+(grpc|google\.protobuf)\b|from\s+(grpc|google\.protobuf)\b)", re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")))
+def test_no_port_module_imports_grpc_at_its_top(path):
+    """grpc is imported inside make_server and the client's channel only,
+    so that the card's machine, which has no grpc, imports every module."""
+    text = (REPO / path).read_text()
+    assert not _TOP_LEVEL_GRPC.search(text), _TOP_LEVEL_GRPC.search(text).group(0)
+
+
+def test_sidecar_cuda_request_raises_without_a_card(monkeypatch):
+    from nemo_tpu_torch.service.server import Loopback
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Loopback("cuda")

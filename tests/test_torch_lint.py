@@ -1,7 +1,8 @@
 """The port held to the JAX package's lint (tools/lint_no_print.py): no
 bare ``print()`` outside the CLI surfaces and the pragma'd log sink, and no
 ``except Exception: pass`` that hides a failure, such as a card's, behind
-a silent fallback."""
+a silent fallback.  The sidecar's packages (service/, serve/) are linted
+on their own too, so that their files are seen to be in scope."""
 
 import os
 import subprocess
@@ -17,3 +18,12 @@ def test_port_passes_the_print_and_silent_except_lint():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "lint-no-print: ok" in proc.stdout
+
+
+def test_sidecar_packages_pass_the_lint():
+    for sub in ("service", "serve"):
+        path = os.path.join(REPO, "nemo_tpu_torch", sub)
+        proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "lint_no_print.py"), path],
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+        assert "lint-no-print: ok" in proc.stdout

@@ -268,6 +268,27 @@ def test_spmd_world_needs_serial_unprofiled_routes(worlds, corpora, env, backend
     assert ok == ["", ""]
 
 
+@pytest.mark.parametrize("backend_kw", [{"shard": "on"}, {"shard": "off", "giant_impl": "device"}],
+                         ids=["shard-on", "giant-device"])
+def test_spmd_world_with_one_rank_cached_raises_at_once(worlds, corpora, backend_kw, tmp_path):
+    """Two ranks, and only rank 0's result cache holds the report: rank 0
+    would restore it and skip the collectives rank 1 waits in, for the
+    group's timeout.  Both ranks raise before the lookup instead, naming
+    the flag that turns the cache off; with the cache off both run."""
+    cc0, rc0 = str(tmp_path / "cc0"), str(tmp_path / "rc0")
+    warm = run_debug(corpora["synth"], str(tmp_path / "warm"), TorchBackend(device="cpu"), figures="none",
+                     corpus_cache=cc0, result_cache=rc0)
+    assert warm.result_cache["state"] == "computed"
+    again = run_debug(corpora["synth"], str(tmp_path / "again"), TorchBackend(device="cpu"), figures="none",
+                      corpus_cache=cc0, result_cache=rc0)
+    assert again.result_cache["state"] == "report_hit"
+    caches = [(cc0, rc0), (str(tmp_path / "cc1"), str(tmp_path / "rc1"))]
+    for r in worlds[2].run("cache_guard", corpora["synth"], str(tmp_path / "bad"), caches, backend_kw):
+        assert "--result-cache off" in r["error"] and r["seconds"] < 10, r
+    ok = worlds[2].run("cache_guard", corpora["synth"], str(tmp_path / "ok"), [("off", "off")] * 2, backend_kw)
+    assert [r["error"] for r in ok] == ["", ""]
+
+
 def test_outside_a_group_keeps_its_routes(corpora, tmp_path):
     """shard="auto" (the default) in a world of one rank: no mesh, no
     gather, the same routes and tree as shard="off"."""

@@ -166,6 +166,29 @@ def spmd_guard(corpus: str, root: str, env: dict, backend_kw: dict) -> str:
                 os.environ[k] = v
 
 
+def cache_guard(corpus: str, root: str, caches: list, backend_kw: dict) -> dict:
+    """run_debug with this rank's own corpus store and result cache
+    (``caches[rank]``: (corpus cache, result cache)) and a backend whose
+    dispatches meet in collectives: the error it raises ("" if it ran) and
+    the seconds it took."""
+    import time
+
+    import torch.distributed as dist
+
+    from nemo_tpu_torch.analysis.pipeline import run_debug
+    from nemo_tpu_torch.backend.torch_backend import TorchBackend
+
+    cc, rc = caches[dist.get_rank()]
+    t = time.perf_counter()
+    try:
+        run_debug(corpus, os.path.join(root, f"rank{dist.get_rank()}"), TorchBackend(device="cpu", **backend_kw),
+                  figures="none", corpus_cache=cc, result_cache=rc)
+        err = ""
+    except RuntimeError as e:
+        err = str(e)
+    return {"error": err, "seconds": time.perf_counter() - t}
+
+
 def ring(adj: np.ndarray, start: np.ndarray, steps: int) -> tuple:
     """ring_reach and closure_sharded over the world's node mesh."""
     import torch
