@@ -91,16 +91,19 @@ each fatal (non-zero exit, no result line) on failure:
      families (deep chains, wide fan-out, near-duplicates, vocabulary
      growth, cycles) at bench.py's size, on the default routes, the device
      lanes and the sparse_device tier forced (K2 must launch), each
-     family's wall and bucket routes printed; (b) a family converted to
-     trace-JSON, cold into the store and as a warm store hit, then a
-     1,500-run prefix grown to 1,700 inside its one document, which must
-     map exactly the 200 new runs and equal its from-scratch report; (c) a
-     family with three provenance files truncated: stored with its
+     family's wall and bucket routes printed; (b) a family's first
+     CORPORA_PREFIX_RUNS runs converted to trace-JSON, cold into the store
+     and as a warm store hit, then its prefix 200 runs shorter grown to the
+     whole inside its one document, which must map exactly the 200 new
+     runs and equal its from-scratch report; (c) a family's first
+     CORPORA_PREFIX_RUNS runs with three provenance files truncated: stored
+     with its
      quarantine records, a warm whole-report hit with its quarantine.json,
      then one file repaired, which must map exactly 1 run under another
-     report key; (d) the watch loop: bench.py's watch tier and a family
-     replayed into a watched directory, each update mapping exactly its
-     new runs, the last published tree equal to a one-shot report; (e)
+     report key; (d) the watch loop: bench.py's watch tier and a family's
+     first CORPORA_PREFIX_RUNS runs replayed into a watched directory,
+     each update mapping exactly its new runs, the last published tree
+     equal to a one-shot report; (e)
      --save-corpus through the CLI, the file loading back equal
      ({"corpora": {...}});
   6h. the ad-hoc query engine on cuda, each call with the launch counts
@@ -248,6 +251,30 @@ each fatal (non-zero exit, no result line) on failure:
      one fused step; (f) run_debug over ServiceBackend on the loopback:
      ZK-1270's tree equal to phase 5's; (g) one Query RPC's document equal
      to the library's ({"service": {...}});
+  6p. the fleet (store/rcache.py's shared tier and Lease, the server's
+     _fleet_single_flight, serve/router.py, serve/autoscale.py,
+     obs/federation.py) on the card: (a) two spawned replicas
+     (fleet_replica: Loopback("cuda") each, a result cache each, one shared
+     tier) send AnalyzeDir on ZK-1270 (1,700 runs, phase 5b's store) at
+     one barrier: one nemo-fleet leader and one follower, byte-identical
+     responses, K1 launched in the leader only, the outputs equal to the
+     same request on the cpu; a later request to the follower is a
+     shared-tier hit that launches nothing; (b) the leader, under
+     NEMO_CHAOS=wedge_dispatch:1 on a fresh shared tier, takes the lease
+     and wedges in its dispatch; the follower (flight recorder armed,
+     NEMO_LEASE_TTL_S FLEET_LEASE_TTL_S) asks; the leader is SIGKILLed; the
+     follower steals the lease (rcache.lease_steal 1, one lease_steal
+     bundle), launches K1 itself and answers (a)'s outputs; (c) the router
+     in this process over two named loopback replicas on cuda: two
+     families each run on their ring home only, fused and sparse_fused
+     over the Kernel RPC through the router equal TorchExecutor.run on
+     cuda, a draining home's corpus served by the other replica with equal
+     outputs, the federated page parses with both replica labels and
+     nemo_fleet_* rollups, /autoscale goes up under a synthetic depth surge
+     and back down, a routed call's spans come back stitched under one
+     trace id; without grpc a host:port target raises ({"fleet": {...}});
+     the spawned replicas' launches join the kernels line (they are
+     outside this process's launch log);
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -361,10 +388,14 @@ ADV_LANES = (
 #: generation, the quarantined positions, the watch legs' replays
 #: (bench.py's watch tier, SynthSpec(n_runs=240, seed=31), in 4
 #: generations where bench.py takes 6; a family in 3: cut for the smoke's
-#: time limit).
+#: time limit).  The trace-JSON, quarantine and watched-family legs take
+#: the first CORPORA_PREFIX_RUNS runs of their family (all 1,700 before
+#: phase 6p, cut to pay for it in the smoke's time limit; the buckets stay
+#: on the dense route at this size).
 TRACE_FAMILY = "CA-2083-hinted-handoff"
 QUARANTINE_FAMILY = "MR-2995-failed-after-expiry"
-QUARANTINE_POSITIONS = (17, 800, 1601)
+CORPORA_PREFIX_RUNS = 850
+QUARANTINE_POSITIONS = (17, 400, 801)
 WATCH_FAMILY = "pb_asynchronous"
 SAVE_FAMILY = "CA-2434-bootstrap-synchronization"
 WATCH_TIER = (240, 31, 4)
@@ -419,6 +450,15 @@ RING_V, RING_DEGREE, RING_STEPS = 2048, 2, 16
 SERVICE_RECORD_RUNS = 200
 SERVICE_BATCH_REQUESTS, SERVICE_BATCH_ROWS, SERVICE_BATCH_WINDOW_S = 8, 4, 0.05
 SERVICE_BURST = 6
+#: Phase 6p: the seconds a spawned replica may take to start or answer, the
+#: lease TTL of the fleet's replicas (the dead leader's lease is stolen
+#: this long after its last heartbeat), how long the dead-leader leg lets
+#: the follower ask before the SIGKILL, and the synthetic queue depth of
+#: the autoscale surge (well past 0.8 x two replicas' capacity of 4).
+FLEET_CHILD_TIMEOUT_S = 120
+FLEET_LEASE_TTL_S = 1.0
+FLEET_FOLLOW_S = 0.5
+FLEET_SURGE_DEPTH = 40.0
 
 
 def log(msg: str) -> None:
@@ -1879,16 +1919,21 @@ def adversarial_plans() -> int:
 
 
 def trace_leg(root: str, kernels, add, src_dir: str) -> dict:
-    """Phase 6g (b): a family in the trace-JSON layout (molly_to_trace),
-    sample:8, cold into a fresh store and then a warm store hit, both equal
-    to the cpu report; then its first 1,500 runs grown to 1,700 inside the
-    one document: the grown report must be a store append mapping exactly
-    the new runs and equal its from-scratch report and the cpu report."""
+    """Phase 6g (b): a family's first CORPORA_PREFIX_RUNS runs in the
+    trace-JSON layout (molly_to_trace), sample:8, cold into a fresh store
+    and then a warm store hit, both equal to the cpu report; then its first
+    CORPORA_PREFIX_RUNS - INGEST_GROWN_RUNS runs grown to the whole inside
+    the one document: the grown report must be a store append mapping
+    exactly the new runs and equal its from-scratch report and the cpu
+    report."""
     from nemo_tpu_torch.ingest.adapters import TraceJsonInjector, molly_to_trace
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
 
     fam = os.path.basename(src_dir)
+    prefix = os.path.join(root, "prefix", fam)
+    grow_corpus_dir(src_dir, prefix, CORPORA_PREFIX_RUNS)
     t = time.perf_counter()
-    trace = molly_to_trace(src_dir, os.path.join(root, "trace", fam))
+    trace = molly_to_trace(prefix, os.path.join(root, "trace", fam))
     out = {"convert_s": round(time.perf_counter() - t, 4)}
     cc = os.path.join(root, "trace-cc")
     want = _cpu_tree(trace, os.path.join(root, "cpu"), REPORT_FIGURES, fam)
@@ -1905,8 +1950,8 @@ def trace_leg(root: str, kernels, add, src_dir: str) -> dict:
         shutil.rmtree(res.report_dir)
     live = os.path.join(root, "trace-live", fam)
     gcc, grc = os.path.join(root, "trace-grown-cc"), os.path.join(root, "trace-grown-rc")
-    n_old = FAMILY_RUNS - INGEST_GROWN_RUNS
-    for n in (n_old, FAMILY_RUNS):
+    n_old = CORPORA_PREFIX_RUNS - INGEST_GROWN_RUNS
+    for n in (n_old, CORPORA_PREFIX_RUNS):
         TraceJsonInjector.materialize_prefix(trace, live, n)
         label = f"trace grown {fam} {n} runs"
         res, _b, tree, grown_counts = report_counted(label, live, kernels, os.path.join(root, "cuda", f"g{n}"),
@@ -1933,19 +1978,21 @@ def trace_leg(root: str, kernels, add, src_dir: str) -> dict:
 
 
 def quarantine_leg(root: str, kernels, add, src_dir: str) -> dict:
-    """Phase 6g (c): a family with the post provenance files of
-    QUARANTINE_POSITIONS truncated, reported with a fresh store and result
+    """Phase 6g (c): a family's first CORPORA_PREFIX_RUNS runs with the post
+    provenance files of QUARANTINE_POSITIONS truncated, reported with a
+    fresh store and result
     cache: cold (stored with its quarantine records), warm (a whole-report
     hit, no launch, quarantine.json there), then with one file repaired (a
     store append of that run alone: exactly 1 run mapped, another report
     key); the same sequence on the cpu with its own caches gives the same
     trees."""
     from nemo_tpu_torch.analysis import delta
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
     from nemo_tpu_torch.store import CorpusStore
 
     fam = os.path.basename(src_dir)
     d = os.path.join(root, "quarantine", fam)
-    shutil.copytree(src_dir, d)
+    grow_corpus_dir(src_dir, d, CORPORA_PREFIX_RUNS)
     for pos in QUARANTINE_POSITIONS:
         path = os.path.join(d, f"run_{pos}_post_provenance.json")
         with open(path, "rb") as fh:
@@ -1973,7 +2020,7 @@ def quarantine_leg(root: str, kernels, add, src_dir: str) -> dict:
             stored = [q["position"] for q in json.load(fh).get("quarantined", [])]
         if stored != list(left):
             raise AssertionError(f"{label}: the store header lists quarantined positions {stored}")
-        n_healthy = FAMILY_RUNS - len(QUARANTINE_POSITIONS)
+        n_healthy = CORPORA_PREFIX_RUNS - len(QUARANTINE_POSITIONS)
         want = {"cold": ("python_quarantine_fallback", {"state": "computed", "segments_cached": 0,
                                                         "segments_mapped": 1, "runs_cached": 0,
                                                         "runs_mapped": n_healthy}),
@@ -2073,7 +2120,7 @@ def corpora_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     from nemo_tpu_torch.graphs.corpus import load_corpus, pack_corpus
     from nemo_tpu_torch.ingest.adapters import MollyInjector
     from nemo_tpu_torch.ingest.molly import load_molly_output
-    from nemo_tpu_torch.models.synth import SynthSpec, write_corpus
+    from nemo_tpu_torch.models.synth import SynthSpec, grow_corpus_dir, write_corpus
 
     root = os.path.join(work, "corpora")
     launches = {k.__name__: 0 for k in kernels}
@@ -2094,10 +2141,11 @@ def corpora_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
     out["quarantine_s"] = round(time.perf_counter() - t, 3)
 
     # (d) The watch loop: bench.py's watch tier on the default routes, each
-    # generation against the cpu report of the same prefix; then a family on
-    # the device lanes, so that the watcher's thread launches the kernels
-    # (on the default routes its 425-run segments take the host lane), its
-    # last published tree against a one-shot report on cuda and on the cpu.
+    # generation against the cpu report of the same prefix; then a family's
+    # first CORPORA_PREFIX_RUNS runs on the device lanes, so that the
+    # watcher's thread launches the kernels (on the default routes its
+    # segments take the host lane), its last published tree against a
+    # one-shot report on cuda and on the cpu.
     t = time.perf_counter()
     wroot = os.path.join(root, "watch")
     n_runs, seed, gens = WATCH_TIER
@@ -2111,7 +2159,9 @@ def corpora_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
 
     out["watch_tier"], _live, _tree = watch_leg("watch-tier", wroot, kernels, add, src, gens, PARTIAL_FIGURES,
                                                 same_as_cpu)
-    out["watch_family"], live, tree = watch_leg("watch-family", wroot, kernels, add, dirs[WATCH_FAMILY],
+    family_src = os.path.join(wroot, "family-src", WATCH_FAMILY)
+    grow_corpus_dir(dirs[WATCH_FAMILY], family_src, CORPORA_PREFIX_RUNS)
+    out["watch_family"], live, tree = watch_leg("watch-family", wroot, kernels, add, family_src,
                                                 WATCH_FAMILY_GENERATIONS, PARTIAL_FIGURES, **DEVICE_LANES)
     if out["watch_family"]["launches"]["closure"] < WATCH_FAMILY_GENERATIONS:
         raise AssertionError(f"watch family: the watcher's cycles launched {out['watch_family']['launches']}")
@@ -3843,6 +3893,7 @@ def service_path(work: str, kernels, dirs: dict, trees: dict, corpus_cache: str)
         rec_root = os.path.join(root, "record")
         verbs = record_verbs(root, write_case_study(zk, SERVICE_RECORD_RUNS, SEED, rec_root),
                              write_corpus(SynthSpec(n_runs=3, seed=5, eot=60, name="deep"), rec_root), DEVICE_LANES)
+        SERVICE_VERBS.update(verbs)
         cuda_ex, cpu_ex = TorchExecutor("cuda"), TorchExecutor("cpu")
         out["verbs"] = {}
         for verb in sorted(TorchExecutor.VERBS):
@@ -4008,6 +4059,417 @@ def service_path(work: str, kernels, dirs: dict, trees: dict, corpus_cache: str)
     print(json.dumps({"service": out}))
     shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+#: Phase 6o's recorded Kernel RPC inputs (verb -> (arrays, params)), phase
+#: 6p's through the router.
+SERVICE_VERBS: dict[str, tuple] = {}
+
+
+class FleetChild:
+    """One spawned fleet replica (``fleet_replica``): its command queue, its
+    answer queue and its process."""
+
+    def __init__(self, ctx, name: str, device: str, env: dict, barrier) -> None:
+        self.name = name
+        self.cmds, self.out = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=fleet_replica, args=(name, device, env, self.cmds, self.out, barrier),
+                                daemon=True)
+        self.proc.start()
+        self.pid = self.proc.pid
+
+    def send(self, *cmd) -> None:
+        self.cmds.put(cmd)
+
+    def get(self, timeout: float = FLEET_CHILD_TIMEOUT_S):
+        kind, body = self.out.get(timeout=timeout)
+        if kind == "error":
+            raise AssertionError(f"fleet replica {self.name} failed:\n{body}")
+        return body
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.send("quit")
+            self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join()
+
+
+def fleet_replica(name: str, device: str, env: dict, cmds, out, barrier) -> None:
+    """A fleet replica in a process of its own (phase 6p; the CPU tests
+    spawn it on cpu): ``Loopback(device, name=name)`` under ``env`` (its
+    result cache, the shared tier, the lease TTL, the flight recorder's
+    directory), armed as the sidecar's main arms it.  Puts ("ready", pid),
+    then answers each command on ``out``: ("env", {var: value or None})
+    sets or unsets variables (the caches resolve per request); ("analyze",
+    dir, at_barrier) sends one AnalyzeDir, after ``barrier`` when asked,
+    with the kernels' launch counts zeroed just before and read just after,
+    and puts ("result", {payload, trailing, counters, launches}); ("quit",)
+    ends it.  A failure puts ("error", traceback)."""
+    import traceback
+
+    try:
+        for k, v in env.items():
+            os.environ[k] = v
+        from nemo_tpu_torch import obs
+        from nemo_tpu_torch.kernels import closure as closure_mod
+        from nemo_tpu_torch.kernels import edge_wave as edge_wave_mod
+        from nemo_tpu_torch.service.server import Loopback
+
+        kernels = (closure_mod.closure, edge_wave_mod.edge_wave)
+        obs.flight.configure_from_env()
+        lb = Loopback(device, name=name)  # raises on "cuda" without a card
+        if device == "cuda":
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+        out.put(("ready", os.getpid()))
+        while True:
+            cmd = cmds.get()
+            if cmd[0] == "quit":
+                return
+            if cmd[0] == "env":
+                for k, v in cmd[1].items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+                continue
+            _, d, at_barrier = cmd
+            body = json.dumps({"dir": os.path.abspath(d)}).encode("utf-8")
+            if at_barrier:
+                barrier.wait(timeout=FLEET_CHILD_TIMEOUT_S)
+            for k in kernels:
+                k.launches = 0
+            before = obs.metrics.snapshot()
+            t = time.perf_counter()
+            raw, ctx = lb.call("AnalyzeDir", body)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            out.put(("result", {"payload": raw, "trailing": dict(ctx.trailing_metadata()), "wall_s": wall,
+                                "counters": obs.Metrics.delta(obs.metrics.snapshot(), before)["counters"],
+                                "launches": {k.__name__: k.launches for k in kernels}}))
+    except BaseException:
+        out.put(("error", traceback.format_exc()))
+
+
+def _lease_owner(shared: str) -> str | None:
+    """The owner of the one AnalyzeDir lease under ``shared``, or None."""
+    ldir = os.path.join(shared, "lease", "analyze_dir")
+    for n in sorted(os.listdir(ldir)) if os.path.isdir(ldir) else ():
+        try:
+            with open(os.path.join(ldir, n), "r", encoding="utf-8") as fh:
+                return json.load(fh).get("owner")
+        except (OSError, ValueError):
+            continue
+    return None
+
+
+def _decoded(payload: bytes) -> dict:
+    from nemo_tpu_torch.service import codec, wire
+
+    return _host_out(codec.outputs_from_pb(wire.AnalyzeResponse.FromString(payload)))
+
+
+def fleet_herd(root: str, zk_dir: str, corpus_cache: str, device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 6p (a) and (b) (see the module docstring): two spawned
+    replicas on ``device``, each with a result cache of its own and one
+    shared tier.  (a) both send AnalyzeDir on ``zk_dir`` at one barrier:
+    one leader, one follower, byte-identical responses, K1 launched in the
+    leader only; a later request to the follower is a shared-tier hit that
+    launches nothing.  (b) the leader, now under
+    ``NEMO_CHAOS=wedge_dispatch:1`` on a fresh shared tier, takes the lease
+    and wedges in its dispatch; the follower asks while it holds it; the
+    leader is SIGKILLed; the follower steals the lease (``rcache.lease_steal``
+    1, one ``lease_steal`` flight bundle) and runs the analysis itself.
+    Returns (the record, the children's launches by kernel)."""
+    import signal
+    import socket
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    barrier = ctx.Barrier(2)
+    shared = os.path.join(root, "shared")
+    host = socket.gethostname()
+    base = {"NEMO_CORPUS_CACHE": corpus_cache, "NEMO_RCACHE_SHARED": shared, "NEMO_LEASE_TTL_S": str(FLEET_LEASE_TTL_S),
+            "NEMO_PROFILE": "off"}
+    children = [FleetChild(ctx, f"replica-{i}", device,
+                           dict(base, NEMO_RESULT_CACHE=os.path.join(root, f"rc-{i}"),
+                                NEMO_FLIGHT_DIR=os.path.join(root, f"flight-{i}")), barrier)
+                for i in range(2)]
+    launches = {"closure": 0, "edge_wave": 0}
+    out: dict = {}
+
+    def add(res: dict) -> None:
+        for k, n in res["launches"].items():
+            launches[k] += n
+
+    try:
+        t = time.perf_counter()
+        for c in children:
+            c.get()
+        out["spawn_s"] = round(time.perf_counter() - t, 3)
+        # (a) The herd.
+        for c in children:
+            c.send("analyze", zk_dir, True)
+        res = {c.name: c.get() for c in children}
+        for r in res.values():
+            add(r)
+        roles = {n: r["trailing"].get("nemo-fleet") for n, r in res.items()}
+        if sorted(roles.values()) != ["follower", "leader"]:
+            raise AssertionError(f"6p (a): roles {roles}, trailing {[r['trailing'] for r in res.values()]}")
+        leader = next(c for c in children if roles[c.name] == "leader")
+        follower = next(c for c in children if roles[c.name] == "follower")
+        lr, fr = res[leader.name], res[follower.name]
+        if lr["payload"] != fr["payload"]:
+            raise AssertionError("6p (a): the leader's and the follower's responses differ")
+        steps = {n: r["counters"].get("serve.analyze_chunks", 0) for n, r in res.items()}
+        if steps != {leader.name: 1, follower.name: 0} or fr["launches"] != {"closure": 0, "edge_wave": 0} or (
+                device == "cuda" and lr["launches"]["closure"] <= 0):
+            raise AssertionError(f"6p (a): fused steps {steps}, launches leader {lr['launches']} follower "
+                                 f"{fr['launches']}")
+        follower.send("analyze", zk_dir, False)
+        later = follower.get()
+        add(later)
+        c = later["counters"]
+        if (later["trailing"].get("nemo-rcache") != "hit" or c.get("rcache.blob_analyze_dir_shared_hit") != 1
+                or c.get("serve.analyze_chunks", 0) or later["launches"] != {"closure": 0, "edge_wave": 0}):
+            raise AssertionError(f"6p (a) later: trailing {later['trailing']}, counters {c}, launches "
+                                 f"{later['launches']}")
+        out["herd"] = {"roles": roles, "response_bytes": len(lr["payload"]), "leader_wall_s": round(lr["wall_s"], 4),
+                       "follower_wall_s": round(fr["wall_s"], 4), "leader_launches": lr["launches"],
+                       "follower_launches": fr["launches"], "later_wall_s": round(later["wall_s"], 4),
+                       "later": "shared-tier hit"}
+        log(f"6p (a): one analysis fleet-wide ({roles}), byte-identical {len(lr['payload'])}-byte responses; leader "
+            f"K1 {lr['launches']['closure']}, follower 0; the follower's later request a shared-tier hit with 0 "
+            f"launches")
+
+        # (b) The dead leader.
+        shared2 = os.path.join(root, "shared-2")
+        leader.send("env", {"NEMO_CHAOS": "wedge_dispatch:1", "NEMO_RESULT_CACHE": os.path.join(root, "rc-dead"),
+                            "NEMO_RCACHE_SHARED": shared2})
+        follower.send("env", {"NEMO_RESULT_CACHE": os.path.join(root, "rc-steal"), "NEMO_RCACHE_SHARED": shared2})
+        leader.send("analyze", zk_dir, False)
+        want_owner = f"{host}-{leader.pid}"
+        deadline = time.monotonic() + FLEET_CHILD_TIMEOUT_S
+        while _lease_owner(shared2) != want_owner:
+            if time.monotonic() > deadline or not leader.proc.is_alive():
+                raise AssertionError(f"6p (b): the lease never named the leader ({_lease_owner(shared2)})")
+            time.sleep(0.02)
+        t = time.perf_counter()
+        follower.send("analyze", zk_dir, False)
+        time.sleep(FLEET_FOLLOW_S)
+        os.kill(leader.pid, signal.SIGKILL)
+        leader.proc.join(timeout=30)
+        stolen = follower.get()
+        steal_s = time.perf_counter() - t
+        add(stolen)
+        c = stolen["counters"]
+        bundles = [n for n in os.listdir(os.path.join(root, f"flight-{children.index(follower)}"))
+                   if n.startswith("flightrec-lease_steal-")]
+        if (stolen["trailing"].get("nemo-fleet") != "leader" or c.get("rcache.lease_steal") != 1
+                or c.get("flight.dumps.lease_steal") != 1 or len(bundles) != 1 or leader.proc.exitcode != -9
+                or (device == "cuda" and stolen["launches"]["closure"] <= 0)):
+            raise AssertionError(f"6p (b): trailing {stolen['trailing']}, counters {c}, bundles {bundles}, leader "
+                                 f"exit {leader.proc.exitcode}, launches {stolen['launches']}")
+        want = _decoded(lr["payload"])
+        _same_outputs("6p (b) the stolen analysis against (a)'s", _decoded(stolen["payload"]), want)
+        out["dead_leader"] = {"leader_exit": leader.proc.exitcode, "followed": c.get("serve.fleet.follower", 0),
+                              "lease_steal": c["rcache.lease_steal"], "bundles": bundles,
+                              "steal_s": round(steal_s, 4), "launches": stolen["launches"]}
+        log(f"6p (b): the wedged leader SIGKILLed holding the lease; the follower stole it in {steal_s:.3f} s of "
+            f"asking (TTL {FLEET_LEASE_TTL_S} s), one lease_steal bundle, K1 {stolen['launches']['closure']}, "
+            f"outputs equal to (a)'s")
+    finally:
+        for c in children:
+            c.stop()
+    out["reference"] = want
+    return out, launches
+
+
+def fleet_router(kernels, dirs: dict) -> tuple[dict, dict]:
+    """Phase 6p (c): the router in this process over two named loopback
+    replicas on cuda, each with an admission controller of its own (the
+    process-wide one would drain both).  Returns (the record, the launches
+    by kernel)."""
+    import urllib.request
+
+    from nemo_tpu_torch import obs
+    from nemo_tpu_torch.backend.torch_backend import TorchExecutor
+    from nemo_tpu_torch.obs import federation, promexp
+    from nemo_tpu_torch.serve.admission import AdmissionController
+    from nemo_tpu_torch.serve.autoscale import Autoscaler
+    from nemo_tpu_torch.serve.router import Router, RouterLoopback, route_key
+    from nemo_tpu_torch.service import codec, wire
+    from nemo_tpu_torch.service.client import RemoteAnalyzer
+    from nemo_tpu_torch.service.server import Loopback
+
+    launches = {k.__name__: 0 for k in kernels}
+    out: dict = {}
+
+    def call(label: str, fn):
+        res, counts, wall = counted_call(label, kernels, fn)
+        for k, n in counts.items():
+            launches[k] += n
+        return res, counts, wall
+
+    replicas = [Loopback("cuda", name=f"replica-{i}") for i in range(2)]
+    steps = {r.name: 0 for r in replicas}
+    for r in replicas:
+        r.impl.admission = AdmissionController()
+
+        def counting(*a, _run=r.impl._run_step, _name=r.name, **kw):
+            steps[_name] += 1
+            return _run(*a, **kw)
+
+        r.impl._run_step = counting
+    router = Router(replicas)
+    rl = RouterLoopback(router)
+    client = RemoteAnalyzer(rl)
+    by_name = {r.name: r for r in replicas}
+
+    # Two corpora, one on each replica's ring home.
+    homes: dict[str, str] = {}
+    for name in sorted(dirs):
+        homes.setdefault(router.ring.route(route_key(dirs[name])), name)
+    if len(homes) != 2:
+        raise AssertionError(f"6p (c): every family routes to one replica ({homes})")
+    routed = {}
+    for home, family in sorted(homes.items()):
+        before = dict(steps)
+        got, counts, wall = call(f"fleet router AnalyzeDir {family}", lambda: client.analyze_dir_remote(dirs[family]))
+        ran = {n: steps[n] - before[n] for n in steps}
+        if ran != {n: int(n == home) for n in steps} or counts["closure"] <= 0:
+            raise AssertionError(f"6p (c) {family}: fused steps by replica {ran}, home {home}, launches {counts}")
+        routed[family] = _host_out(got)
+        out.setdefault("affinity", {})[family] = {"home": home, "wall_s": round(wall, 4), "launches": counts}
+    log(f"6p (c): each family on its ring home, the other replica idle: {json.dumps(out['affinity'])}")
+
+    # The Kernel RPC through the router.
+    ex = TorchExecutor("cuda")
+    out["kernel"] = {}
+    for verb in ("fused", "sparse_fused"):
+        arrays, params = SERVICE_VERBS[verb]
+        req = codec.kernel_request_to_pb(verb, arrays, params).SerializeToString()
+        (raw, _ctx), counts, wall = call(f"fleet router Kernel {verb}", lambda req=req: rl.call("Kernel", req))
+        _same_outputs(f"6p (c) Kernel {verb} through the router", codec.kernel_response_from_pb(
+            wire.KernelResponse.FromString(raw)), _host_out(ex.run(verb, arrays, params)))
+        out["kernel"][verb] = {"wall_s": round(wall, 4), "launches": counts}
+    if out["kernel"]["fused"]["launches"]["closure"] <= 0 or out["kernel"]["sparse_fused"]["launches"]["edge_wave"] <= 0:
+        raise AssertionError(f"6p (c): the routed Kernel RPCs launched {out['kernel']}")
+
+    # One replica draining: the other serves.
+    home, family = sorted(homes.items())[0]
+    other = next(n for n in steps if n != home)
+    by_name[home].impl.admission.begin_drain()
+    before, c0 = dict(steps), obs.metrics.snapshot()
+    got, counts, wall = call(f"fleet router drained {home}", lambda: client.analyze_dir_remote(dirs[family]))
+    moved = obs.Metrics.delta(obs.metrics.snapshot(), c0)["counters"]
+    if steps[other] - before[other] != 1 or moved.get("router.failover", 0) < 1 or router.backend_states()[home]["up"]:
+        raise AssertionError(f"6p (c) drain: steps {steps}, counters {moved}, states {router.backend_states()}")
+    _same_outputs("6p (c) drained home's corpus on the other replica", _host_out(got), routed[family])
+    by_name[home].impl.admission = AdmissionController()
+    router.poll_health()
+    if not all(s["up"] for s in router.backend_states().values()):
+        raise AssertionError(f"6p (c): the drained replica did not come back: {router.backend_states()}")
+    out["drain"] = {"drained": home, "served_by": other, "wall_s": round(wall, 4), "launches": counts,
+                    "failover": moved.get("router.failover", 0)}
+    log(f"6p (c): {home} draining, {family} served by {other} with equal outputs in {wall:.3f} s")
+
+    # The federated page and /autoscale, under a synthetic depth surge.
+    # Two polls to flip either way, no cooldown: the surge and its end fit
+    # in four polls.
+    router.autoscaler = Autoscaler(hold_up=2, hold_down=2, cooldown_s=0.0)
+    httpd, port = promexp.start_http_server(0, render=lambda: federation.federate(*router.fleet_snapshots()),
+                                            routes={"/autoscale": router.autoscaler.doc})
+    try:
+        def get(path: str) -> bytes:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+                return resp.read()
+
+        router.poll_health()
+        fams = promexp.parse_prometheus_text(get("/metrics").decode("utf-8"))
+        labels = {lab.get("replica") for fam in fams.values() for _, lab, _ in fam["samples"]}
+        rollups = sorted(f for f in fams if f.startswith("nemo_fleet_serve_"))
+        if not {"replica-0", "replica-1"} <= labels or not rollups or (
+                fams["nemo_fleet_backends_up"]["samples"][0][2] != 2.0):
+            raise AssertionError(f"6p (c): federated page labels {labels}, rollups {rollups}")
+        recs = []
+        for depth, polls in ((FLEET_SURGE_DEPTH, 2), (0.0, 2)):
+            obs.metrics.gauge("serve.queue_depth", depth)
+            for _ in range(polls):
+                router.poll_health()
+            recs.append(json.loads(get("/autoscale")))
+        obs.metrics.gauge("serve.queue_depth", 0.0)
+        if [r["recommendation"] for r in recs] != [1, -1]:
+            raise AssertionError(f"6p (c): /autoscale under the surge and after: {recs}")
+    finally:
+        httpd.shutdown()
+    out["federation"] = {"families": len(fams), "fleet_rollups": len(rollups), "replica_labels": sorted(
+        x for x in labels if x)}
+    out["autoscale"] = [{k: r[k] for k in ("recommendation", "desired_replicas", "utilization", "reason")}
+                        for r in recs]
+    log(f"6p (c): the federated page parses ({len(fams)} families, both replica labels, {len(rollups)} "
+        f"nemo_fleet_serve_* rollups); /autoscale {out['autoscale']}")
+
+    # A routed call under a client's trace id: one stitched span set.
+    tid = "fleet-smoke-trace"
+    arrays, params = SERVICE_VERBS["fused"]
+    req = codec.kernel_request_to_pb("fused", arrays, params).SerializeToString()
+    (_raw, ctx), counts, _wall = call("fleet router traced Kernel",
+                                      lambda: rl.call("Kernel", req, (("nemo-trace-id", tid),)))
+    spans = json.loads(dict(ctx.trailing_metadata())["nemo-spans-bin"])
+    names = {s["name"] for s in spans}
+    tids = {s["args"]["trace_id"] for s in spans if "trace_id" in s.get("args", {})}
+    if not {"router:Kernel", "serve:Kernel"} <= names or tids != {tid}:
+        raise AssertionError(f"6p (c) trace: spans {sorted(names)}, trace ids {tids}")
+    out["trace"] = {"spans": len(spans), "trace_ids": sorted(tids), "launches": counts}
+    log(f"6p (c): a routed Kernel call's {len(spans)} spans come back stitched under one trace id")
+
+    # A host:port target needs grpc, which is not looked for elsewhere.
+    try:
+        import grpc
+
+        out["grpc"] = f"present ({grpc.__version__})"
+    except ImportError:
+        try:
+            RemoteAnalyzer("127.0.0.1:1")
+        except ImportError:
+            out["grpc"] = "absent: a host:port target raises ImportError"
+        else:
+            raise AssertionError("6p (c): a host:port target without grpc did not raise")
+    router.stop()
+    return out, launches
+
+
+def fleet_path(work: str, kernels, dirs: dict, corpus_cache: str) -> tuple[dict, dict]:
+    """Phase 6p: the fleet on the card (see the module docstring).  Prints
+    {"fleet": {...}}.  Returns (this process's launches by kernel, the
+    spawned replicas')."""
+    root = os.path.join(work, "fleet")
+    os.makedirs(root, exist_ok=True)
+    zk = "ZK-1270-racing-sent-flag"
+    saved = _env_set({"NEMO_CORPUS_CACHE": corpus_cache, "NEMO_RESULT_CACHE": "off", "NEMO_RCACHE_SHARED": None})
+    try:
+        t = time.perf_counter()
+        herd, child_launches = fleet_herd(root, dirs[zk], corpus_cache)
+        herd["wall_s"] = round(time.perf_counter() - t, 3)
+        reference = herd.pop("reference")
+        # (a)'s outputs against the same request on the cpu.
+        from nemo_tpu_torch.service.server import Loopback
+
+        t = time.perf_counter()
+        body = json.dumps({"dir": os.path.abspath(dirs[zk])}).encode("utf-8")
+        _same_outputs("6p (a) against the cpu", reference, _decoded(Loopback("cpu").call("AnalyzeDir", body)[0]))
+        herd["cpu_reference_s"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+        routed, launches = fleet_router(kernels, dirs)
+        routed["wall_s"] = round(time.perf_counter() - t, 3)
+    finally:
+        _env_set(saved)
+    print(json.dumps({"fleet": {"herd": herd, "router": routed, "child_launches": child_launches}}))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, child_launches
 
 
 def _sound_fit(label: str, table: dict) -> None:
@@ -4248,6 +4710,9 @@ def main() -> int:
         t = time.perf_counter()
         served = service_path(work, kernels, dirs, trees, os.path.join(work, "ingest", "corpus-cache"))
         log(f"phase 6o wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        fleet, fleet_children = fleet_path(work, kernels, dirs, os.path.join(work, "ingest", "corpus-cache"))
+        log(f"phase 6p wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
@@ -4256,7 +4721,7 @@ def main() -> int:
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
         f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}, under "
         f"chaos {chaotic}, through the figure pipeline {figured}, on the mesh {meshed}, through the sidecar "
-        f"{served}")
+        f"{served}, through the fleet's router {fleet} and in its spawned replicas {fleet_children}")
     from nemo_tpu_torch import obs
 
     # (6k d, 6l f) No phase but 6k's and 6l's injected legs failed a job
@@ -4272,10 +4737,13 @@ def main() -> int:
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
             dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled,
-            chaotic, figured, meshed, served))
+            chaotic, figured, meshed, served, fleet))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")
+        # The fleet's spawned replicas launched on the main path too, in
+        # processes of their own (outside this process's launch log).
+        record["launches"] += fleet_children[record["name"]]
     shapes = shape_timings(LAUNCH_LOG, closure_mod, edge_wave_mod)
 
     print(json.dumps({"shapes": shapes}))

@@ -1,7 +1,6 @@
 """Flight recorder: postmortem capture without a trace having been on.
 
-A copy of the JAX package's ``obs/flight.py`` (less the fleet's
-lease-steal trigger, which comes with the fleet).  A bounded ring of
+A copy of the JAX package's ``obs/flight.py``.  A bounded ring of
 recent activity that costs almost nothing while nothing is wrong, dumped
 as a self-contained bundle the moment an anomaly trigger fires.
 
@@ -19,7 +18,8 @@ Triggers (``trigger(reason, **ctx)``): a failed watch cycle
 (watch/watcher.py), the scheduler's breaker trip and its dispatch-deadline
 escalation (parallel/sched.py: ``breaker_trip``, ``dispatch_watchdog``),
 a burst of admission sheds (serve/admission.py via ``note_shed``:
-``shed_burst``).  Each reason has a cooldown
+``shed_burst``), a fleet replica stealing a dead leader's lease
+(store/rcache.py: ``lease_steal``).  Each reason has a cooldown
 (``NEMO_FLIGHT_COOLDOWN_S``, default 30 s), so a failure storm produces ONE
 bundle.  ``trigger`` does nothing while the recorder is unarmed, and the
 port arms it only through ``configure_from_env`` or ``arm``, as the JAX

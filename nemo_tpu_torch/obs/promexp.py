@@ -1,14 +1,14 @@
 """Prometheus text-format exposition of the obs metrics registry.
 
-A copy of the JAX package's ``obs/promexp.py`` (its HTTP endpoint without
-the fleet router's federated page and extra routes).  Renders ``obs.metrics.snapshot()`` in Prometheus
+A copy of the JAX package's ``obs/promexp.py``.  Renders ``obs.metrics.snapshot()`` in Prometheus
 exposition format 0.0.4: counters as ``_total`` series, gauges bare,
 histograms as cumulative ``_bucket{le=...}`` series plus ``_sum`` and
 ``_count``.  Dotted registry names map to metric names by sanitization
 (``kernel.dispatches.fused`` -> ``nemo_kernel_dispatches_fused``).  The
 CLI's ``--metrics-out FILE`` writes it once after a run;
 ``start_http_server`` serves it, and ``/healthz``, for the sidecar's
-``--metrics-port``.
+``--metrics-port``; the fleet router serves its federated page
+(obs/federation.py) and ``/autoscale`` through the same server.
 
 ``parse_prometheus_text`` is the matching parser the tests and the smoke
 round-trip the text through.
@@ -162,18 +162,21 @@ def parse_prometheus_text(text: str) -> dict:
     return families
 
 
-def start_http_server(port: int, health=None):
+def start_http_server(port: int, health=None, render=None, routes: dict | None = None):
     """The metrics endpoint on a daemon thread; returns (the
     ThreadingHTTPServer, its bound port).  ``/metrics``: the process-global
-    registry as Prometheus text.  ``/healthz``: the JSON of ``health()``
-    (the sidecar passes its Health state), else ``{"status": "SERVING"}``;
-    status 503 unless it says SERVING.  ``port=0`` binds an ephemeral
-    port; the caller owns ``shutdown()``."""
+    registry as Prometheus text, or ``render()``'s text when given (the
+    router's federated page).  ``/healthz``: the JSON of ``health()`` (the
+    sidecar passes its Health state), else ``{"status": "SERVING"}``;
+    status 503 unless it says SERVING.  Each ``routes`` path: the JSON of
+    its zero-argument callable (the router's ``/autoscale``).  ``port=0``
+    binds an ephemeral port; the caller owns ``shutdown()``."""
     import http.server
 
     from . import log as obs_log
 
     log = obs_log.get_logger("nemo.metrics")
+    extra = dict(routes or {})
 
     class Handler(http.server.BaseHTTPRequestHandler):
         def do_GET(self):  # noqa: N802 (stdlib handler contract)
@@ -181,12 +184,18 @@ def start_http_server(port: int, health=None):
             status = 200
             if path == "/metrics":
                 try:
-                    text = render_prometheus()
+                    text = render_prometheus() if render is None else render()
                 except Exception as ex:  # a scrape fails; the server goes on
                     log.warning("metrics.render_failed", error=repr(ex))
                     self.send_error(500)
                     return
                 body, ctype = text.encode("utf-8"), "text/plain; version=0.0.4; charset=utf-8"
+            elif path in extra:
+                try:
+                    doc = extra[path]()
+                except Exception as ex:  # reported as the route's answer
+                    doc = {"error": repr(ex)}
+                body, ctype = json.dumps(doc).encode("utf-8"), "application/json"
             elif path == "/healthz":
                 doc = {"status": "SERVING"}
                 if health is not None:

@@ -1,11 +1,13 @@
 """The sidecar's client: packs on this host, analyzes on the sidecar's card.
 
-A port of the JAX package's ``service/client.py`` without the fleet calls.
-A target is a ``host:port`` string, which means gRPC (``grpc`` is
-imported then, and its absence raises), or a
+A port of the JAX package's ``service/client.py``.  A target is a
+``host:port`` string, which means gRPC (``grpc`` is imported then, and its
+absence raises), or an in-process one: a
 :class:`~nemo_tpu_torch.service.server.Loopback`, which calls the server's
-method table in this process through the same request and response bytes.
-Nothing turns one into the other.
+method table through the same request and response bytes, or a router's
+(:class:`~nemo_tpu_torch.serve.router.RouterLoopback`).  Nothing turns one
+into the other.  A replica's name is its ``host:port`` or its loopback's
+``name``.
 
 Failure handling: a health-gated connect with a deadline, bounded retries
 with jittered exponential backoff on UNAVAILABLE and on the server's
@@ -217,7 +219,7 @@ def _channel(target):
 
 
 def _target_name(target) -> str:
-    return target if isinstance(target, str) else "loopback"
+    return target if isinstance(target, str) else target.name
 
 
 def _json_bytes(d) -> bytes:
@@ -402,6 +404,11 @@ class RemoteAnalyzer:
         coalesce = trailing.get("nemo-coalesce")
         if coalesce:
             obs.metrics.inc(f"rpc.analyze_dir_coalesce.{coalesce}")
+        fleet = trailing.get("nemo-fleet")
+        if fleet:
+            # The cross-replica single flight: "leader" ran the fleet's one
+            # analysis, "follower" relayed another replica's.
+            obs.metrics.inc(f"rpc.analyze_dir_fleet.{fleet}")
         return codec.outputs_from_pb(resp)
 
     def query_remote(self, molly_dir: str, query: str, corpus_cache: str | None = None,

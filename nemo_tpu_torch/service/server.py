@@ -1,10 +1,12 @@
 """The sidecar: the process that owns the card, serving the analysis RPCs.
 
-A port of the JAX package's ``service/server.py`` without the fleet (the
-router, the shared result-cache tier and its leases).  A client packs
+A port of the JAX package's ``service/server.py``.  A client packs
 provenance on its own host and sends arrays, or names a corpus directory
 the sidecar reads; the sidecar runs the fused step and the executor's
-verbs on its device and sends the results back.
+verbs on its device and sends the results back.  One sidecar is a
+replica; several sharing one result-cache tier (``--shared-cache``) are a
+fleet, behind the consistent-hash router (``--router``,
+nemo_tpu_torch/serve/router.py).
 
 The RPCs, on ``/nemo.NemoAnalysis/<name>`` (proto/nemo_service.proto):
 ``Health``; ``Analyze`` and the bidirectional ``AnalyzeStream`` (one fused
@@ -26,6 +28,12 @@ launch.  A traced client's spans come back in ``nemo-spans-bin`` trailing
 metadata.  SIGTERM drains: new admissions are refused, in-flight work
 finishes within ``--drain-s``, then the process exits.
 
+In a fleet, a cold AnalyzeDir takes a leader lease on its content address
+in the shared tier (``_fleet_single_flight``): of a herd that hits every
+replica, one replica runs the analysis and the others relay its published
+bytes (``nemo-fleet`` trailing metadata: leader, follower, lease_error,
+timeout); a replica that steals a dead leader's lease runs it instead.
+
 The method table ``METHODS`` (name -> kind, request decoder, handler,
 response encoder) is the one place the RPCs are defined.  ``make_server``
 wraps it in grpc's generic handlers; :class:`Loopback` calls the same
@@ -42,6 +50,8 @@ CPU).  Queries run one at a time (``query.engine.QUERY_LOCK``), as the
 report server's ``POST /query`` does.
 
 Run:  python -m nemo_tpu_torch.service.server --port 50051 --metrics-port 9464
+      [--shared-cache DIR]
+      python -m nemo_tpu_torch.service.server --router --backends host:p1,host:p2
 """
 
 from __future__ import annotations
@@ -64,6 +74,13 @@ SERVICE = "nemo.NemoAnalysis"
 VERSION = "1"
 
 log = obs_log.get_logger("nemo.sidecar")
+
+
+def _replica_id() -> str:
+    """This replica's fleet identity (lease owner, log attribution)."""
+    import socket
+
+    return f"{socket.gethostname()}-{os.getpid()}"
 
 
 class StatusCode(enum.Enum):
@@ -123,6 +140,7 @@ def _health_state(impl: "_Impl") -> dict:
         "version": VERSION,
         "inflight": ctl.inflight,
         "queue_depth": ctl.queued,
+        "replica": _replica_id(),
     }
 
 
@@ -294,7 +312,11 @@ class _Impl:
         import torch
 
         from nemo_tpu_torch.models.pipeline_model import analysis_step, unpack_summary
+        from nemo_tpu_torch.utils import chaos
 
+        # The sidecar's dispatch of the fused step: the chaos harness's
+        # dispatch point, as TorchExecutor.run's top is.
+        chaos.on_device_dispatch("fused")
         b = int(pre.is_goal.shape[0])
         pack_out = self.device.type == "cuda"
         t0 = time.perf_counter()
@@ -352,11 +374,12 @@ class _Impl:
         """Server-side corpus analysis: ``{"dir": ..., optional
         "corpus_cache", optional "result_cache"}`` names a directory on the
         sidecar's host; the answer is a serialized AnalyzeResponse, passed
-        to the wire as it is (a cached or coalesced payload verbatim).  The
-        caches are the operator's (``--corpus-cache``, ``--result-cache``);
-        a request can only opt out (``"off"``).  Trailing metadata:
-        ``nemo-rcache`` (hit, miss, off) and ``nemo-coalesce`` (leader,
-        hit, off)."""
+        to the wire as it is (a cached, coalesced or fleet follower's payload
+        verbatim).  The caches are the operator's (``--corpus-cache``,
+        ``--result-cache``, ``--shared-cache``); a request can only opt out
+        (``"off"``).  Trailing metadata: ``nemo-rcache`` (hit, miss, off),
+        ``nemo-coalesce`` (leader, hit, off) and, in a fleet, ``nemo-fleet``
+        (leader, follower, lease_error, timeout)."""
         t0 = time.perf_counter()
         if not isinstance(request, dict):
             context.abort(StatusCode.INVALID_ARGUMENT, "AnalyzeDir request must be a JSON object")
@@ -366,8 +389,10 @@ class _Impl:
         ticket, col = self._admit_traced(context, "AnalyzeDir")
         try:
             payload, meta = self._dir_payload(request, d, col.tid, ticket, context)
-            context.set_trailing_metadata(
-                col.trailing() + (("nemo-rcache", meta["rcache"]), ("nemo-coalesce", meta["coalesce"])))
+            md = col.trailing() + (("nemo-rcache", meta["rcache"]), ("nemo-coalesce", meta["coalesce"]))
+            if "fleet" in meta:
+                md += (("nemo-fleet", meta["fleet"]),)
+            context.set_trailing_metadata(md)
             return payload
         finally:
             _rpc_observed("AnalyzeDir", t0, col.tid)
@@ -416,7 +441,8 @@ class _Impl:
         concurrent requests: the first arrival leads, the others wait for
         its bytes (freeing their admission slot first) and get them
         verbatim.  ``key`` None (no store, so no address): run alone,
-        ``coalesce`` off."""
+        ``coalesce`` off.  A subscriber does not inherit the leader's
+        ``fleet`` role: one fleet analysis reports one fleet leader."""
         if key is None:
             payload, meta = execute()
             obs.metrics.inc("serve.coalesce.off")
@@ -437,16 +463,20 @@ class _Impl:
         if on_hit is not None:
             on_hit()
         payload, meta = flight.wait_result(is_alive=context.is_active if context is not None else None)
-        return payload, dict(meta, coalesce="hit")
+        meta = dict(meta, coalesce="hit")
+        meta.pop("fleet", None)
+        return payload, meta
 
     def _dir_payload(self, request: dict, d: str, trace_id: str | None, ticket: serve.Ticket,
                      context=None) -> tuple[bytes, dict]:
         """One directory request -> (serialized AnalyzeResponse, meta with
         ``rcache`` and ``coalesce``), for AnalyzeDir and AnalyzeDirStream.
         The content address is the result cache's (segment fingerprints,
-        statics, wire version, analysis ABI): it keys the response cache
-        and the single flight.  A cached response's step wall reads 0 (it
-        dispatched nothing)."""
+        statics, wire version, analysis ABI): it keys the response cache,
+        the single flight and, with a shared tier, the fleet's leader
+        lease (``_fleet_single_flight``).  A cached response's step wall
+        reads 0 (it dispatched nothing); a fleet follower relays the
+        leader's bytes as they are."""
         from nemo_tpu_torch.analysis.delta import blob_cache_key
         from nemo_tpu_torch.store.rcache import resolve_result_cache, result_cache_dir
 
@@ -458,6 +488,11 @@ class _Impl:
             content_key = blob_cache_key(
                 "analyze_dir", seg_meta, {"static": {k: int(v) for k, v in static.items()}, "wire": VERSION})
 
+            def _run_and_publish() -> bytes:
+                payload = self._run_step(pre, post, static, 0, trace_id).SerializeToString()
+                rc.put_blob("analyze_dir", content_key, payload)
+                return payload
+
             def _execute() -> tuple[bytes, dict]:
                 if rc is None or content_key is None:
                     return self._run_step(pre, post, static, 0, trace_id).SerializeToString(), {"rcache": "off"}
@@ -467,15 +502,96 @@ class _Impl:
                     resp.step_seconds = 0.0
                     obs.metrics.inc("serve.analyze_dir_cached")
                     return resp.SerializeToString(), {"rcache": "hit"}
-                payload = self._run_step(pre, post, static, 0, trace_id).SerializeToString()
-                rc.put_blob("analyze_dir", content_key, payload)
-                return payload, {"rcache": "miss"}
+                if rc.lease_root is not None:
+                    payload, fleet = self._fleet_single_flight(rc, content_key, _run_and_publish, context)
+                    return payload, {"rcache": "miss", "fleet": fleet}
+                return _run_and_publish(), {"rcache": "miss"}
 
             def _hit() -> None:
                 obs.metrics.inc(f"serve.tenant.{ticket.tenant}.coalesced")
                 log.debug("serve.coalesced", dir=d, key=content_key[:12], trace_id=trace_id)
 
             return self._single_flight(content_key, _execute, ticket, context, _hit)
+
+    def _fleet_single_flight(self, rc, content_key: str, run, context) -> tuple[bytes, str]:
+        """One analysis of ``content_key`` fleet-wide, by a leader lease in
+        the shared tier (``<rc.lease_root>/lease/analyze_dir/``).
+
+        The replica whose ``O_EXCL`` create wins leads: ``run()`` (which
+        publishes the blob to the local and shared tiers) under a heartbeat
+        thread that refreshes the lease every TTL/3.  Every other replica
+        follows: it polls for the published blob (an existence probe, then
+        one verified read) and for the lease's death; a leader that dies
+        stops its heartbeat, and past ``NEMO_LEASE_TTL_S`` the first
+        follower steals the lease and leads.  A follower past the wait
+        bound (``serve.coalesce.Flight.WAIT_TIMEOUT_S``) runs itself
+        (``timeout``, counted ``serve.fleet.wait_timeout``: a duplicate of
+        a content address, never a conflict); one whose client went away
+        raises.  An unusable shared tier runs at once (``lease_error``).
+
+        Returns (payload, role).  A follower's payload is the leader's
+        serialized bytes, relayed as they are, so a herd's responses are
+        byte-identical."""
+        from nemo_tpu_torch.store.rcache import Lease
+
+        lease = Lease(rc.lease_root, "analyze_dir", content_key, owner=_replica_id())
+        deadline = time.monotonic() + serve.coalesce.Flight.WAIT_TIMEOUT_S
+        followed = False
+        flight_id = content_key[:16]
+        t0_us = time.perf_counter_ns() // 1000
+        # The leader's identity, read while it holds the lease (it releases
+        # right after its publish).
+        leader_owner: str | None = None
+        while True:
+            # The blob before the lease: a leader publishes, then releases,
+            # so a waiter waking between the two serves the bytes.
+            if rc.blob_present("analyze_dir", content_key):
+                cached = rc.load_blob("analyze_dir", content_key)
+                if cached is not None:
+                    if not followed:
+                        obs.metrics.inc("serve.fleet.follower")
+                    obs.add_span("serve:fleet_follower", t0_us, time.perf_counter_ns() // 1000 - t0_us,
+                                 {"flight": flight_id, "span_link": f"flight:{flight_id}",
+                                  "leader": leader_owner or lease.read_owner()})
+                    return cached, "follower"
+            acquired = lease.try_acquire()
+            if not acquired and lease.broken:
+                obs.metrics.inc("serve.fleet.lease_error")
+                log.warning("serve.fleet_lease_error", key=content_key[:12],
+                            detail="shared lease tier unusable; executing locally")
+                return run(), "lease_error"
+            if acquired:
+                obs.metrics.inc("serve.fleet.leader")
+                log.debug("serve.fleet_leader", key=content_key[:12], owner=lease.owner)
+                stop = threading.Event()
+
+                def _beat() -> None:
+                    while not stop.wait(lease.ttl_s / 3.0):
+                        lease.heartbeat()
+
+                threading.Thread(target=_beat, daemon=True, name="nemo-lease-heartbeat").start()
+                try:
+                    with obs.span("serve:fleet_leader", flight=flight_id, owner=lease.owner):
+                        return run(), "leader"
+                finally:
+                    stop.set()
+                    lease.release()
+            if not followed:
+                followed = True
+                obs.metrics.inc("serve.fleet.follower")
+                leader_owner = lease.read_owner()
+                log.debug("serve.fleet_follower", key=content_key[:12],
+                          detail="another replica leads this content address; waiting on the shared tier")
+            if context is not None and not context.is_active():
+                obs.metrics.inc("serve.fleet.client_gone")
+                raise TimeoutError(f"client went away waiting on fleet flight {content_key[:12]}")
+            if time.monotonic() > deadline:
+                obs.metrics.inc("serve.fleet.wait_timeout")
+                log.warning("serve.fleet_wait_timeout", key=content_key[:12],
+                            detail="leader neither published nor expired inside the wait bound; executing locally "
+                                   "(duplicate, not stale)")
+                return run(), "timeout"
+            time.sleep(min(0.25, max(0.02, lease.ttl_s / 10.0)))
 
     def analyze_dir_stream(self, request: dict, context):
         """Server-streaming AnalyzeDir: ``{"dirs": [...]}`` (or the unary
@@ -535,9 +651,12 @@ class _Impl:
                     events.put({"event": "phase", "dir": d, "phase": "analyze"})
                     payload, meta = self._dir_payload({**request, "dir": d}, d, col.tid, ticket, context)
                     obs.metrics.inc("serve.stream.results")
-                    events.put({"event": "result", "dir": d, "ordinal": i, "rcache": meta.get("rcache", "off"),
-                                "coalesce": meta.get("coalesce", "off"),
-                                "response_b64": base64.b64encode(payload).decode("ascii")})
+                    ev = {"event": "result", "dir": d, "ordinal": i, "rcache": meta.get("rcache", "off"),
+                          "coalesce": meta.get("coalesce", "off"),
+                          "response_b64": base64.b64encode(payload).decode("ascii")}
+                    if "fleet" in meta:
+                        ev["fleet"] = meta["fleet"]
+                    events.put(ev)
                 except serve.AdmissionRejected as ex:
                     events.put({"event": "error", "dir": d, "ordinal": i, "status": "RESOURCE_EXHAUSTED",
                                 "detail": ex.reason, "retry_after_s": round(ex.retry_after_s, 3)})
@@ -797,6 +916,10 @@ class LoopbackContext:
     def is_active(self) -> bool:
         return self.active
 
+    def time_remaining(self) -> float | None:
+        """An in-process call has no deadline."""
+        return None
+
     def abort(self, code: StatusCode, details: str):
         raise RpcError(code, details, self._trailing)
 
@@ -806,27 +929,33 @@ class Loopback:
     bytes out, through each method's decoder, handler and encoder, as the
     gRPC transport runs them.  ``call`` returns (response bytes, the
     context); ``stream`` returns a generator of response bytes and the
-    context, whose trailing metadata is complete once the generator is."""
+    context, whose trailing metadata is complete once the generator is.
 
-    def __init__(self, device="cuda", impl: _Impl | None = None) -> None:
+    ``name`` is the replica's name where a ``host:port`` would be one: the
+    router's ring hashes it, the federated page labels the replica's
+    series with it, the logs show it.  Two loopbacks behind one router
+    need two names."""
+
+    def __init__(self, device="cuda", impl: _Impl | None = None, name: str = "loopback") -> None:
         self.impl = impl if impl is not None else _Impl(device)
+        self.name = name
 
-    def _handler(self, name: str, kind: str):
-        k, decode, attr, encode = METHODS[name]
-        if k != kind:
-            raise ValueError(f"{name} is a {k} method, not {kind}")
-        return decode, getattr(self.impl, attr), encode
+    def _method(self, name: str) -> tuple:
+        """(kind, request decoder, handler, response encoder) of ``name``."""
+        kind, decode, attr, encode = METHODS[name]
+        return kind, decode, getattr(self.impl, attr), encode
 
     def call(self, name: str, request: bytes, metadata=None) -> tuple[bytes, LoopbackContext]:
-        decode, handler, encode = self._handler(name, "unary_unary")
+        kind, decode, handler, encode = self._method(name)
+        if kind != "unary_unary":
+            raise ValueError(f"{name} is a {kind} method, not unary_unary")
         ctx = LoopbackContext(metadata)
         return encode(handler(decode(request), ctx)), ctx
 
     def stream(self, name: str, request, metadata=None):
         """A unary_stream method (``request``: bytes) or a stream_stream one
         (``request``: an iterable of bytes)."""
-        kind, decode, attr, encode = METHODS[name]
-        handler = getattr(self.impl, attr)
+        kind, decode, handler, encode = self._method(name)
         ctx = LoopbackContext(metadata)
         if kind == "unary_stream":
             arg = decode(request)
@@ -861,6 +990,9 @@ class _GrpcContext:
 
     def is_active(self) -> bool:
         return self._ctx.is_active()
+
+    def time_remaining(self) -> float | None:
+        return self._ctx.time_remaining()
 
     def abort(self, code: StatusCode, details: str):
         self._ctx.abort(getattr(self._grpc.StatusCode, code.name), details)
@@ -912,6 +1044,12 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="python -m nemo_tpu_torch.service.server",
                                      description="The sidecar: serves the analysis RPCs on one device.")
     parser.add_argument("--port", type=int, default=50051)
+    parser.add_argument("--router", action="store_true",
+                        help="serve the fleet router instead of a replica: AnalyzeDir affinity on a consistent-hash "
+                             "ring over --backends, spill under load, failover on UNAVAILABLE "
+                             "(nemo_tpu_torch/serve/router.py); owns no device")
+    parser.add_argument("--backends", default=None, metavar="HOST:PORT,...",
+                        help="the router's replicas (default $NEMO_FLEET_REPLICAS)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="the device the sidecar owns (default cuda, which raises without a card)")
     parser.add_argument("--max-workers", type=int, default=None,
@@ -931,17 +1069,29 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--result-cache", default=None, metavar="DIR|off",
                         help="the result cache AnalyzeDir and Query answer from (default $NEMO_RESULT_CACHE or "
                              "~/.cache/nemo_tpu_torch/results)")
+    parser.add_argument("--shared-cache", default=None, metavar="DIR|off",
+                        help="the fleet's shared result-cache tier, a directory every replica reaches (default "
+                             "$NEMO_RCACHE_SHARED or off): publishes replicate there, reads fall back there, and the "
+                             "leader lease that makes a cold herd one analysis fleet-wide lives there")
     parser.add_argument("--prewarm", default=None, metavar="off|chunk|full",
                         help="at boot, on a background thread, build the kernels and dispatch each family's "
                              "fused step once: 'chunk' at 16 runs, 'full' at the 2048-run stress bucket "
                              "(default $NEMO_SERVE_PREWARM or off)")
     parser.add_argument("--metrics-port", type=int, default=None,
                         help="serve Prometheus metrics on http://127.0.0.1:PORT/metrics and /healthz (default "
-                             "$NEMO_METRICS_PORT or 0: off)")
+                             "$NEMO_METRICS_PORT or 0: off); a router serves the fleet's federated page and "
+                             "/autoscale")
+    parser.add_argument("--profiler-port", type=int, default=0,
+                        help="serve on-demand torch.profiler captures on http://127.0.0.1:PORT/capture?ms=N: the "
+                             "Chrome-trace JSON of this replica's work over the next N ms (0: off)")
     args = parser.parse_args(argv)
+    if args.router:
+        # The router owns no device and runs no analysis.
+        return _router_main(args)
     # The caches and the admission knobs travel as their env vars: the
     # handlers and the admission controller read them on first use.
     for flag, env in ((args.corpus_cache, "NEMO_CORPUS_CACHE"), (args.result_cache, "NEMO_RESULT_CACHE"),
+                      (args.shared_cache, "NEMO_RCACHE_SHARED"),
                       (args.prewarm, "NEMO_SERVE_PREWARM"), (args.max_inflight, "NEMO_SERVE_INFLIGHT"),
                       (args.max_queue, "NEMO_SERVE_QUEUE"), (args.drain_s, "NEMO_SERVE_DRAIN_S")):
         if flag is not None:
@@ -962,12 +1112,17 @@ def main(argv: list[str] | None = None) -> int:
 
         metrics_httpd, mport = promexp.start_http_server(metrics_port, health=lambda: _health_state(impl))
         log.info("metrics.listening", port=mport, paths=["/metrics", "/healthz"])
+    profiler_httpd = None
+    if args.profiler_port:
+        profiler_httpd, pport = start_profiler_server(args.profiler_port, impl.device)
+        log.info("profiler.listening", port=pport, path="/capture?ms=N")
     server, port = make_server(args.port, args.max_workers, impl=impl)
     server.start()
     _prewarm_async(impl, prewarm_mode)
     ctl = impl.admission
     obs.metrics.gauge("serve.capacity", float(ctl.max_inflight))
-    log.info("sidecar.listening", port=port, max_inflight=ctl.max_inflight, max_queue=ctl.max_queue)
+    log.info("sidecar.listening", port=port, replica=_replica_id(), max_inflight=ctl.max_inflight,
+             max_queue=ctl.max_queue, shared_cache=os.environ.get("NEMO_RCACHE_SHARED") or None)
     import signal
 
     term = threading.Event()
@@ -988,8 +1143,137 @@ def main(argv: list[str] | None = None) -> int:
         return 0 if drained else 1
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
+        for httpd in (metrics_httpd, profiler_httpd):
+            if httpd is not None:
+                httpd.shutdown()
+
+
+def _router_main(args) -> int:
+    """``--router``: serve the fleet router (serve/router.py) over the
+    ``--backends`` replicas, with the flight recorder armed and, on
+    ``--metrics-port``, the fleet's federated page (obs/federation.py),
+    ``/healthz`` and ``/autoscale``.  No device, no analysis.  SIGTERM
+    stops it after in-flight forwards finish (each bounded by its client's
+    deadline)."""
+    import signal
+
+    from nemo_tpu_torch.utils.env import env_int
+
+    backends = [b.strip() for b in (args.backends or os.environ.get("NEMO_FLEET_REPLICAS", "")).split(",")
+                if b.strip()]
+    if not backends:
+        log.error("router.no_backends", detail="--router needs --backends host:port,... or NEMO_FLEET_REPLICAS")
+        return 2
+    from nemo_tpu_torch.serve.router import make_router_server
+
+    # A failover storm or a spill loop seen from the routing tier deserves
+    # a postmortem as a replica's incident does.
+    if obs.flight.configure_from_env() is not None:
+        log.info("flight.armed", dir=obs.flight.recorder().out_dir)
+    server, port, router = make_router_server(args.port, backends)
+    server.start()
+    metrics_port = args.metrics_port if args.metrics_port is not None else env_int("NEMO_METRICS_PORT", 0)
+    metrics_httpd = None
+    if metrics_port:
+        from nemo_tpu_torch.obs import federation, promexp
+
+        def _router_health() -> dict:
+            states = router.backend_states()
+            up = sum(1 for s in states.values() if s["up"])
+            return {"status": "SERVING" if up else "NOT_SERVING", "role": "router", "replicas": len(states),
+                    "replicas_up": up, "backends": states}
+
+        def _fleet_metrics() -> str:
+            return federation.federate(*router.fleet_snapshots())
+
+        metrics_httpd, mport = promexp.start_http_server(metrics_port, health=_router_health, render=_fleet_metrics,
+                                                         routes={"/autoscale": router.autoscaler.doc})
+        log.info("metrics.listening", port=mport, paths=["/metrics", "/healthz", "/autoscale"])
+    log.info("router.listening", port=port, backends=backends)
+    term = threading.Event()
+    prev_handler = signal.signal(signal.SIGTERM, lambda signum, frame: term.set())
+    try:
+        while not term.wait(0.5):
+            pass
+        drain_s = serve.admission.drain_seconds()
+        server.stop(grace=drain_s).wait(timeout=drain_s + 5.0)
+        router.stop()
+        log.info("router.drained")
+        return 0
+    finally:
+        signal.signal(signal.SIGTERM, prev_handler)
         if metrics_httpd is not None:
             metrics_httpd.shutdown()
+
+
+def _capture_trace(ms: float, device) -> bytes:
+    """The Chrome-trace JSON of a ``torch.profiler`` capture of this process
+    over the next ``ms`` milliseconds: the host operators of every thread
+    (the handlers run on the server's pool), and the card's kernels and
+    copies on a cuda device."""
+    import tempfile
+
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    config = _ExperimentalConfig(profile_all_threads=True)
+    with tempfile.TemporaryDirectory(prefix="nemo-capture-") as d:
+        with profile(activities=activities, experimental_config=config) as prof:
+            time.sleep(ms / 1000.0)
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, "rb") as fh:
+            return fh.read()
+
+
+def start_profiler_server(port: int, device):
+    """``--profiler-port``: on-demand profiler captures over HTTP, the
+    port's stand-in for ``jax.profiler.start_server`` (which serves
+    TensorBoard's capture protocol; PyTorch has none).  ``GET
+    /capture?ms=N`` (0 < N <= 600000, default 1000) answers with the
+    Chrome-trace JSON of this replica's work over the next N ms; one
+    capture at a time (409 while one runs).  Returns (the
+    ThreadingHTTPServer on a daemon thread, its bound port); the caller
+    owns ``shutdown()``."""
+    import http.server
+    import urllib.parse
+
+    busy = threading.Lock()
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (stdlib handler contract)
+            url = urllib.parse.urlsplit(self.path)
+            if url.path != "/capture":
+                self.send_error(404)
+                return
+            try:
+                ms = float(dict(urllib.parse.parse_qsl(url.query)).get("ms", "1000"))
+            except ValueError:
+                ms = -1.0
+            if not 0 < ms <= 600_000:
+                self.send_error(400, "ms must be a number in (0, 600000]")
+                return
+            if not busy.acquire(blocking=False):
+                self.send_error(409, "a capture is running")
+                return
+            try:
+                body = _capture_trace(ms, device)
+            finally:
+                busy.release()
+            log.info("profiler.captured", ms=ms, bytes=len(body))
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):  # stdlib's stderr lines -> obs log
+            log.debug("profiler.http", detail=fmt % args)
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", port), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True, name="nemo-profiler-http").start()
+    return httpd, httpd.server_address[1]
 
 
 def _prewarm_async(impl: _Impl, mode: str) -> None:

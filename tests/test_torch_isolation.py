@@ -13,7 +13,11 @@
   its own copy, built into the port's build directory;
 * only the sidecar's transport imports grpc: no port module imports grpc
   or protobuf at its top, and the sidecar's ``--device cuda`` raises
-  without a card.
+  without a card;
+* the fleet (serve/router.py, serve/autoscale.py, obs/federation.py, the
+  shared tier and the lease) imports and routes in process with grpc
+  unimportable; a ``host:port`` target then raises, and importing
+  ``nemo_tpu_torch.serve`` loads no router.
 """
 
 import os
@@ -195,3 +199,57 @@ def test_sidecar_cuda_request_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Loopback("cuda")
+
+
+_FLEET_WITHOUT_GRPC = """
+import sys
+sys.modules["grpc"] = None  # import grpc raises ImportError
+import nemo_tpu_torch.serve as serve
+assert "nemo_tpu_torch.serve.router" not in sys.modules
+from nemo_tpu_torch.obs import federation
+from nemo_tpu_torch.serve import autoscale
+from nemo_tpu_torch.serve.router import Router, RouterLoopback
+from nemo_tpu_torch.service import wire
+from nemo_tpu_torch.service.client import RemoteAnalyzer
+from nemo_tpu_torch.service.server import Loopback
+from nemo_tpu_torch.store.rcache import Lease, ResultCache
+assert serve.Router is Router
+replicas = [Loopback("cpu", name="a"), Loopback("cpu", name="b")]
+router = Router(replicas)
+resp = RemoteAnalyzer(RouterLoopback(router)).health()
+assert resp["platform"] == "cpu" and set(resp["metrics"]["replicas"]) == {"a", "b"}, resp
+router.poll_health()
+assert "nemo_fleet_backends_up 2" in federation.federate(*router.fleet_snapshots())
+for make in (lambda: RemoteAnalyzer("127.0.0.1:1"), lambda: Router(["127.0.0.1:1", replicas[0]])):
+    try:
+        make()
+    except ImportError:
+        print("raised")
+"""
+
+
+def test_fleet_runs_in_process_without_grpc():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _FLEET_WITHOUT_GRPC], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-2:] == ["raised", "raised"]
+
+
+def test_fleet_replica_child_raises_without_a_card(monkeypatch):
+    """A spawned fleet replica asked for cuda where there is none reports the
+    failure instead of running on the CPU (chip_smoke.py:fleet_replica, run
+    here in this process)."""
+    import queue
+
+    from chip_smoke import fleet_replica
+
+    from nemo_tpu_torch.obs import flight
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("NEMO_FLIGHT", "off")  # the replica arms from the env; this process stays unarmed
+    out = queue.Queue()
+    fleet_replica("replica-0", "cuda", {}, queue.Queue(), out, None)
+    assert flight.recorder() is None
+    kind, body = out.get_nowait()
+    assert kind == "error" and "cuda" in body

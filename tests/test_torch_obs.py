@@ -301,7 +301,10 @@ def test_trace_of_a_cpu_report(small_corpus, tmp_path, lanes):
     assert report_tree_bytes(res.report_dir) == report_tree_bytes(plain.report_dir)
 
 
-def test_untraced_telemetry_has_the_new_sections(small_corpus, tmp_path):
+def test_untraced_telemetry_has_the_new_sections(small_corpus, tmp_path, monkeypatch):
+    # The cost table lives for the process: a table of this test's own, so
+    # records an earlier test left (other verbs) do not enter the equality.
+    monkeypatch.setattr(torch_backend, "_KERNEL_COSTS", {})
     res, backend = _report(small_corpus, str(tmp_path / "R"), analysis_impl="dense")
     with open(os.path.join(res.report_dir, "telemetry.json"), encoding="utf-8") as fh:
         tel = json.load(fh)
@@ -342,6 +345,7 @@ def test_slow_dispatch_watchdog_and_cost_table(small_corpus, tmp_path, monkeypat
     log = tmp_path / "log.jsonl"
     monkeypatch.setenv("NEMO_LOG_FILE", str(log))
     monkeypatch.setenv("NEMO_SLOW_DISPATCH_MS", "1e-9")
+    monkeypatch.setattr(torch_backend, "_KERNEL_COSTS", {})
     (res, backend), d = _counted(lambda: _report(small_corpus, str(tmp_path / "R"), analysis_impl="dense"))
     n = sum(backend.executor.dispatches.values())
     assert n and d["counters"]["watchdog.slow_kernel"] == n

@@ -31,9 +31,14 @@ series for series:
   both schedulers, ``chaos.injected.*`` and every other series compared;
 * **the sidecar**: a report through each package's ServiceBackend on its
   own sidecar (gRPC, in this process), the ``rpc.*`` and ``serve.*``
-  series compared but ``SIDECAR_LEFT_OUT``'s (the fleet's ``router.*``,
-  ``fleet.*``, ``rcache.*_shared_*`` and ``rcache.lease_*`` are not
-  ported, and emitted by neither side here);
+  series compared but ``SIDECAR_LEFT_OUT``'s;
+* **the fleet**: each package's router over two of its replicas sharing
+  one shared tier (gRPC, in this process): a cold AnalyzeDir led through
+  the lease, a repeat from another result cache served by the shared tier,
+  a routed Health, a health poll, a failover off a stopped home, a dead
+  leader's stolen lease and an unusable shared tier; every ``router.*``,
+  ``fleet.*``, ``rcache.*`` (``*_shared_*`` and ``lease_*`` among them),
+  ``serve.fleet.*`` and ``rpc.analyze_dir_*`` series compared;
 * **the SVG cache**: one report cold and then warm, each package on a
   fresh cache directory of its own (``render.rendered`` and
   ``render.svg_cache_*``);
@@ -592,6 +597,100 @@ def test_excluded_series_are_jax_series():
     row), so the exclusion list names real departures only."""
     _, documented = _harvest(REPO / "nemo_tpu_torch")
     assert set(EXCLUDED) | set(SIDECAR_LEFT_OUT) <= set(documented)
+
+
+FLEET_PREFIXES = ("router.", "fleet.", "rcache.", "serve.fleet.", "rpc.analyze_dir_")
+
+
+def _fleet_run(pkg: str, corpus: str, root, monkeypatch) -> None:
+    """One package's fleet run (see the module docstring), through its own
+    servers, router and client."""
+    if pkg == "port":
+        from nemo_tpu_torch import serve as s
+        from nemo_tpu_torch.serve.router import make_router_server, route_key
+        from nemo_tpu_torch.service.client import RemoteAnalyzer
+        from nemo_tpu_torch.service.server import _Impl, make_server
+        from nemo_tpu_torch.store.rcache import Lease, ResultCache
+
+        def replica():
+            return make_server(port=0, device="cpu")
+
+        def impl():
+            return _Impl("cpu")
+    else:
+        from nemo_tpu import serve as s
+        from nemo_tpu.serve.router import make_router_server, route_key
+        from nemo_tpu.service.client import RemoteAnalyzer
+        from nemo_tpu.service.server import _Impl, make_server
+        from nemo_tpu.store.rcache import Lease, ResultCache
+
+        def replica():
+            return make_server(port=0)
+
+        impl = _Impl
+    for reset in (s.reset_controller, s.reset_flights, s.reset_batcher):
+        reset()
+    for name, value in (("NEMO_CORPUS_CACHE", root / "cc"), ("NEMO_RESULT_CACHE", root / "rc-a"),
+                        ("NEMO_RCACHE_SHARED", root / "shared"), ("NEMO_LEASE_TTL_S", "5"),
+                        ("NEMO_ROUTER_HEALTH_S", "3600")):
+        monkeypatch.setenv(name, str(value))
+    servers = [replica() for _ in range(2)]
+    for srv, _ in servers:
+        srv.start()
+    targets = [f"127.0.0.1:{p}" for _, p in servers]
+    rserver, rport, router = make_router_server(0, targets)
+    rserver.start()
+    try:
+        with RemoteAnalyzer(target=f"127.0.0.1:{rport}", timeout=120) as client:
+            client.analyze_dir_remote(corpus)
+            monkeypatch.setenv("NEMO_RESULT_CACHE", str(root / "rc-b"))
+            client.analyze_dir_remote(corpus)
+            client.health()
+            router.poll_health()
+            home = router.ring.route(route_key(corpus))
+            servers[targets.index(home)][0].stop(grace=None).wait(timeout=10)
+            monkeypatch.setenv("NEMO_RESULT_CACHE", str(root / "rc-c"))
+            client.analyze_dir_remote(corpus)
+    finally:
+        rserver.stop(grace=None)
+        router.stop()
+        for srv, _ in servers:
+            srv.stop(grace=None)
+    monkeypatch.setenv("NEMO_LEASE_TTL_S", "1.0")
+    shared = str(root / "shared")
+    rc = ResultCache(str(root / "rc-d"), shared_root=shared)
+    dead = Lease(shared, "analyze_dir", "crashed", owner="dead", ttl_s=1.0)
+    assert dead.try_acquire()
+
+    def run() -> bytes:
+        rc.put_blob("analyze_dir", "crashed", b"reelected-bytes")
+        return b"reelected-bytes"
+
+    assert impl()._fleet_single_flight(rc, "crashed", run, None) == (b"reelected-bytes", "leader")
+    (root / "notadir").write_text("a file where the shared tier should be")
+    broken = ResultCache(str(root / "rc-e"), shared_root=str(root / "notadir"))
+    assert impl()._fleet_single_flight(broken, "k", lambda: b"local", None) == (b"local", "lease_error")
+    for reset in (s.reset_controller, s.reset_flights, s.reset_batcher):
+        reset()
+
+
+def test_fleet_counters_match_jax(corpora, tmp_path, monkeypatch):
+    """Both packages' fleet runs (see the module docstring): every fleet
+    series equal, and the ones the run is for present."""
+    pytest.importorskip("grpc")
+    got = {}
+    for pkg, obs_mod in (("port", obs), ("jax", jax_obs)):
+        root = tmp_path / pkg
+        root.mkdir()
+        _, delta = _delta(obs_mod, lambda: _fleet_run(pkg, corpora["synth"], root, monkeypatch))
+        got[pkg] = {k: n for k, n in _view(delta).items() if k.startswith(FLEET_PREFIXES)}
+    assert got["port"] == got["jax"]
+    c = got["port"]
+    for name in ("rcache.lease_acquired", "rcache.lease_steal", "rcache.blob_analyze_dir_shared_put",
+                 "rcache.blob_analyze_dir_shared_hit", "serve.fleet.leader", "serve.fleet.follower",
+                 "serve.fleet.lease_error", "rpc.analyze_dir_fleet.leader", "router.routed.AnalyzeDir",
+                 "router.routed.Health", "router.failover"):
+        assert c.get(name, 0) >= 1, name
 
 
 def test_sidecar_counters_match_jax(corpora, tmp_path, monkeypatch, sidecar):
