@@ -31,8 +31,9 @@ each fatal (non-zero exit, no result line) on failure:
   in the JAX package's diff order.
   5. drive the dense main path — the debugging report (analysis/pipeline.py
      run_debug over TorchBackend) of all six case-study families at 1,700
-     runs each (seed 0), figures sample:8, and of ZK-1270 with every
-     figure — with the kernels' launch counts zeroed just before each
+     runs each (seed 0), figures sample:8, and of ZK-1270's first
+     ALL_FIGURES_RUNS runs with every figure — with the kernels' launch
+     counts zeroed just before each
      report and read just after; check every report tree on cuda (native
      ingest, caches off) equals, byte for byte, the same report on the cpu
      (the families' through the Python loader), check from the recorded
@@ -144,8 +145,8 @@ each fatal (non-zero exit, no result line) on failure:
      launched as the LaunchLog counts it) to a sound fit (a device slope
      below the host unit, a budget inside its clamps); after the loaded profiles are forgotten a new
      backend loads it (profile.loaded 1, no probe dispatch, no launch);
-     the six families' default-route reports under the seeded and the
-     measured constants in turns (seeded, measured, measured, seeded), each
+     the first PLATFORM_FAMILIES families' default-route reports under the
+     seeded and the measured constants in turns (seeded, measured, measured, seeded), each
      tree equal to phase 5's, both route lists printed; bench.py's query
      over the families on the measured crossover, each document equal to
      the seeded one, K2 once a device bucket; a truncated profile stays
@@ -201,9 +202,10 @@ each fatal (non-zero exit, no result line) on failure:
      analysis.sched.lane_failure.device, analysis.sched.abandoned_error or
      sched.breaker.trip ({"chaos": {...}});
   6m. the figure pipeline (report/native.py, report/render.py) on
-     ZK-1270 (1,700 runs, every figure, device lanes), each report with
-     the launch counts zeroed before and read after and its tree equal to
-     phase 5's (itself equal to the cpu report): (b) the report on a fresh
+     ZK-1270's first ALL_FIGURES_RUNS runs (every figure, device lanes),
+     each report with the launch counts zeroed before and read after and
+     its tree equal to phase 5's (itself equal to the cpu report): (b) the
+     report on a fresh
      SVG cache, every unique figure rendered; (a) every unique DotGraph of
      it rendered by the C++ engine and by report/svg.py, equal bytes, each
      engine's summed ms; (c) again on the warm cache: nothing rendered,
@@ -275,6 +277,21 @@ each fatal (non-zero exit, no result line) on failure:
      trace id; without grpc a host:port target raises ({"fleet": {...}});
      the spawned replicas' launches join the kernels line (they are
      outside this process's launch log);
+  6q. the host backends beside the card (dedalus/, backend/python_ref.py):
+     (a) the port's injector (python -m nemo_tpu_torch.dedalus -spec NAME)
+     in a child per bundled spec, each wall and run count logged; (b) each
+     of those six corpora reported (sample:8, caches off, device lanes) on
+     cuda with the launch counts zeroed before and read after, on the cpu
+     and by the Python oracle (PythonBackend): the cuda tree equal to the
+     cpu tree byte for byte, the oracle's tree equal to it as an oracle
+     tree (analysis/pipeline.py:oracle_tree_diff: the simplified graphs'
+     figures hold the same DOT statements in another order); (c) the
+     largest corpus (ORACLE_SPARSE_SPEC) with analysis_impl=sparse_device,
+     so that K2 launches, equal to the cpu tree; (d) the oracle on phase
+     5's ZK-1270 (1,700 runs) against phase 5's cuda tree, its wall beside
+     the card's report wall; (e) the CLI's --graph-backend python in a
+     child, its tree equal to (b)'s oracle tree ({"oracle": {...}}).  The
+     Neo4j backend is not driven: the card's machine has no Neo4j server;
   7. time each kernel at every shape those analyses launched it at (a
      LaunchLog records the shapes, the launches by analysis and the first
      inputs): every plan's device time in turns (SHAPE_ROUNDS rounds, the
@@ -342,16 +359,23 @@ GIANT_V = 4096  # TorchBackend's default giant threshold
 #: path's run count whose buckets split between the two tiers.
 GIANT_SPECS = (("giant10k", 2, 2, 3000), ("sd_giantv", 3, 3, 4800))
 SWEEP_SPEC = ("sweep", FAMILY_RUNS, 6, 80)
-#: Figure policy of the reports (bench.py's end-to-end policy); ZK-1270 is
-#: also reported with every figure, and the giant corpora as listed.
+#: Figure policy of the reports (bench.py's end-to-end policy); ZK-1270's
+#: first ALL_FIGURES_RUNS runs are also reported with every figure, and the
+#: giant corpora as listed.
 REPORT_FIGURES = "sample:8"
+#: The runs of ZK-1270 that phase 5's and phase 6m's every-figure reports
+#: take (all 1,700 before PR 18: on an NVIDIA H100 80GB HBM3 at 700 W its
+#: three reports and cpu reference took 90-126 s; 850 runs still write
+#: about 10,000 figure files a report).
+ALL_FIGURES_RUNS = 850
 #: Runs the grown ZK-1270 sweep of phase 5b appends to its first ones.
 INGEST_GROWN_RUNS = 200
 #: Phase 5b's grown sweep: ZK-1270's first GROWN_PREFIX_RUNS runs, the
 #: last INGEST_GROWN_RUNS of them appended (on an NVIDIA H100 80GB HBM3 at
 #: 700 W its figures=failed reports of 1,500 and 1,700 runs took 34 s of
-#: the phase's 128 s; a prefix keeps every check at about half the writes).
-GROWN_PREFIX_RUNS = 900
+#: the phase's 128 s, at 900 runs 15-24 s; a prefix keeps every check at
+#: a fraction of the writes, and 400 paid for phase 6q).
+GROWN_PREFIX_RUNS = 400
 GIANT_FIGURES = {"giant10k": "none", "sd_giantv": "all"}
 #: The backend knobs that keep every bucket, diff and synth pass off the
 #: host lane: the routes phases 5-6 took before the host lane was ported,
@@ -362,13 +386,18 @@ DEVICE_LANES = dict(analysis_host_work=0, diff_host_work=0, synth_host_work=0)
 #: appends of these run counts (each segment holds enough runs for a dense
 #: bucket, whose inputs the streamed map stages on the card).
 STREAM_APPENDS = (600, 1200, FAMILY_RUNS)
+#: Phase 6j (c)'s families: the first three (all six took 24 reports and,
+#: on an NVIDIA H100 80GB HBM3 at 700 W, 50-89 s of the phase's 83-121 s;
+#: three paid for phase 6q with ALL_FIGURES_RUNS).
+PLATFORM_FAMILIES = 3
 #: Phase 6f's figures: none (with failed, their writes took most of the
 #: phase's wall; every check of the phase holds without them).
 STREAM_FIGURES = "none"
 #: Phase 5b's CLI legs: ZK-1270's first CLI_FIRST_RUNS runs, then
 #: INGEST_GROWN_RUNS more, every figure written (a smaller depth than the
-#: other legs': the four legs' figure writes dominated the phase's wall).
-CLI_FIRST_RUNS = 200
+#: other legs': the four legs' figure writes dominated the phase's wall;
+#: 50 from 200 paid for phase 6q with GROWN_PREFIX_RUNS).
+CLI_FIRST_RUNS = 50
 #: Calls per lane at each routed shape of phase 6d.
 LANE_ITERS = 3
 #: Families that phase 5b also reports through the Python loader (the other
@@ -459,6 +488,15 @@ FLEET_CHILD_TIMEOUT_S = 120
 FLEET_LEASE_TTL_S = 1.0
 FLEET_FOLLOW_S = 0.5
 FLEET_SURGE_DEPTH = 40.0
+#: Phase 6q: the six bundled Dedalus specs, written by the port's injector
+#: at their recorded EOT/EFF/crash settings under the library's run cap
+#: (dedalus/faults.py:FaultSpec.max_runs; the CLI's default is 64): 11 to
+#: 181 runs each.
+ORACLE_MAX_RUNS = 256
+#: The 6q corpus that also runs on the sparse_device tier (K2): the largest.
+ORACLE_SPARSE_SPEC = "ca_2083_hinted_handoff"
+#: The 6q corpus of the CLI leg (--graph-backend python in a child).
+ORACLE_CLI_SPEC = "zk_1270_racing_flag"
 
 
 def log(msg: str) -> None:
@@ -1053,6 +1091,9 @@ LAUNCH_LOG = LaunchLog()
 #: LaunchLog's inputs)].
 MEM_PEAKS: dict[str, list[int]] = {}
 
+#: label -> the wall of each counted report (report_counted).
+REPORT_WALLS: dict[str, float] = {}
+
 #: Phase 6's giant corpora by name: (the cuda report's tree, its wall),
 #: phase 6n's references for the dense giant step.
 GIANT_REPORTS: dict[str, tuple[dict, float]] = {}
@@ -1099,6 +1140,7 @@ def report_counted(label: str, cd: str, kernels, out_root: str, figures: str, re
     finally:
         LAUNCH_LOG.label = None
     wall = time.perf_counter() - t
+    REPORT_WALLS[label] = wall
     with open(os.path.join(res.report_dir, "telemetry.json"), encoding="utf-8") as fh:
         MEM_PEAKS[label] = [json.load(fh)["memory"]["device_peak_bytes"], in_use]
     counts = {k.__name__: k.launches for k in kernels}
@@ -1154,14 +1196,22 @@ def check_report_content(label: str, res, protos: bool = False) -> None:
         raise AssertionError(f"{label}: a run without a recommendation")
 
 
+def all_figures_dir(work: str) -> str:
+    """ZK-1270's first ALL_FIGURES_RUNS runs: the corpus of the
+    every-figure reports (phases 5 and 6m)."""
+    return os.path.join(work, "all-figures", "ZK-1270-racing-sent-flag")
+
+
 def main_path(work: str, kernels) -> tuple[dict, dict, dict]:
     """Phase 5: the debugging report of all six families on cuda.  Returns
     the launches by kernel over the run, the families' directories and
-    their report trees (sample:8; and ZK-1270's with every figure under
+    their report trees (sample:8; and that of ZK-1270's first
+    ALL_FIGURES_RUNS runs with every figure, all_figures_dir, under
     ``<name>-all``), each equal to the cpu report."""
     from nemo_tpu_torch.analysis.pipeline import run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
     from nemo_tpu_torch.models.case_studies import write_all_case_studies, write_case_study
+    from nemo_tpu_torch.models.synth import grow_corpus_dir
 
     t0 = time.perf_counter()
     dirs = write_all_case_studies(FAMILY_RUNS, SEED, work)
@@ -1189,14 +1239,16 @@ def main_path(work: str, kernels) -> tuple[dict, dict, dict]:
             raise AssertionError(f"{name}: {len(res.molly.runs)} runs reported, {counts['closure']} closure launches")
         check_report_content(name, res, protos=True)
     zk = "ZK-1270-racing-sent-flag"
+    all_dir = all_figures_dir(work)
+    grow_corpus_dir(dirs[zk], all_dir, ALL_FIGURES_RUNS)
     label = f"report {zk} figures=all"
-    res, _backend, tree, counts = report_counted(label, dirs[zk], kernels, cuda_root, "all", f"{zk}-all")
+    res, _backend, tree, counts = report_counted(label, all_dir, kernels, cuda_root, "all", f"{zk}-all")
     add(counts)
     if counts["closure"] <= 0:
         raise AssertionError(f"{label}: closure never launched")
     check_report_content(label, res, protos=True)
     shutil.rmtree(res.report_dir)
-    check_report_cpu_equal(label, dirs[zk], tree, cpu_root, "all", f"{zk}-all")
+    check_report_cpu_equal(label, all_dir, tree, cpu_root, "all", f"{zk}-all")
     trees[f"{zk}-all"] = tree  # phase 6m's reference
 
     for name, cd in dirs.items():
@@ -2628,12 +2680,13 @@ def platform_path(work: str, kernels, dirs: dict, trees: dict, corpus_cache: str
         measured_budget = {k: getattr(backend, k) for k in ("analysis_host_work", "diff_host_work",
                                                            "synth_host_work", "sparse_device_mem_bytes")}
 
-        # (c) The families' default-route reports, seeded and measured, in
-        # turns (seeded, measured, measured, seeded), each tree equal to
-        # phase 5's.
-        walls = {name: {"seeded": [], "measured": []} for name in dirs}
+        # (c) The first PLATFORM_FAMILIES families' default-route reports,
+        # seeded and measured, in turns (seeded, measured, measured,
+        # seeded), each tree equal to phase 5's.
+        families = dict(list(dirs.items())[:PLATFORM_FAMILIES])
+        walls = {name: {"seeded": [], "measured": []} for name in families}
         routes = {}
-        for name, cd in dirs.items():
+        for name, cd in families.items():
             for mode in ("seeded", "measured", "measured", "seeded"):
                 with pp.mode_override("off" if mode == "seeded" else None):
                     label = f"platform {mode} {name}"
@@ -2652,7 +2705,7 @@ def platform_path(work: str, kernels, dirs: dict, trees: dict, corpus_cache: str
         out.update(family_walls=walls, wall_sums=sums, measured_over_seeded=round(sums["measured"] / sums["seeded"], 4),
                    routes_changed=changed, measured_budgets=measured_budget)
         log(f"platform reports: seeded {sums['seeded']} s, measured {sums['measured']} s over "
-            f"{2 * len(dirs)} reports each; routes changed {changed}")
+            f"{2 * len(families)} reports each; routes changed {changed}")
 
         # (d) The families' queries on the measured crossover, each document
         # equal to the seeded one.
@@ -3403,8 +3456,9 @@ def chaos_path(work: str, kernels, dirs: dict, trees: dict) -> tuple[dict, dict]
 
 def figures_path(work: str, kernels, zk_dir: str, zk_all_tree: dict) -> dict:
     """Phase 6m: the figure pipeline (report/native.py, report/render.py) on
-    the card's host, ZK-1270 (1,700 runs, seed 0, every figure, device
-    lanes), each report with the launch counts zeroed before and read
+    the card's host, ``zk_dir`` (ZK-1270's first ALL_FIGURES_RUNS runs,
+    seed 0, every figure, device lanes), each report with the launch
+    counts zeroed before and read
     after.  ``zk_all_tree`` is phase 5's tree of that report (the C++
     engine, SVG cache off), which phase 5 held equal to the cpu report.
     (b) The report on a fresh SVG cache: every unique figure rendered, no
@@ -4472,6 +4526,133 @@ def fleet_path(work: str, kernels, dirs: dict, corpus_cache: str) -> tuple[dict,
     return launches, child_launches
 
 
+def oracle_path(work: str, kernels, dirs: dict, trees: dict) -> dict:
+    """Phase 6q: the host backends beside the card (see the module
+    docstring).  Prints {"oracle": {...}}.  Returns the launches by kernel
+    of its cuda reports."""
+    from nemo_tpu_torch.analysis.pipeline import oracle_tree_diff, report_tree_bytes, run_debug
+    from nemo_tpu_torch.backend.python_ref import PythonBackend
+    from nemo_tpu_torch.dedalus.registry import BUNDLED_SPECS
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    root = os.path.join(work, "oracle")
+    launches = {k.__name__: 0 for k in kernels}
+    doc: dict = {"specs": {}}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] += n
+
+    def oracle_report(label: str, cd: str, name: str) -> tuple[dict, float]:
+        t = time.perf_counter()
+        res = run_debug(cd, os.path.join(root, "python"), PythonBackend(), figures=REPORT_FIGURES, report_name=name,
+                        corpus_cache="off", result_cache="off")
+        wall = time.perf_counter() - t
+        if res.result_cache != {"state": "off"} or res.ingest != "python":
+            raise AssertionError(f"{label}: result cache {res.result_cache}, ingest {res.ingest}: the oracle must "
+                                 "run with every cache off, on the object loader")
+        tree = report_tree_bytes(res.report_dir)
+        shutil.rmtree(res.report_dir)
+        return tree, wall
+
+    def same_as_oracle(label: str, oracle: dict, tree: dict, what: str) -> None:
+        bad = oracle_tree_diff(oracle, tree)
+        if bad:
+            raise AssertionError(f"{label}: the oracle's report differs from {what} in {bad[:10]}")
+
+    # (a) The injector in a child per spec.
+    spec_dirs = {}
+    for name in sorted(BUNDLED_SPECS):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "nemo_tpu_torch.dedalus", "-spec", name, "-max-runs",
+                               str(ORACLE_MAX_RUNS), "-o", os.path.join(root, "specs")], cwd=repo, env=env,
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"6q (a) {name}: the injector exited {proc.returncode}: {proc.stderr[-2000:]}")
+        spec_dirs[name] = os.path.join(root, "specs", name)
+        with open(os.path.join(spec_dirs[name], "runs.json"), encoding="utf-8") as fh:
+            statuses = [r["status"] for r in json.load(fh)]
+        if statuses[:1] != ["success"] or "fail" not in statuses:
+            raise AssertionError(f"6q (a) {name}: run 0 must succeed and a run must fail: {statuses[:8]}")
+        doc["specs"][name] = {"runs": len(statuses), "failed": statuses.count("fail"), "generate_s": round(wall, 3)}
+        log(f"6q (a) {name}: {len(statuses)} runs ({statuses.count('fail')} failed) written in {wall:.3f} s")
+
+    # (e) starts here: the CLI's --graph-backend python in a child, which
+    # spends most of its wall importing torch, beside (b) and (c); (d) runs
+    # after it has ended, alone.
+    out = os.path.join(root, "cli")
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "nemo_tpu_torch.cli", "-faultInjOut", spec_dirs[ORACLE_CLI_SPEC],
+                            "--graph-backend", "python", "--results-dir", out, "--figures", REPORT_FIGURES,
+                            "--corpus-cache", "off", "--result-cache", "off"], cwd=repo, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    try:
+        # (b) Each corpus on the card, on the cpu and in the oracle.
+        for name, cd in spec_dirs.items():
+            res, _backend, tree, counts = report_counted(f"oracle {name} cuda", cd, kernels, os.path.join(root, "cuda"),
+                                                         REPORT_FIGURES, name)
+            add(counts)
+            if counts["closure"] <= 0:
+                raise AssertionError(f"6q (b) {name}: closure never launched")
+            check_report_content(f"6q (b) {name}", res)
+            shutil.rmtree(res.report_dir)
+            t = time.perf_counter()
+            cpu = _cpu_tree(cd, os.path.join(root, "cpu"), REPORT_FIGURES, name, default_routes=False)
+            cpu_s = time.perf_counter() - t
+            _same_tree(f"6q (b) {name}", tree, cpu, "the cpu report")
+            oracle, python_s = oracle_report(f"6q (b) {name}", cd, name)
+            same_as_oracle(f"6q (b) {name}", oracle, cpu, "the cpu report")
+            doc["specs"][name].update(cuda_s=round(res.report_wall_s, 3), cpu_s=round(cpu_s, 3),
+                                      python_s=round(python_s, 3), launches=counts, files=len(tree))
+            log(f"6q (b) {name}: cuda {res.report_wall_s:.3f} s, cpu {cpu_s:.3f} s, oracle {python_s:.3f} s; the cuda "
+                f"tree equals the cpu tree and the oracle's ({len(tree)} files)")
+            if name == ORACLE_SPARSE_SPEC:
+                sparse_want = cpu
+            if name == ORACLE_CLI_SPEC:
+                cli_want = oracle
+
+        # (c) The largest corpus on the sparse tier: K2 launches too.
+        label = f"oracle {ORACLE_SPARSE_SPEC} sparse_device"
+        res, _backend, tree, counts = report_counted(label, spec_dirs[ORACLE_SPARSE_SPEC], kernels,
+                                                     os.path.join(root, "sparse"), REPORT_FIGURES, ORACLE_SPARSE_SPEC,
+                                                     analysis_impl="sparse_device")
+        add(counts)
+        if counts["edge_wave"] <= 0:
+            raise AssertionError(f"6q (c) {label}: edge_wave never launched")
+        _same_tree(f"6q (c) {label}", tree, sparse_want, "the cpu report")
+        shutil.rmtree(res.report_dir)
+        doc["sparse_device"] = {"spec": ORACLE_SPARSE_SPEC, "cuda_s": round(res.report_wall_s, 3), "launches": counts}
+
+        stdout, stderr = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:  # a failed leg: the child is stopped with it
+            cli.kill()
+            cli.wait()
+    cli_s = time.perf_counter() - t_cli
+    if cli.returncode != 0 or " runs on the host -> " not in stdout:
+        raise AssertionError(f"6q (e): the CLI exited {cli.returncode}: {stdout[-1000:]} {stderr[-2000:]}")
+    _same_tree("6q (e) the CLI's --graph-backend python", report_tree_bytes(os.path.join(out, ORACLE_CLI_SPEC)),
+               cli_want, "(b)'s oracle report")
+    doc["cli"] = {"spec": ORACLE_CLI_SPEC, "wall_s": round(cli_s, 3)}
+    log(f"6q (e) {ORACLE_CLI_SPEC}: the CLI child {cli_s:.3f} s (beside (b) and (c)), its tree equal to (b)'s "
+        "oracle tree")
+
+    # (d) The oracle on phase 5's ZK-1270 (1,700 runs) beside the card's report.
+    zk = "ZK-1270-racing-sent-flag"
+    oracle, python_s = oracle_report(f"6q (d) {zk}", dirs[zk], zk)
+    same_as_oracle(f"6q (d) {zk}", oracle, trees[zk], "phase 5's cuda report")
+    card_s = REPORT_WALLS[f"report {zk}"]
+    doc["zk_1270"] = {"runs": FAMILY_RUNS, "figures": REPORT_FIGURES, "python_s": round(python_s, 3),
+                      "cuda_s": round(card_s, 3), "python_over_cuda": round(python_s / card_s, 2)}
+    log(f"6q (d) {zk}: the oracle {python_s:.3f} s against the card's report {card_s:.3f} s (phase 5); trees equal")
+    print(json.dumps({"oracle": doc}))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def _sound_fit(label: str, table: dict) -> None:
     """Fail unless a calibration on the card resolved (``table``: name ->
     value) a device slope, measured or seeded, below the measured host unit
@@ -4702,7 +4883,7 @@ def main() -> int:
         chaotic, chaos_injected = chaos_path(work, kernels, dirs, trees)
         log(f"phase 6l wall {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        figured = figures_path(work, kernels, dirs[zk], trees.pop(f"{zk}-all"))
+        figured = figures_path(work, kernels, all_figures_dir(work), trees.pop(f"{zk}-all"))
         log(f"phase 6m wall {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         meshed = mesh_path(work, kernels, dirs[zk], trees[zk], giant_dirs["giant10k"])
@@ -4713,6 +4894,9 @@ def main() -> int:
         t = time.perf_counter()
         fleet, fleet_children = fleet_path(work, kernels, dirs, os.path.join(work, "ingest", "corpus-cache"))
         log(f"phase 6p wall {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        oracled = oracle_path(work, kernels, dirs, trees)
+        log(f"phase 6q wall {time.perf_counter() - t:.1f} s")
     finally:
         LAUNCH_LOG.uninstall()
         shutil.rmtree(work, ignore_errors=True)
@@ -4721,7 +4905,8 @@ def main() -> int:
         f"on the streamed map {streamed}, on the corpora of phase 6g {corpora}, on the query path {query}, "
         f"observed {observed}, on the platform path {platform}, through the scheduler {scheduled}, under "
         f"chaos {chaotic}, through the figure pipeline {figured}, on the mesh {meshed}, through the sidecar "
-        f"{served}, through the fleet's router {fleet} and in its spawned replicas {fleet_children}")
+        f"{served}, through the fleet's router {fleet} and in its spawned replicas {fleet_children}, beside the "
+        f"oracle {oracled}")
     from nemo_tpu_torch import obs
 
     # (6k d, 6l f) No phase but 6k's and 6l's injected legs failed a job
@@ -4737,7 +4922,7 @@ def main() -> int:
     for record in records:
         record["launches"] = sum(part[record["name"]] for part in (
             dense, ingest, sparse, routes, lanes, several, streamed, corpora, query, observed, platform, scheduled,
-            chaotic, figured, meshed, served, fleet))
+            chaotic, figured, meshed, served, fleet, oracled))
         if LAUNCH_LOG.launches(record["name"]) != record["launches"]:
             raise AssertionError(f"{record['name']}: the launch log counts {LAUNCH_LOG.launches(record['name'])} "
                                  f"launches, the wrapper {record['launches']}")

@@ -301,8 +301,10 @@ class SegmentPartial:
     #: anchor content (derived from the good and baseline runs)
     corrections: list[str] | None = None
     extensions: list[str] | None = None
-    #: per run: sorted distinct extension-candidate rule tables
-    ext_candidates: dict[int, list[str]] = field(default_factory=dict)
+    #: per run: sorted distinct extension-candidate rule tables; None = the
+    #: map's backend has no synthesis hooks (supports_synth False), so the
+    #: reduce builds no ranked repairs
+    ext_candidates: dict[int, list[str]] | None = None
     #: anchor content: the good run's qualifying prototype rule tables (the
     #: left side of the correction anti-join); None without a good run
     good_proto: list[str] | None = None
@@ -320,13 +322,16 @@ class SegmentPartial:
             "achieved": {str(k): v for k, v in self.achieved.items()},
             "corrections": self.corrections,
             "extensions": self.extensions,
-            "ext_candidates": {str(k): v for k, v in self.ext_candidates.items()},
+            "ext_candidates": None
+            if self.ext_candidates is None
+            else {str(k): v for k, v in self.ext_candidates.items()},
             "good_proto": self.good_proto,
             "fig_files": self.fig_files,
         }
 
     @classmethod
     def from_json(cls, d: dict) -> "SegmentPartial":
+        ext = d.get("ext_candidates")
         return cls(
             iters=[int(i) for i in d["iters"]],
             success_iters=[int(i) for i in d["success_iters"]],
@@ -337,7 +342,7 @@ class SegmentPartial:
             achieved={int(k): int(v) for k, v in d["achieved"].items()},
             corrections=d.get("corrections"),
             extensions=d.get("extensions"),
-            ext_candidates={int(k): list(v) for k, v in d["ext_candidates"].items()},
+            ext_candidates=None if ext is None else {int(k): list(v) for k, v in ext.items()},
             good_proto=d.get("good_proto"),
             fig_files=list(d.get("fig_files") or []),
         )
@@ -364,7 +369,8 @@ class MapOutput:
     achieved: dict[int, int] = field(default_factory=dict)
     corrections: list[str] = field(default_factory=list)
     extensions: list[str] = field(default_factory=list)
-    ext_candidates: dict[int, list[str]] = field(default_factory=dict)
+    #: None = the backend has no synthesis hooks: no repairs.json
+    ext_candidates: dict[int, list[str]] | None = None
     good_proto: list[str] | None = None
     # figure dots per family, keyed by iteration (figure-selected runs)
     hazard: dict = field(default_factory=dict)
@@ -374,6 +380,9 @@ class MapOutput:
     post_clean: dict = field(default_factory=dict)
     diff: dict = field(default_factory=dict)
     diff_failed: dict = field(default_factory=dict)
+    #: filled instead of the per-run dicts when the backend has no per-run
+    #: decomposition (supports_delta False): the global verbs' outputs
+    legacy: dict | None = None
 
     def merge(self, other: "MapOutput") -> None:
         """Fold another map's artifacts in (a map of several groups, one
@@ -382,11 +391,17 @@ class MapOutput:
         runs, which ride in every view, so any group's copy is the
         corpus's."""
         self.merge_figures(other)
-        for name in ("proto_ordered", "present", "missing", "achieved", "ext_candidates"):
+        for name in ("proto_ordered", "present", "missing", "achieved"):
             getattr(self, name).update(getattr(other, name))
         self.corrections = list(other.corrections)
         self.extensions = list(other.extensions)
         self.good_proto = other.good_proto
+        if other.ext_candidates is not None:
+            if self.ext_candidates is None:
+                self.ext_candidates = {}
+            self.ext_candidates.update(other.ext_candidates)
+        if other.legacy is not None:
+            self.legacy = other.legacy
 
     def merge_figures(self, other: "MapOutput") -> None:
         """Fold in only what the report phase reads: the owned runs and the
@@ -411,7 +426,9 @@ class MapOutput:
             achieved={i: self.achieved[i] for i in iters if i in self.achieved},
             corrections=list(self.corrections),
             extensions=list(self.extensions),
-            ext_candidates={i: self.ext_candidates[i] for i in iters if i in self.ext_candidates},
+            ext_candidates=None
+            if self.ext_candidates is None
+            else {i: self.ext_candidates[i] for i in iters if i in self.ext_candidates},
             good_proto=None if self.good_proto is None else list(self.good_proto),
             fig_files=[
                 f
@@ -442,7 +459,13 @@ def map_runs(
     may gain its first failure in a new segment and merge this partial);
     otherwise they keep the reference's gates, corrections only when a run
     failed (main.go:166-173), extension suggestions only when some run
-    missed the antecedent."""
+    missed the antecedent.
+
+    A backend without the per-run hooks (``supports_delta`` False,
+    Neo4jBackend) runs the global verbs instead, create_prototypes and
+    generate_extensions, whose outputs ride in ``MapOutput.legacy`` to
+    ``reduce_legacy``; one without ``supports_synth`` leaves
+    ``ext_candidates`` None, and the report has no repairs.json."""
     from nemo_tpu_torch.backend.base import NoSuccessfulRunError
 
     out = MapOutput()
@@ -471,11 +494,16 @@ def map_runs(
     with timer.phase("hazard"):
         out.hazard = dict(zip(own_fig, backend.create_hazard_analysis(fault_inj_out, own_fig)))
 
-    own_succ = [i for i in molly_view.get_success_runs_iters() if i in own]
+    view_succ = molly_view.get_success_runs_iters()
+    own_succ = [i for i in view_succ if i in own]
+    legacy = not getattr(backend, "supports_delta", False)
     with timer.phase("prototypes"):
-        ordered, present = backend.proto_tables_by_run(own_succ, own_failed)
-        out.proto_ordered = {i: list(ordered.get(i, [])) for i in own_succ}
-        out.present = {f: sorted(present.get(f, ())) for f in own_failed}
+        if legacy:
+            inter, inter_miss, union, union_miss = backend.create_prototypes(view_succ, view_failed)
+        else:
+            ordered, present = backend.proto_tables_by_run(own_succ, own_failed)
+            out.proto_ordered = {i: list(ordered.get(i, [])) for i in own_succ}
+            out.present = {f: sorted(present.get(f, ())) for f in own_failed}
 
     # The good run's post dot is the diff overlay's backdrop: pulled even
     # when the good run is context from a cached segment.
@@ -501,26 +529,39 @@ def map_runs(
     out.diff = dict(zip(own_fig_failed, diff_dots))
     out.diff_failed = dict(zip(own_fig_failed, failed_dots))
 
-    if good_iter is not None and (view_failed or publish):
+    # The legacy map is never published: the reference's failures gate.
+    if good_iter is not None and (view_failed or (publish and not legacy)):
         with timer.phase("corrections"):
             out.corrections = backend.generate_corrections()
     with timer.phase("extensions"):
-        counts = backend.achieved_pre_goal_counts()
-        out.achieved = {i: int(counts.get(i, 0)) for i in out.own_iters}
-        # Unpublished, the map is the whole corpus, so its achieved sum is
-        # the reduce's all-achieved gate.
-        if publish or sum(out.achieved.values()) < len(view_iters):
-            out.extensions = backend.extension_suggestions()
+        if legacy:
+            all_achieved, extensions = backend.generate_extensions()
+            out.legacy = {
+                "inter": inter,
+                "inter_miss": dict(zip(view_failed, inter_miss)),
+                "union": union,
+                "union_miss": dict(zip(view_failed, union_miss)),
+                "all_achieved": all_achieved,
+                "extensions": extensions,
+            }
+        else:
+            counts = backend.achieved_pre_goal_counts()
+            out.achieved = {i: int(counts.get(i, 0)) for i in out.own_iters}
+            # Unpublished, the map is the whole corpus, so its achieved sum
+            # is the reduce's all-achieved gate.
+            if publish or sum(out.achieved.values()) < len(view_iters):
+                out.extensions = backend.extension_suggestions()
 
     # Corpus-ranked repair candidates: per-run extension candidates plus the
     # good run's prototype tables (the correction anti-join's left side),
     # anchor content every partial carries alike.
-    with timer.phase("synthesis"):
-        ext = backend.synth_candidates(out.own_iters)
-        out.ext_candidates = {i: list(ext.get(i, [])) for i in out.own_iters}
-        if good_iter is not None:
-            g_ordered, _ = backend.proto_tables_by_run([good_iter], [])
-            out.good_proto = list(g_ordered.get(good_iter, []))
+    if not legacy and getattr(backend, "supports_synth", False):
+        with timer.phase("synthesis"):
+            ext = backend.synth_candidates(out.own_iters)
+            out.ext_candidates = {i: list(ext.get(i, [])) for i in out.own_iters}
+            if good_iter is not None:
+                g_ordered, _ = backend.proto_tables_by_run([good_iter], [])
+                out.good_proto = list(g_ordered.get(good_iter, []))
     return out
 
 
@@ -561,7 +602,10 @@ def _merge_group(group: list[SegmentPartial]) -> SegmentPartial:
         out.present.update(p.present)
         out.missing.update(p.missing)
         out.achieved.update(p.achieved)
-        out.ext_candidates.update(p.ext_candidates)
+        if p.ext_candidates is not None:
+            if out.ext_candidates is None:
+                out.ext_candidates = {}
+            out.ext_candidates.update(p.ext_candidates)
         if p.corrections is not None:
             out.corrections = list(p.corrections)
             out.extensions = list(p.extensions or [])
@@ -622,8 +666,28 @@ class Reduced:
     extensions: list[str]
     all_achieved: bool
     #: corpus-ranked repair document (analysis/synth.py:build_repairs,
-    #: repairs.json)
-    repairs: dict
+    #: repairs.json); None when the backend has no synthesis hooks
+    repairs: dict | None = None
+
+
+def reduce_legacy(mo: MapOutput, molly, good_iter: int | None) -> Reduced:
+    """The corpus-global results of one map by a backend without per-run
+    hooks (``MapOutput.legacy``: its global verbs' outputs), passed through
+    with the map's missing events and corrections, under the reference's
+    gates; no repairs."""
+    failed_iters = molly.get_failed_runs_iters()
+    legacy = mo.legacy
+    return Reduced(
+        inter=legacy["inter"],
+        union=legacy["union"],
+        inter_miss=dict(legacy["inter_miss"]),
+        union_miss=dict(legacy["union_miss"]),
+        missing={f: mo.missing.get(f, []) for f in failed_iters},
+        corrections=list(mo.corrections) if (good_iter is not None and failed_iters) else [],
+        # generate_extensions applied the all-achieved gate already.
+        extensions=legacy["extensions"],
+        all_achieved=legacy["all_achieved"],
+    )
 
 
 def reduce_partials(partials: list[SegmentPartial], molly, good_iter: int | None) -> Reduced:
@@ -653,7 +717,9 @@ def reduce_partials(partials: list[SegmentPartial], molly, good_iter: int | None
             missing.setdefault(f, [])
 
         all_achieved = sum(merged.achieved.values()) >= len(molly.runs)
-        repairs = build_repairs(merged.good_proto, merged.ext_candidates, merged.present, molly, good_iter)
+        repairs = None
+        if merged.ext_candidates is not None:
+            repairs = build_repairs(merged.good_proto, merged.ext_candidates, merged.present, molly, good_iter)
     return Reduced(
         inter=wrap_code(inter_raw),
         union=wrap_code(union_raw),

@@ -92,6 +92,27 @@ def report_tree_bytes(root: str) -> dict[str, bytes]:
     return out
 
 
+def oracle_tree_diff(oracle: dict[str, bytes], tree: dict[str, bytes]) -> list[str]:
+    """The files in which a report tree (``report_tree_bytes``) departs from
+    the oracle's (backend/python_ref.py) tree of the same corpus: a file in
+    one tree only, a file of other bytes, or a simplified graph's figure
+    ``*_prov_clean.dot`` whose statements differ as a multiset.  Those hold
+    the same statements in another order (the oracle adds a collapsed
+    @next chain's rule after the graph's nodes, TorchBackend where the
+    chain's head rule was, as the JAX package's oracle and JaxBackend do),
+    so their ``.svg``, laid out from that order, are not compared."""
+    bad = sorted(set(oracle) ^ set(tree))
+    for name in sorted(set(oracle) & set(tree)):
+        if name.endswith("_prov_clean.svg"):
+            continue
+        if name.endswith("_prov_clean.dot"):
+            if sorted(oracle[name].splitlines()) != sorted(tree[name].splitlines()):
+                bad.append(name)
+        elif oracle[name] != tree[name]:
+            bad.append(name)
+    return bad
+
+
 def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, ingest: str,
                      result_cache: dict, stream: dict | None = None, backend: GraphBackend | None = None) -> None:
     """telemetry.json next to debugging.json: the phase walls, the figure
@@ -469,6 +490,7 @@ def run_debug(
     fault_inj_out: str,
     results_root: str,
     backend: GraphBackend | None = None,
+    conn: str = "",
     figures: str = "all",
     report_name: str | None = None,
     ingest: str = "auto",
@@ -482,7 +504,9 @@ def run_debug(
 ) -> DebugResult:
     """The full debug pipeline over one Molly directory; writes
     ``results_root/<report_name or corpus name>/``.  ``backend`` defaults to
-    a TorchBackend on cuda, which raises without a card.  ``figures`` is
+    a TorchBackend on cuda, which raises without a card; ``conn`` is what
+    its ``init_graph_db`` is given (Neo4jBackend's bolt:// URI; the other
+    backends ignore it).  ``figures`` is
     the figure policy (select_figure_iters).  ``ingest`` picks the loader
     (``_resolve_ingest_mode``).  ``corpus_cache`` and ``result_cache`` are
     the roots of the corpus store and the result cache (``off`` disables;
@@ -501,6 +525,11 @@ def run_debug(
     A killed run leaves its staging directory ``<report>.stage-<hex>``
     beside the report; each run sweeps those of its report that are older
     than the corpus store's wreckage age (``_sweep_stage_leftovers``).
+
+    A backend without the per-run hooks (``supports_delta`` False:
+    Neo4jBackend) maps the whole corpus once with the global verbs and
+    reduces it as it is, with no partial cache; one without
+    ``supports_synth`` writes no repairs.json.
 
     With a store-served corpus and the result cache on, a repeated request
     restores the whole report tree without initializing the backend (no
@@ -588,12 +617,13 @@ def run_debug(
     # cached partial's figure files are staged at lookup (one that cannot
     # be staged whole is a miss), and the staging directory becomes the
     # report's figures/.
+    legacy = not getattr(backend, "supports_delta", False)
     segments = delta.attach_positions(delta.corpus_segments(molly), molly)
     cached: list[tuple[delta.Segment, delta.SegmentPartial]] = []
     partial_keys: dict[str, str] = {}
     stage_dir = f"{this_results_dir}.stage-{uuid.uuid4().hex[:8]}"
     try:
-        if rcache is not None:
+        if rcache is not None and not legacy:
             with timer.phase("cache_lookup"):
                 for seg in segments:
                     k = delta.partial_cache_key(seg, segments, good_iter, baseline_iter, figures)
@@ -637,7 +667,7 @@ def run_debug(
         stream_doc: dict = {}
         reducer = None
         if to_map:
-            streamed = stream_mod.use_streaming(molly, backend, to_map)
+            streamed = stream_mod.use_streaming(molly, backend, to_map, legacy=legacy)
             incremental = (len(to_map) > 1 and bool(partial_keys) and rcache is not None
                            and env_flag("NEMO_CHECKPOINT", True))
             map_groups = [[s] for s in to_map] if (incremental or streamed) else [to_map]
@@ -668,7 +698,7 @@ def run_debug(
                     reducer.push(p)
                 group_iter = stream_mod.stream_groups(map_groups, build_view, backend, timer)
             else:
-                group_iter = _serial_groups(map_groups, build_view, backend, timer)
+                group_iter = _serial_groups(map_groups, build_view, backend, timer, conn)
             with profiler:
                 for staged in group_iter:
                     try:
@@ -680,7 +710,7 @@ def run_debug(
                     if stream_doc:
                         stream_doc["staged_bytes"] += staged.staged_bytes
                         stream_doc["stage_s"] += staged.stage_s
-                    if len(staged.group) > 1:
+                    if len(staged.group) > 1 or legacy:
                         mo.merge(group_mo)
                         continue
                     seg = staged.group[0]
@@ -712,14 +742,17 @@ def run_debug(
                 stream_doc["stage_s"] = round(stream_doc["stage_s"], 6)
 
         with timer.phase("reduce"):
-            if to_map and not on_disk and not to_render:
-                # One group: the map output holds every mapped segment.
-                to_render = {s.name: mo.as_partial(seg_iters(s)) for s in to_map}
-            if reducer is not None:
-                partials = reducer.partials()
+            if legacy:
+                red = delta.reduce_legacy(mo, molly, good_iter)
             else:
-                partials = [p for _, p in cached] + list(on_disk.values()) + list(to_render.values())
-            red = delta.reduce_partials(partials, molly, good_iter)
+                if to_map and not on_disk and not to_render:
+                    # One group: the map output holds every mapped segment.
+                    to_render = {s.name: mo.as_partial(seg_iters(s)) for s in to_map}
+                if reducer is not None:
+                    partials = reducer.partials()
+                else:
+                    partials = [p for _, p in cached] + list(on_disk.values()) + list(to_render.values())
+                red = delta.reduce_partials(partials, molly, good_iter)
 
         # Recommendation assembly, 4-way priority (main.go:190-217), resolved by
         # iteration (the reference indexes its runs slice with iteration
@@ -763,8 +796,10 @@ def run_debug(
                         fh.write(", ")
                     fh.write(_run_json_str(r, good_iter))
                 fh.write("]")
-            with open(os.path.join(this_results_dir, "repairs.json"), "w", encoding="utf-8") as fh:
-                json.dump(red.repairs, fh, indent=1)
+            # The ranked repairs; none from a backend without synthesis hooks.
+            if red.repairs is not None:
+                with open(os.path.join(this_results_dir, "repairs.json"), "w", encoding="utf-8") as fh:
+                    json.dump(red.repairs, fh, indent=1)
             # The runs that failed to parse: the frontend's "Degraded runs".
             if molly.quarantined:
                 with open(os.path.join(this_results_dir, "quarantine.json"), "w", encoding="utf-8") as fh:
@@ -854,14 +889,14 @@ def _profiler(profile_dir: str | None, dev):
                                   on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
 
 
-def _serial_groups(map_groups, build_view, backend, timer):
+def _serial_groups(map_groups, build_view, backend, timer, conn: str = ""):
     """The map groups on the caller's own backend, one after the other."""
     from nemo_tpu_torch.analysis.stream import StagedGroup
 
     for group in map_groups:
         view, own_set = build_view(group)
         with timer.phase("init"):
-            backend.init_graph_db("", view)
+            backend.init_graph_db(conn, view)
         yield StagedGroup(group=group, view=view, own_set=own_set, backend=backend, shared_backend=True)
 
 

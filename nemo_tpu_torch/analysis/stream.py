@@ -58,18 +58,20 @@ def stream_env() -> str:
     return {"1": "on", "0": "off"}.get(got, got)
 
 
-def use_streaming(molly, backend, to_map) -> bool:
-    """Whether this run's map streams segment by segment: it needs a packed
-    corpus (the row-subset views are array gathers), a backend that clones
-    itself (``stream_clone``) and two or more segments to map (a single
-    segment is its own bounded working set).  ``on`` where the run cannot
+def use_streaming(molly, backend, to_map, legacy: bool = False) -> bool:
+    """Whether this run's map streams segment by segment: it needs a backend
+    with the per-run hooks (``legacy`` False), a packed corpus (the
+    row-subset views are array gathers), a backend that clones itself
+    (``stream_clone``) and two or more segments to map (a single segment is
+    its own bounded working set).  ``on`` where the run cannot
     stream logs it and maps in memory: the knob changes only the shape of
     the execution, never the bytes."""
     mode = stream_env()
     if mode == "off":
         return False
     capable = (
-        len(to_map) >= 2
+        not legacy
+        and len(to_map) >= 2
         and getattr(molly, "native_corpus", None) is not None
         and backend.stream_clone() is not None
     )

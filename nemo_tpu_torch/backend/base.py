@@ -34,7 +34,20 @@ class GraphBackend(abc.ABC):
     """Interface over the graph analytics engine (reference: main.go:33-44).
     The map/reduce of analysis/delta.py also reads the per-run hooks
     (proto_tables_by_run, achieved_pre_goal_counts, extension_suggestions,
-    synth_candidates)."""
+    synth_candidates) of a backend that declares them."""
+
+    #: True when the backend has the per-run hooks proto_tables_by_run,
+    #: achieved_pre_goal_counts and extension_suggestions, which the
+    #: segment map/reduce (analysis/delta.py) merges across store segments.
+    #: A backend without them (Neo4jBackend) runs the global verbs
+    #: create_prototypes and generate_extensions in one map over the whole
+    #: corpus, with no partial cache.
+    supports_delta = False
+
+    #: True when the backend has :meth:`synth_candidates`, the per-run
+    #: extension candidates of the ranked repairs (analysis/synth.py).  A
+    #: report of a backend without it has no repairs.json.
+    supports_synth = False
 
     molly: MollyOutput | None
 

@@ -762,6 +762,10 @@ class TorchBackend(GraphBackend):
     #: run_debug's ingest policy reads this: the backend consumes packed
     #: corpus arrays, so ``ingest="auto"`` takes the native loader.
     supports_packed_ingest = True
+    #: The per-run hooks of the segment map/reduce and the ranked repairs'
+    #: candidates (backend/base.py).
+    supports_delta = True
+    supports_synth = True
 
     def __init__(
         self,

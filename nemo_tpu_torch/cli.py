@@ -5,7 +5,7 @@ directories, on one device.
         [--results-dir DIR] [--figures all|failed|sample:N|none]
         [--analysis-impl auto|dense|sparse|sparse_device] [--shard auto|on|off]
         [--giant-impl auto|host|device|sparse_device] [--max-batch N]
-        [--graph-backend torch|service [-graphDBConn HOST:PORT]]
+        [--graph-backend torch|service|python|neo4j [-graphDBConn HOST:PORT|bolt://HOST:PORT]]
         [--ingest auto|native|python] [--injector auto|molly|trace-json]
         [--corpus-cache DIR|off] [--result-cache DIR|off] [--prefetch]
         [--svg-cache DIR|off] [--save-corpus FILE.npz] [--out analysis.json]
@@ -106,11 +106,20 @@ from ``NEMO_SHARD``, ``NEMO_GIANT_IMPL`` and ``NEMO_MAX_BATCH``.
 ``-faultInjOut`` is also spelled ``--fault-inj-out``.
 
 ``--graph-backend service`` runs the device verbs on a sidecar at
-``-graphDBConn HOST:PORT`` (``--graph-db-conn``; start it with
-``python -m nemo_tpu_torch.service.server``), through ServiceBackend; the
-report is TorchBackend's, byte for byte.  ``--device`` is then the
-sidecar's business and not read.  ``torch`` (the default) runs them in
-this process.
+``-graphDBConn HOST:PORT`` (``--graph-db-conn``, default
+``127.0.0.1:50051``; start it with ``python -m
+nemo_tpu_torch.service.server``), through ServiceBackend; the report is
+TorchBackend's, byte for byte.  ``--device`` is then the sidecar's business
+and not read.  ``torch`` (the default; the JAX CLI's default is
+``python``) runs them in this process.  ``python`` runs every verb on the
+host in the property-graph oracle (backend/python_ref.py) and ``neo4j`` on
+the Neo4j server at ``-graphDBConn`` (default ``bolt://127.0.0.1:7687``)
+over the port's Bolt client (backend/neo4j_backend.py); neither touches a
+device or builds a kernel library, so ``--analysis-impl``, ``--shard``,
+``--giant-impl``, ``--max-batch`` and ``--out`` are refused with them
+(exit 2), and ``--device`` only picks where a ``--serve`` query runs.  A
+Molly corpus to try them on comes from the bundled injector:
+``python -m nemo_tpu_torch.dedalus -spec pb_asynchronous -o DIR``.
 """
 
 from __future__ import annotations
@@ -188,6 +197,14 @@ def analyze(fault_inj_out: str, device=None, analysis_impl: str = "auto", inject
     }
 
 
+#: --graph-backend: this process's device (torch), the sidecar (service), or
+#: the host backends, which run every verb on the host (python, neo4j).
+GRAPH_BACKENDS = ("torch", "service", "python", "neo4j")
+HOST_BACKENDS = ("python", "neo4j")
+#: -graphDBConn per backend when none is given (neo4j: the JAX CLI's).
+DEFAULT_CONN = {"service": "127.0.0.1:50051", "neo4j": "bolt://127.0.0.1:7687"}
+
+
 def _positive_int(text: str) -> int:
     try:
         n = int(text)
@@ -208,22 +225,27 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("-faultInjOut", "--fault-inj-out", dest="fault_inj_out", nargs="+", metavar="DIR",
                     help="fault-injection sweep directory (or directories) to analyze")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--analysis-impl", default="auto", choices=ANALYSIS_IMPLS,
+    # The device knobs default to None, so that one given with a host
+    # backend (python, neo4j) is seen and refused; None resolves to auto.
+    ap.add_argument("--analysis-impl", default=None, choices=ANALYSIS_IMPLS,
                     help="force one lane for every verb: dense, sparse (host) or sparse_device "
                          "(default auto: per bucket)")
-    ap.add_argument("--shard", default="auto", choices=("auto", "on", "off"),
-                    help="the run mesh: on places the fused dispatches on it even at one rank, auto only in a "
-                         "world of several (torch.distributed), off never")
-    ap.add_argument("--giant-impl", default="auto", choices=GIANT_IMPLS,
-                    help="giant runs: host, device (the dense node-sharded step), sparse_device, or auto (the host "
-                         "under --analysis-impl sparse, else sparse_device)")
+    ap.add_argument("--shard", default=None, choices=("auto", "on", "off"),
+                    help="the run mesh: on places the fused dispatches on it even at one rank, auto (the default) "
+                         "only in a world of several (torch.distributed), off never")
+    ap.add_argument("--giant-impl", default=None, choices=GIANT_IMPLS,
+                    help="giant runs: host, device (the dense node-sharded step), sparse_device, or auto (the "
+                         "default: the host under --analysis-impl sparse, else sparse_device)")
     ap.add_argument("--max-batch", type=_positive_int, default=None, metavar="N",
                     help="at most N runs a fused dispatch (default: one dispatch a bucket)")
-    ap.add_argument("--graph-backend", default="torch", choices=("torch", "service"),
-                    help="run the device verbs in this process (torch) or on the sidecar at -graphDBConn "
-                         "(service)")
-    ap.add_argument("-graphDBConn", "--graph-db-conn", dest="graph_db_conn", default="127.0.0.1:50051",
-                    metavar="HOST:PORT", help="the sidecar's address under --graph-backend service")
+    ap.add_argument("--graph-backend", default="torch", choices=GRAPH_BACKENDS,
+                    help="run the device verbs in this process (torch), on the sidecar at -graphDBConn (service), "
+                         "or every verb on the host: the Python oracle (python) or a Neo4j server at -graphDBConn "
+                         "(neo4j)")
+    ap.add_argument("-graphDBConn", "--graph-db-conn", dest="graph_db_conn", default=None,
+                    metavar="HOST:PORT|bolt://HOST:PORT",
+                    help="the sidecar's address under --graph-backend service (default 127.0.0.1:50051), the Neo4j "
+                         "server's under neo4j (default bolt://127.0.0.1:7687)")
     ap.add_argument("--results-dir", default=os.path.join(os.getcwd(), "results"),
                     help="root directory of the report (default ./results)")
     ap.add_argument("--figures", default="all", metavar="POLICY",
@@ -339,8 +361,18 @@ def _report_main(ap, args) -> int:
         ap.error("--serve serves the report: no --out")
     if args.profile and args.out is not None:
         ap.error("--profile captures the report's analysis: no --out")
-    if args.graph_backend == "service" and args.shard != "auto":
+    if args.graph_backend == "service" and args.shard not in (None, "auto"):
         ap.error("--shard places this process's dispatches: not with --graph-backend service")
+    if args.graph_backend in HOST_BACKENDS:
+        given = [flag for flag, value in (("--analysis-impl", args.analysis_impl), ("--shard", args.shard),
+                                          ("--giant-impl", args.giant_impl), ("--max-batch", args.max_batch))
+                 if value is not None]
+        if given:
+            ap.error(f"device knobs ({', '.join(given)}) are not for --graph-backend {args.graph_backend}, "
+                     "which runs every verb on the host")
+        if args.out is not None:
+            ap.error(f"--out writes TorchBackend's analysis document: not with --graph-backend {args.graph_backend}")
+    conn = args.graph_db_conn if args.graph_db_conn is not None else DEFAULT_CONN.get(args.graph_backend, "")
 
     # Tracing: the flag wins, NEMO_TRACE is the env equivalent.  The trace
     # is written explicitly before the final prints (so the path is
@@ -355,14 +387,23 @@ def _report_main(ap, args) -> int:
         obs_trace.configure_from_env()
 
     def make_backend():
-        knobs = dict(analysis_impl=args.analysis_impl, giant_impl=args.giant_impl, max_batch=args.max_batch)
+        if args.graph_backend == "python":
+            from nemo_tpu_torch.backend.python_ref import PythonBackend
+
+            return PythonBackend()
+        if args.graph_backend == "neo4j":
+            from nemo_tpu_torch.backend.neo4j_backend import Neo4jBackend
+
+            return Neo4jBackend()
+        knobs = dict(analysis_impl=args.analysis_impl or "auto", giant_impl=args.giant_impl or "auto",
+                     max_batch=args.max_batch)
         if args.graph_backend == "service":
             from nemo_tpu_torch.backend.service_backend import ServiceBackend
 
-            return ServiceBackend(target=args.graph_db_conn, **knobs)
-        return TorchBackend(device=args.device, shard=args.shard, **knobs)
+            return ServiceBackend(target=conn, **knobs)
+        return TorchBackend(device=args.device, shard=args.shard or "auto", **knobs)
 
-    kw = dict(figures=args.figures, ingest=args.ingest, corpus_cache=args.corpus_cache,
+    kw = dict(conn=conn, figures=args.figures, ingest=args.ingest, corpus_cache=args.corpus_cache,
               result_cache=args.result_cache, injector=args.injector)
     if args.watch:
         return _watch_main(args, make_backend, kw)
@@ -389,7 +430,8 @@ def _report_main(ap, args) -> int:
     if args.out is not None:
         print(f"{doc['corpus']}: {doc['runs']} runs on {doc['device']} -> {args.out}")
     for res in results:
-        where = args.device if args.graph_backend == "torch" else f"the sidecar at {args.graph_db_conn}"
+        where = {"torch": args.device, "service": f"the sidecar at {conn}", "python": "the host",
+                 "neo4j": f"the Neo4j server at {conn}"}[args.graph_backend]
         print(f"{res.molly.run_name}: {len(res.molly.runs)} runs on {where} -> {res.report_dir}"
               f" (ingest {res.ingest}, result cache {res.result_cache['state']})")
     fs = results[-1].figure_stats if results else None

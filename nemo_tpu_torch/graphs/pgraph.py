@@ -1,6 +1,6 @@
 """In-memory property graph of one (run, condition) provenance graph, a copy
-of the JAX package's ``graphs/pgraph.py`` trimmed to what the report path
-uses: figure construction and the trigger queries.
+of the JAX package's ``graphs/pgraph.py``: figure construction, the trigger
+queries and the Python oracle backend (backend/python_ref.py).
 
 Stands in for the reference's Neo4j node store (graphing/pre-post-prov.go:27-58
 creates :Goal/:Rule nodes with :DUETO edges).  Graphs are bipartite: every edge
@@ -10,6 +10,7 @@ rule->goal edges, pre-post-prov.go:150-195).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 from nemo_tpu_torch.ingest.datatypes import ProvData
@@ -54,6 +55,70 @@ class PGraph:
         self.out[src].append(dst)
         self.inn[dst].append(src)
         self.edge_order.append((src, dst))
+
+    def remove_node(self, nid: str) -> None:
+        """DETACH DELETE equivalent (preprocessing.go:318)."""
+        for succ in self.out.pop(nid, []):
+            self.inn[succ].remove(nid)
+        for pred in self.inn.pop(nid, []):
+            self.out[pred].remove(nid)
+        self.edge_order = [(s, d) for (s, d) in self.edge_order if s != nid and d != nid]
+        del self.nodes[nid]
+
+    # -- queries --
+
+    def goals(self) -> list[PNode]:
+        return [n for n in self.nodes.values() if n.is_goal]
+
+    def rules(self) -> list[PNode]:
+        return [n for n in self.nodes.values() if not n.is_goal]
+
+    def roots(self) -> list[PNode]:
+        """Nodes with no incoming edge."""
+        return [n for n in self.nodes.values() if not self.inn[n.id]]
+
+    def descendants(self, start: str) -> set[str]:
+        """All nodes reachable from start via >=1 hop."""
+        seen: set[str] = set()
+        stack = list(self.out[start])
+        while stack:
+            v = stack.pop()
+            if v not in seen:
+                seen.add(v)
+                stack.extend(self.out[v])
+        return seen
+
+    def reachable_from(self, starts: list[str]) -> set[str]:
+        """All nodes reachable from any start via >=0 hops."""
+        seen: set[str] = set(starts)
+        stack = list(starts)
+        while stack:
+            v = stack.pop()
+            for w in self.out[v]:
+                if w not in seen:
+                    seen.add(w)
+                    stack.append(w)
+        return seen
+
+    def coreachable_to(self, targets: list[str]) -> set[str]:
+        """All nodes that reach any target via >=0 hops."""
+        seen: set[str] = set(targets)
+        stack = list(targets)
+        while stack:
+            v = stack.pop()
+            for w in self.inn[v]:
+                if w not in seen:
+                    seen.add(w)
+                    stack.append(w)
+        return seen
+
+    def copy(self) -> "PGraph":
+        g = PGraph()
+        for n in self.nodes.values():
+            g.add_node(dataclasses.replace(n))
+        for s, d in self.edge_order:
+            g.add_edge(s, d)
+        return g
 
 
 def build_pgraph(prov: ProvData) -> PGraph:

@@ -13,8 +13,13 @@ CLI's report under the matching env var:
   and the JAX CLI's ``--graph-backend service`` on the JAX sidecar;
 * ``--fault-inj-out`` spells ``-faultInjOut`` in the report and the query
   parsers;
+* ``--graph-backend python`` and ``--graph-backend neo4j`` (``-graphDBConn``
+  at tests/fake_neo4j.py's server) and the JAX CLI's under the same flags,
+  with ``-graphDBConn`` resolved per backend when it is not given;
 
-and bad values exit 2.
+and bad values exit 2, as does a device knob (``--analysis-impl``,
+``--shard``, ``--giant-impl``, ``--max-batch``) or ``--out`` given with a host
+backend.
 """
 
 import functools
@@ -24,6 +29,7 @@ import pytest
 
 grpc = pytest.importorskip("grpc")
 
+from fake_neo4j import FakeNeo4jServer  # noqa: E402
 from nemo_tpu import cli as jax_cli  # noqa: E402
 from nemo_tpu.analysis.pipeline import report_tree_bytes as jax_tree  # noqa: E402
 from nemo_tpu_torch import cli  # noqa: E402
@@ -142,3 +148,60 @@ def test_bad_values_exit_2(corpora, tmp_path, flags):
     with pytest.raises(SystemExit) as ei:
         cli.main(["-faultInjOut", corpora["synth"], "--device", "cpu", "--results-dir", str(tmp_path), *flags])
     assert ei.value.code == 2
+
+
+@pytest.mark.parametrize("backend", ["python", "neo4j"])
+def test_cli_host_backend_equals_jax_cli(corpora, tmp_path, monkeypatch, capsys, backend):
+    if backend == "neo4j":
+        with FakeNeo4jServer() as srv:
+            port = _port_cli(corpora["synth"], str(tmp_path / "port"), "--graph-backend", "neo4j", "-graphDBConn",
+                             srv.uri)
+            assert f"8 runs on the Neo4j server at {srv.uri} ->" in capsys.readouterr().out
+        with FakeNeo4jServer() as srv:
+            jax = _jax_cli(corpora["synth"], str(tmp_path / "jax"), monkeypatch, {}, "--graph-backend", "neo4j",
+                           "-graphDBConn", srv.uri)
+        assert "repairs.json" not in port
+    else:
+        port = _port_cli(corpora["synth"], str(tmp_path / "port"), "--graph-backend", "python")
+        assert "8 runs on the host ->" in capsys.readouterr().out
+        jax = _jax_cli(corpora["synth"], str(tmp_path / "jax"), monkeypatch, {}, "--graph-backend", "python")
+        assert "repairs.json" in port
+    assert port == jax and "debugging.json" in port
+
+
+@pytest.mark.parametrize("backend, want", [("neo4j", "bolt://127.0.0.1:7687"), ("service", "127.0.0.1:50051"),
+                                           ("python", ""), ("torch", "")])
+def test_graph_db_conn_default_per_backend(corpora, tmp_path, monkeypatch, backend, want):
+    from nemo_tpu_torch.backend import service_backend
+
+    seen = {}
+    monkeypatch.setattr(service_backend, "ServiceBackend", lambda target, **kw: seen.setdefault("target", target))
+
+    def fake_run_debug(d, root, backend_obj, conn, **kw):
+        seen["conn"] = conn
+        raise SystemExit(0)
+
+    monkeypatch.setattr(cli, "run_debug", fake_run_debug)
+    with pytest.raises(SystemExit):
+        cli.main(["-faultInjOut", corpora["synth"], "--device", "cpu", "--results-dir", str(tmp_path),
+                  "--graph-backend", backend])
+    assert seen["conn"] == want
+    if backend == "service":
+        assert seen["target"] == want
+    with pytest.raises(SystemExit):
+        cli.main(["-faultInjOut", corpora["synth"], "--device", "cpu", "--results-dir", str(tmp_path),
+                  "--graph-backend", backend, "-graphDBConn", "bolt://db:1"])
+    assert seen["conn"] == "bolt://db:1"
+
+
+@pytest.mark.parametrize("backend", ["python", "neo4j"])
+@pytest.mark.parametrize("flags", [("--analysis-impl", "dense"), ("--analysis-impl", "auto"), ("--shard", "auto"),
+                                   ("--giant-impl", "device"), ("--max-batch", "3"), ("--out", "a.json")],
+                         ids=["analysis-impl", "analysis-impl-auto", "shard", "giant-impl", "max-batch", "out"])
+def test_device_knob_with_host_backend_exits_2(corpora, tmp_path, capsys, backend, flags):
+    with pytest.raises(SystemExit) as ei:
+        cli.main(["-faultInjOut", corpora["synth"], "--device", "cpu", "--results-dir", str(tmp_path),
+                  "--graph-backend", backend, *flags])
+    assert ei.value.code == 2
+    assert f"--graph-backend {backend}" in capsys.readouterr().err
+    assert not (tmp_path / "pb_synth").exists() and not (tmp_path / "a.json").exists()

@@ -17,7 +17,10 @@
 * the fleet (serve/router.py, serve/autoscale.py, obs/federation.py, the
   shared tier and the lease) imports and routes in process with grpc
   unimportable; a ``host:port`` target then raises, and importing
-  ``nemo_tpu_torch.serve`` loads no router.
+  ``nemo_tpu_torch.serve`` loads no router;
+* the host backends, ``--graph-backend python`` and ``--graph-backend
+  neo4j``, build no kernel library and run where there is no card, while
+  ``--graph-backend torch`` still defaults to cuda.
 """
 
 import os
@@ -94,6 +97,37 @@ def test_cli_defaults_to_cuda(monkeypatch, corpus_dir, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["-faultInjOut", corpus_dir, "--out", str(tmp_path / "a.json")])
     assert not (tmp_path / "a.json").exists()
+
+
+@pytest.mark.parametrize("flags", [[], ["--graph-backend", "torch"]], ids=["default", "torch"])
+def test_cli_torch_backend_defaults_to_cuda(monkeypatch, corpus_dir, tmp_path, flags):
+    """With -graphDBConn's default resolved per backend (None in argparse),
+    the torch backend still asks for the card, and raises without one."""
+    from nemo_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["-faultInjOut", corpus_dir, "--results-dir", str(tmp_path / "R"), *flags])
+    assert not (tmp_path / "R").exists()
+
+
+@pytest.mark.parametrize("backend", ["python", "neo4j"])
+def test_host_backends_build_no_kernel_and_need_no_card(monkeypatch, corpus_dir, tmp_path, capsys, backend):
+    from fake_neo4j import FakeNeo4jServer
+    from nemo_tpu_torch import cli
+    from nemo_tpu_torch.kernels import build as kbuild
+
+    def no_kernel(*a, **k):
+        raise AssertionError("a host backend must not build or load a kernel library")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mod, name in ((kbuild, "build"), (kbuild, "load"), (k1, "_lib"), (k2, "_lib")):
+        monkeypatch.setattr(mod, name, no_kernel)
+    argv = ["-faultInjOut", corpus_dir, "--results-dir", str(tmp_path / "R"), "--graph-backend", backend]
+    with FakeNeo4jServer() as srv:
+        assert cli.main(argv + (["-graphDBConn", srv.uri] if backend == "neo4j" else [])) == 0
+    assert "on cuda" not in capsys.readouterr().out
+    assert (tmp_path / "R" / os.path.basename(corpus_dir) / "debugging.json").exists()
 
 
 def test_report_defaults_to_cuda(monkeypatch, corpus_dir, tmp_path):
