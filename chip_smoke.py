@@ -130,7 +130,7 @@ each fatal (non-zero exit, no result line) on failure:
      executor dispatch, the kernel.dispatches.* deltas equal to the
      executor's counts, the wrappers' launches equal to the LaunchLog's,
      and the capture showing the kernel's functions launched under its
-     nemo:<verb> label; the CLI in a subprocess with --trace, --metrics-out
+     kernel:<verb> label; the CLI in a subprocess with --trace, --metrics-out
      (parsed by the port's own parser), --timings and --profile; the cost
      of a disabled span() on this host; the device busy share of bench.py's
      query on ZK-1270 with the device lane forced (the smoke's own
@@ -2283,6 +2283,11 @@ def _doc_bytes(doc: dict) -> str:
     return json.dumps({k: v for k, v in doc.items() if k != "stats"}, sort_keys=True)
 
 
+def _cache_stats(doc: dict) -> dict:
+    """A query document's cache bookkeeping: its stats but the walls."""
+    return {k: v for k, v in doc["stats"].items() if k != "timings"}
+
+
 def _post_query(port: int, body: dict) -> tuple[int, dict]:
     import urllib.error
     import urllib.request
@@ -2344,7 +2349,7 @@ def query_path(work: str, kernels, dirs: dict, corpus_cache: str) -> dict:
                            ("warm", {"cache": "hit", "segments_mapped": 0})):
             label, routes = f"query {leg} {name}", []
             doc, counts, wall = run(label, molly, routes, result_cache=rc)
-            if doc["stats"] != stats or _doc_bytes(doc) != want:
+            if _cache_stats(doc) != stats or _doc_bytes(doc) != want:
                 raise AssertionError(f"{label}: stats {doc['stats']} (want {stats}), or the document differs from "
                                      f"the cpu document")
             if any(r["lane"] != query_lane(r["work"]) for r in routes):
@@ -2405,7 +2410,7 @@ def query_path(work: str, kernels, dirs: dict, corpus_cache: str) -> dict:
     doc, counts, wall = run(label, molly, routes, result_cache=grc)
     scratch = _doc_bytes(execute_query(q, ingest_corpus(grown, "off"), device="cpu", use_cache=False))
     rows = sum(r["rows"] for r in routes)
-    if doc["stats"] != {"cache": "miss", "segments_mapped": 1} or rows > INGEST_GROWN_RUNS or _doc_bytes(
+    if _cache_stats(doc) != {"cache": "miss", "segments_mapped": 1} or rows > INGEST_GROWN_RUNS or _doc_bytes(
             doc) != scratch or getattr(molly, "store_state", None) != "grown":
         raise AssertionError(f"{label}: stats {doc['stats']}, {rows} rows mapped, or differs from scratch")
     out["grown"] = {"first_s": round(first_wall, 4), "grown_s": round(wall, 4), "rows_mapped": rows,
@@ -2538,16 +2543,16 @@ def obs_path(work: str, kernels, dirs: dict, zk_tree: dict, corpus_cache: str) -
             raise AssertionError(f"{label}: {counts[kernel]} {kernel} launches, the launch log "
                                  f"{label_launches(label, kernel)}")
         events = profile_events(pdir)
-        under = labelled_kernels(events, f"nemo:{verbs[0]}")
+        under = labelled_kernels(events, f"kernel:{verbs[0]}")
         if not any(f in n for n in under for f in KERNEL_FUNCTIONS[kernel]):
-            raise AssertionError(f"{label}: no {kernel} kernel function under nemo:{verbs[0]} in the capture: "
+            raise AssertionError(f"{label}: no {kernel} kernel function under kernel:{verbs[0]} in the capture: "
                                  f"{sorted(under)[:8]}")
         busy_us = sum(e.get("dur", 0) for e in events if e.get("cat") in DEVICE_CATS)
         out[leg] = {"report_s": round(res.report_wall_s, 4), "spans": spans, "launches": counts,
                     "under_label": sorted(n[:60] for n in under), "device_busy_ms": round(busy_us / 1e3, 4),
                     "device_busy_share": round(busy_us / 1e6 / res.report_wall_s, 6)}
         log(f"{label}: trace {len(names)} spans {spans}, counters equal the executor, launches {counts} equal the "
-            f"launch log; under nemo:{verbs[0]} the capture shows {sorted(under)}; device busy "
+            f"launch log; under kernel:{verbs[0]} the capture shows {sorted(under)}; device busy "
             f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / res.report_wall_s:.2f} % of the report wall)")
 
     # (c) The CLI in a subprocess with every obs flag (default routes).
@@ -2565,16 +2570,16 @@ def obs_path(work: str, kernels, dirs: dict, zk_tree: dict, corpus_cache: str) -
     names = set(_span_names(trace))
     with open(metrics, encoding="utf-8") as fh:
         fams = promexp.parse_prometheus_text(fh.read())
-    under = labelled_kernels(profile_events(pdir), "nemo:fused")
+    under = labelled_kernels(profile_events(pdir), "kernel:fused")
     timed = [line for line in cli.stdout.splitlines() if line.rstrip().endswith(" ms")]
     if (not {"phase:ingest", "phase:report", "kernel:fused"} <= names
             or fams["nemo_kernel_dispatches_fused_total"]["samples"][0][2] < 1
             or not any(f in n for n in under for f in KERNEL_FUNCTIONS["closure"]) or len(timed) < 5):
         raise AssertionError(f"cli with obs flags: spans {sorted(names)[:20]}, metric families {len(fams)}, "
-                             f"under nemo:fused {sorted(under)}, timing lines {timed}")
+                             f"under kernel:fused {sorted(under)}, timing lines {timed}")
     out["cli"] = {"wall_s": round(cli_s, 4), "metric_families": len(fams), "spans": len(names)}
     log(f"cli with --trace --metrics-out --timings --profile: {cli_s:.2f} s with the interpreter's start; "
-        f"{len(fams)} metric families parse, the trace has phase and kernel spans, the capture K1 under nemo:fused")
+        f"{len(fams)} metric families parse, the trace has phase and kernel spans, the capture K1 under kernel:fused")
 
     # (d) The cost of a disabled span() on this host.
     n = 1_000_000
@@ -4680,7 +4685,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 def labelled_kernels(events: list[dict], label: str) -> set[str]:
     """Names of the device kernels whose launch (a CUDA runtime or driver
     call, linked by its correlation id) lies inside a CPU range named
-    ``label`` (a ``nemo:<verb>`` record_function) on the same thread."""
+    ``label`` (a ``kernel:<verb>`` span) on the same thread."""
     ranges = [(e["tid"], e["ts"], e["ts"] + e.get("dur", 0)) for e in events
               if e.get("name") == label and e.get("cat") != "gpu_user_annotation"]
     launched = {

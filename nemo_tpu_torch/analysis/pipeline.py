@@ -29,6 +29,7 @@ import torch
 from nemo_tpu_torch import obs
 from nemo_tpu_torch.analysis import delta
 from nemo_tpu_torch.backend.base import GraphBackend
+from nemo_tpu_torch.device import stream_sync
 from nemo_tpu_torch.ingest import adapters
 from nemo_tpu_torch.ingest.molly import MollyOutput
 from nemo_tpu_torch.report.writer import Reporter
@@ -113,12 +114,21 @@ def oracle_tree_diff(oracle: dict[str, bytes], tree: dict[str, bytes]) -> list[s
     return bad
 
 
+def _engine_stats(molly: MollyOutput) -> dict | None:
+    """The C++ engine's counters of the corpus it parsed (read_s, parse_s,
+    files, bytes), or None where no engine parsed it."""
+    return getattr(getattr(molly, "native_corpus", None), "engine_stats", None)
+
+
 def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, ingest: str,
-                     result_cache: dict, stream: dict | None = None, backend: GraphBackend | None = None) -> None:
+                     result_cache: dict, stream: dict | None = None, backend: GraphBackend | None = None,
+                     ingest_engine: dict | None = None) -> None:
     """telemetry.json next to debugging.json: the phase walls, the figure
     pipeline's stats (the frontend's "Run telemetry" section), which ingest
     served the corpus, what the result cache did and, for a map of several
-    segments, the stream's and the checkpoints' record; then, as the JAX
+    segments, the stream's and the checkpoints' record; where the C++
+    engine parsed the corpus, its counters (``ingest_engine``: sums over
+    the files, so not phases of ``timings``); then, as the JAX
     package writes them, the process's metrics snapshot, the trace id of
     the active trace (None when untraced), once the backend module is
     loaded in this process, its per-signature kernel cost table and the
@@ -138,6 +148,8 @@ def _write_telemetry(report_dir: str, timings: dict, figure_stats: dict | None, 
     }
     if stream:
         doc["stream"] = stream
+    if ingest_engine:
+        doc["ingest_engine"] = {k: round(v, 6) if isinstance(v, float) else v for k, v in ingest_engine.items()}
     doc["metrics"] = obs.metrics.snapshot()
     doc["trace_id"] = obs.trace_id()
     tb = sys.modules.get("nemo_tpu_torch.backend.torch_backend")
@@ -278,7 +290,7 @@ def _resolve_ingest_mode(backend: GraphBackend, ingest: str, save_corpus_path: s
     return True
 
 
-def _ingest(fault_inj_out: str, use_packed: bool, store, injector: str | None = None
+def _ingest(fault_inj_out: str, use_packed: bool, store, injector: str | None = None, timer=None
             ) -> tuple[MollyOutput, str, dict | None]:
     """One corpus directory -> (MollyOutput, which ingest served it, the
     pre-parse source snapshot when the corpus was parsed with the store on,
@@ -295,7 +307,8 @@ def _ingest(fault_inj_out: str, use_packed: bool, store, injector: str | None = 
     injector's loader re-parses it with per-run quarantine, logged and
     recorded as ``python_quarantine_fallback`` (``NEMO_QUARANTINE=off``
     raises instead).  The python mode reads objects and never touches the
-    store."""
+    store.  ``timer`` (the report's PhaseTimer) gets the engine's phases
+    (ingest/native.py:load_molly_output_packed)."""
     if not use_packed:
         return adapters.load_output(fault_inj_out, injector), "python", None
     from nemo_tpu_torch.ingest.native import load_molly_output_packed
@@ -311,7 +324,7 @@ def _ingest(fault_inj_out: str, use_packed: bool, store, injector: str | None = 
     if not inj.native_capable:
         return inj.load(fault_inj_out), "python", snap
     try:
-        molly, kind = load_molly_output_packed(fault_inj_out), "native"
+        molly, kind = load_molly_output_packed(fault_inj_out, timer), "native"
     except Exception as ex:
         if not quarantine_enabled():
             raise
@@ -482,7 +495,8 @@ def run_debug_dirs(dirs: list[str], results_root: str, make_backend=None, prefet
     for r, backend in zip(results, backends):
         r.figure_stats = stats
         _flush_result_cache(r)
-        _write_telemetry(r.report_dir, r.timings, stats, r.ingest, r.result_cache, r.stream, backend)
+        _write_telemetry(r.report_dir, r.timings, stats, r.ingest, r.result_cache, r.stream, backend,
+                         _engine_stats(r.molly))
     return results
 
 
@@ -546,7 +560,8 @@ def run_debug(
     ``torch.profiler.profile`` (CPU activity, and CUDA activity on the
     card), exported as a Chrome trace into that directory
     (``tensorboard_trace_handler``: ``<host>_<pid>.<ts>.pt.trace.json``);
-    each kernel dispatch carries a ``nemo:<verb>`` label there.  A
+    the program's own spans label it: each phase ``phase:<name>`` and each
+    kernel dispatch ``kernel:<verb>`` (obs/trace.py:profiler_label).  A
     profiled run never consults the result cache: the point of a profile
     is watching the kernels run."""
     from nemo_tpu_torch.analysis import stream as stream_mod
@@ -559,15 +574,14 @@ def run_debug(
 
         backend = TorchBackend()
     dev = getattr(getattr(backend, "executor", None), "device", None)
-    sync = (lambda: torch.cuda.current_stream(dev).synchronize()) if dev is not None and dev.type == "cuda" else None
-    timer = PhaseTimer(sync=sync)
+    timer = PhaseTimer(sync=stream_sync(dev))
     use_packed = _resolve_ingest_mode(backend, ingest, save_corpus_path)
     store = resolve_store(corpus_cache)
 
     snap = None
     with timer.phase("ingest"):
         if molly is None:
-            molly, ingest_kind, snap = _ingest(fault_inj_out, use_packed, store, injector)
+            molly, ingest_kind, snap = _ingest(fault_inj_out, use_packed, store, injector, timer)
         else:
             ingest_kind = getattr(molly, "ingest_kind", "prefetched")
     if snap is not None:
@@ -600,7 +614,8 @@ def run_debug(
         if hit:
             timings = timer.as_dict()
             cache_doc = {"state": "report_hit"}
-            _write_telemetry(this_results_dir, timings, None, ingest_kind, cache_doc, backend=backend)
+            _write_telemetry(this_results_dir, timings, None, ingest_kind, cache_doc, backend=backend,
+                             ingest_engine=_engine_stats(molly))
             return DebugResult(molly=molly, report_dir=this_results_dir, timings=timings, figure_stats=None,
                                ingest=ingest_kind, result_cache=cache_doc)
 
@@ -781,45 +796,50 @@ def run_debug(
             run.inter_proto_missing = red.inter_miss.get(f, [])
             run.union_proto_missing = red.union_miss.get(f, [])
 
-        # Reporting (main.go:239-292).
+        # Reporting (main.go:239-292), in three nested phases: the assets,
+        # the JSON documents, the figures.
         fig_stats = None
         with timer.phase("report"):
             reporter = Reporter(scheduler=render_scheduler)
-            reporter.prepare(results_root, this_results_dir)
-            # Each run entry carries the chosen good-run iteration, so the
-            # frontend points its diff layers at the right run.  Written entry
-            # by entry: packed-first runs splice their strings as they are.
-            with open(os.path.join(this_results_dir, "debugging.json"), "w", encoding="utf-8") as fh:
-                fh.write("[")
-                for j, r in enumerate(runs):
-                    if j:
-                        fh.write(", ")
-                    fh.write(_run_json_str(r, good_iter))
-                fh.write("]")
-            # The ranked repairs; none from a backend without synthesis hooks.
-            if red.repairs is not None:
-                with open(os.path.join(this_results_dir, "repairs.json"), "w", encoding="utf-8") as fh:
-                    json.dump(red.repairs, fh, indent=1)
-            # The runs that failed to parse: the frontend's "Degraded runs".
-            if molly.quarantined:
-                with open(os.path.join(this_results_dir, "quarantine.json"), "w", encoding="utf-8") as fh:
-                    json.dump(sorted(molly.quarantined, key=lambda r: r["position"]), fh, indent=1)
-            # Cached segments' figures and those rendered with a checkpoint
-            # come in with the staging directory (same renderer version, part
-            # of the key), then the rest render into it.  A name both would
-            # write (an iteration in two segments) is rendered, never written
-            # through a staged file.
-            staged_parts = [p for _, p in cached] + list(on_disk.values())
-            if staged_parts:
-                rendered = {f for p in to_render.values() for f in p.fig_files}
-                for name in {f for p in staged_parts for f in p.fig_files} & rendered:
-                    os.remove(os.path.join(stage_dir, name))
-                os.makedirs(stage_dir, exist_ok=True)
-                os.rmdir(reporter.figures_dir)
-                os.rename(stage_dir, reporter.figures_dir)
-            _generate_map_figures(reporter, fig_iters, mo)
-            if render_scheduler is None:
-                fig_stats = reporter.scheduler.drain()
+            with timer.phase("report.assets"):
+                reporter.prepare(results_root, this_results_dir)
+            with timer.phase("report.json"):
+                # Each run entry carries the chosen good-run iteration, so the
+                # frontend points its diff layers at the right run.  Written
+                # entry by entry: packed-first runs splice their strings as
+                # they are.
+                with open(os.path.join(this_results_dir, "debugging.json"), "w", encoding="utf-8") as fh:
+                    fh.write("[")
+                    for j, r in enumerate(runs):
+                        if j:
+                            fh.write(", ")
+                        fh.write(_run_json_str(r, good_iter))
+                    fh.write("]")
+                # The ranked repairs; none from a backend without synthesis hooks.
+                if red.repairs is not None:
+                    with open(os.path.join(this_results_dir, "repairs.json"), "w", encoding="utf-8") as fh:
+                        json.dump(red.repairs, fh, indent=1)
+                # The runs that failed to parse: the frontend's "Degraded runs".
+                if molly.quarantined:
+                    with open(os.path.join(this_results_dir, "quarantine.json"), "w", encoding="utf-8") as fh:
+                        json.dump(sorted(molly.quarantined, key=lambda r: r["position"]), fh, indent=1)
+            with timer.phase("report.figures"):
+                # Cached segments' figures and those rendered with a
+                # checkpoint come in with the staging directory (same
+                # renderer version, part of the key), then the rest render
+                # into it.  A name both would write (an iteration in two
+                # segments) is rendered, never written through a staged file.
+                staged_parts = [p for _, p in cached] + list(on_disk.values())
+                if staged_parts:
+                    rendered = {f for p in to_render.values() for f in p.fig_files}
+                    for name in {f for p in staged_parts for f in p.fig_files} & rendered:
+                        os.remove(os.path.join(stage_dir, name))
+                    os.makedirs(stage_dir, exist_ok=True)
+                    os.rmdir(reporter.figures_dir)
+                    os.rename(stage_dir, reporter.figures_dir)
+                _generate_map_figures(reporter, fig_iters, mo)
+                if render_scheduler is None:
+                    fig_stats = reporter.scheduler.drain()
 
         timings = timer.as_dict()
         result = DebugResult(molly=molly, report_dir=this_results_dir, timings=timings, figure_stats=fig_stats,
@@ -842,7 +862,8 @@ def run_debug(
                 with timer.phase("cache_publish"):
                     _flush_result_cache(result)
                 result.timings = timings = timer.as_dict()
-        _write_telemetry(this_results_dir, timings, fig_stats, ingest_kind, cache_doc, stream_doc, backend)
+        _write_telemetry(this_results_dir, timings, fig_stats, ingest_kind, cache_doc, stream_doc, backend,
+                         _engine_stats(molly))
         return result
     finally:
         shutil.rmtree(stage_dir, ignore_errors=True)

@@ -51,7 +51,6 @@ per-graph flags; no graph is repacked.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import resource
 import threading
@@ -117,23 +116,11 @@ DIFF_OFFSET = 2000
 _log = _obs_log.get_logger("nemo.backend")
 
 
-def _device_annotation(name: str):
-    """A ``torch.profiler.record_function`` label around one kernel
-    dispatch, so a profiler capture (``run_debug(profile_dir=...)``, the
-    CLI's ``--profile``) carries the obs span's name on the device
-    timeline: the counterpart of the JAX package's ``TraceAnnotation``.
-    Entered only while a capture is running: ``record_function`` costs
-    host time even with no profiler."""
-    if torch._C._autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
 #: Per-signature kernel cost table: one record per (verb, input shapes and
-#: dtypes, statics) this process dispatched, with the JAX package's fields
-#: (``jax_backend.py:_record_kernel_cost``).  ``flops`` and
-#: ``bytes_accessed`` are None (they come from XLA's cost analysis, which
-#: eager PyTorch has no counterpart of) and ``compiled`` is False (no jit).
+#: dtypes, statics) this process dispatched: the JAX package's fields
+#: (``jax_backend.py:_record_kernel_cost``) but ``flops``,
+#: ``bytes_accessed`` (XLA's cost analysis, which eager PyTorch has no
+#: counterpart of) and ``compiled`` (no jit).
 _KERNEL_COSTS: dict[tuple, dict] = {}
 
 #: Dispatch tick of the memory-watermark throttle.
@@ -177,10 +164,7 @@ def _record_kernel_cost(verb: str, sig: tuple, wall_s: float, pad_rows: int) -> 
                 "verb": verb,
                 "shapes": " ".join(f"{n}[{','.join(map(str, s))}]{d}" for n, s, d in sig[1]),
                 "statics": dict(sig[2]),
-                "flops": None,
-                "bytes_accessed": None,
                 "first_dispatch_s": wall_s,
-                "compiled": False,
                 "dispatches": 0,
                 "pad_rows": int(pad_rows),
             }
@@ -564,11 +548,11 @@ class TorchExecutor:
                 args = [None if arrays.get(n) is None and n in self.OPTIONAL_ARRAYS
                         else _on_device(arrays[n], self.device) for n in array_names]
             t_disp = time.perf_counter()
+            # Also the dispatch's label on a running profiler capture.
             with obs.span(f"kernel:{verb}", **span_attrs):
-                with _device_annotation(f"nemo:{verb}"):
-                    out = fn(*args, *statics)
-                    if mesh is not None:
-                        out = mesh_mod.finish_rows(mesh, out, row0 and mesh.index > 0, _summary_layout(params))
+                out = fn(*args, *statics)
+                if mesh is not None:
+                    out = mesh_mod.finish_rows(mesh, out, row0 and mesh.index > 0, _summary_layout(params))
             wall_s = time.perf_counter() - t_disp
             first = _record_kernel_cost(
                 verb, _cost_signature(verb, arrays, params), wall_s,
@@ -590,7 +574,6 @@ class TorchExecutor:
                     verb=verb,
                     wall_ms=round(wall_s * 1000.0, 1),
                     threshold_ms=slow_ms,
-                    compiled=False,
                     rows=span_attrs.get("rows"),
                     v=int(params["v"]) if "v" in params else None,
                     upload_bytes=upload,

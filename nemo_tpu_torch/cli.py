@@ -67,7 +67,8 @@ trace.  ``--metrics-out FILE`` writes the process's obs metrics registry
 as Prometheus text after the run (``-``: stdout).  ``--timings`` prints
 each phase's wall.  ``--profile DIR`` captures the map of each report
 under ``torch.profiler`` (CUDA activity on the card) into DIR as a Chrome
-trace, each kernel dispatch labelled ``nemo:<verb>``; a profiled run
+trace, labelled by the program's own spans: each phase ``phase:<name>``,
+each kernel dispatch ``kernel:<verb>``; a profiled run
 bypasses the result cache.  The JSON log records (obs/log.py) go to
 stderr (``NEMO_LOG_LEVEL``, ``NEMO_LOG_FILE``).
 
@@ -295,8 +296,8 @@ def main(argv: list[str] | None = None) -> int:
                          "with POST /query (default 0: off)")
     ap.add_argument("--timings", action="store_true", help="print per-phase wall-clock timings")
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="capture a torch.profiler trace of the analysis phases into DIR "
-                         "(view with TensorBoard or ui.perfetto.dev)")
+                    help="capture a torch.profiler trace of the analysis phases into DIR, labelled by the "
+                         "program's phase:<name> and kernel:<verb> spans (view with TensorBoard or ui.perfetto.dev)")
     ap.add_argument("--trace", metavar="FILE", default=None,
                     help="write a Chrome-trace-event JSON of host spans (pipeline phases, kernel dispatches, "
                          "render) to FILE — open it at ui.perfetto.dev.  Equivalent env: NEMO_TRACE.  "
@@ -522,6 +523,9 @@ def _query_main(argv: list[str]) -> int:
     except QueryError as ex:
         print(f"query error: {ex}", file=sys.stderr)
         return 2
+    # The walls (stats["timings"]) differ between identical runs: the
+    # printed document is the answer and its cache bookkeeping only.
+    doc["stats"].pop("timings", None)
     json.dump(doc, sys.stdout, indent=2, sort_keys=True)
     print()
     return 0

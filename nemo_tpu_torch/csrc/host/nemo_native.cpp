@@ -18,6 +18,7 @@
 // external dependencies (self-contained minimal JSON parser below).
 
 #include <charconv>
+#include <chrono>
 #include <clocale>
 #include <cmath>
 #include <cstdint>
@@ -906,13 +907,28 @@ void validate_utf8(const std::string& s, const std::string& path) {
   }
 }
 
-std::string read_file(const std::string& path) {
+double seconds_since(std::chrono::steady_clock::time_point t0) {
+  return std::chrono::duration<double>(std::chrono::steady_clock::now() - t0).count();
+}
+
+// What one corpus's read_file calls cost: their summed wall (open, read and
+// UTF-8 check), the files read and their bytes.
+struct ReadStats {
+  double read_s = 0;
+  int64_t files = 0, bytes = 0;
+};
+
+std::string read_file(const std::string& path, ReadStats& st) {
+  auto t0 = std::chrono::steady_clock::now();
   std::ifstream f(path, std::ios::binary);
   if (!f) throw std::runtime_error("cannot open " + path);
   std::ostringstream ss;
   ss << f.rdbuf();
   std::string out = ss.str();
   validate_utf8(out, path);
+  st.read_s += seconds_since(t0);
+  st.files += 1;
+  st.bytes += (int64_t)out.size();
   return out;
 }
 
@@ -929,8 +945,8 @@ std::string py_str_of(const JVal* v) {
   }
 }
 
-RawGraph parse_prov(const std::string& path, long iteration, const char* cond) {
-  JVal doc = JsonParser(read_file(path)).parse();
+RawGraph parse_prov(const std::string& path, long iteration, const char* cond, ReadStats& st) {
+  JVal doc = JsonParser(read_file(path, st)).parse();
   if (doc.type != JVal::OBJ) throw std::runtime_error(path + ": provenance root not an object");
   RawGraph g;
   std::string prefix = "run_" + std::to_string(iteration) + "_" + cond + "_";
@@ -1172,6 +1188,10 @@ struct Corpus {
   std::vector<uint8_t> success;
   std::vector<std::string> run_heads;  // per run, canonical head JSON fragment
   std::string error;  // empty on success
+  // The engine's own wall, split: read_file's share and the rest (JSON
+  // parse, provenance transform, packing).
+  ReadStats read;
+  double parse_s = 0;
 };
 
 void pack_cond(std::vector<RawGraph>& graphs, int64_t v, int64_t e, Corpus& c,
@@ -1219,6 +1239,7 @@ void pack_cond(std::vector<RawGraph>& graphs, int64_t v, int64_t e, Corpus& c,
 }
 
 Corpus* ingest(const std::string& dir, bool with_heads) {
+  auto t0 = std::chrono::steady_clock::now();
   auto c = std::make_unique<Corpus>();
   // Pin "pre"/"post" to table ids 0/1 (mirror of graphs/packed.py
   // CorpusVocab.__post_init__): the condition-table ids are static args of
@@ -1226,7 +1247,7 @@ Corpus* ingest(const std::string& dir, bool with_heads) {
   // corpus-content-independent.
   c->tables.intern("pre");
   c->tables.intern("post");
-  JVal runs = JsonParser(read_file(dir + "/runs.json")).parse();
+  JVal runs = JsonParser(read_file(dir + "/runs.json", c->read)).parse();
   if (runs.type != JVal::ARR) throw std::runtime_error("runs.json: root not an array");
   c->n_runs = (int64_t)runs.arr.size();
 
@@ -1254,9 +1275,9 @@ Corpus* ingest(const std::string& dir, bool with_heads) {
     if (with_heads) c->run_heads.push_back(build_run_head(r));
     // Provenance files are indexed by position i, not iteration (molly.go:59-60).
     pre_graphs.push_back(
-        parse_prov(dir + "/run_" + std::to_string(i) + "_pre_provenance.json", iter, "pre"));
+        parse_prov(dir + "/run_" + std::to_string(i) + "_pre_provenance.json", iter, "pre", c->read));
     post_graphs.push_back(
-        parse_prov(dir + "/run_" + std::to_string(i) + "_post_provenance.json", iter, "post"));
+        parse_prov(dir + "/run_" + std::to_string(i) + "_post_provenance.json", iter, "post", c->read));
   }
 
   int32_t max_n = 1, max_e = 1, max_lp = 0;
@@ -1274,6 +1295,7 @@ Corpus* ingest(const std::string& dir, bool with_heads) {
   // graphs in run order, then all post graphs — so ids are bit-identical.
   pack_cond(pre_graphs, c->v, c->e, *c, c->cond[0]);
   pack_cond(post_graphs, c->v, c->e, *c, c->cond[1]);
+  c->parse_s = seconds_since(t0) - c->read.read_s;
   return c.release();
 }
 
@@ -1380,9 +1402,19 @@ const char* nemo_run_head_json(void* h, int run) {
   return c->run_heads[(size_t)run].c_str();
 }
 
+// The engine's counters of the corpus: secs [read_s, parse_s], whose sum is
+// the engine's wall; counts [files, bytes] read.
+void nemo_ingest_stats(void* h, double* secs, int64_t* counts) {
+  auto* c = (Corpus*)h;
+  secs[0] = c->read.read_s;
+  secs[1] = c->parse_s;
+  counts[0] = c->read.files;
+  counts[1] = c->read.bytes;
+}
+
 void nemo_free(void* h) { delete (Corpus*)h; }
 
 // ABI version for the ctypes wrapper to sanity-check.
-int nemo_abi_version() { return 5; }
+int nemo_abi_version() { return 6; }
 
 }  // extern "C"

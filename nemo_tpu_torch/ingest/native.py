@@ -1,5 +1,5 @@
 """ctypes bindings for the port's native C++ ingestion engine
-(``csrc/host/nemo_native.cpp``, C ABI version 5): Molly JSON straight to
+(``csrc/host/nemo_native.cpp``, C ABI version 6): Molly JSON straight to
 packed batch arrays, with no per-goal Python objects.
 
 A copy of the JAX package's ``ingest/native.py``, trimmed to the
@@ -10,10 +10,16 @@ back to the Python loader.  The arrays, vocabularies, node ids and
 serialized strings equal the Python loader's (``ingest/molly.py`` +
 ``graphs/packed.py:pack_graph``, interning all pre graphs in run order,
 then all post), which ``tests/test_torch_native.py`` checks.
+
+The engine counts its own wall per corpus (``nemo_ingest_stats``): the
+time in its file reads (open, read, UTF-8 check) against the rest (JSON
+parse, provenance transform, packing), and the files and bytes read
+(``NativeCorpus.engine_stats``, telemetry.json's ``ingest_engine``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -24,7 +30,7 @@ import numpy as np
 from nemo_tpu_torch.ingest.datatypes import FailureSpec, Message, Model, RunData
 from nemo_tpu_torch.utils.cbuild import HOST_SRC_DIR, NativeLib
 
-ABI_VERSION = 5
+ABI_VERSION = 6
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -41,6 +47,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.nemo_prov_json.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.nemo_run_head_json.restype = ctypes.c_char_p
     lib.nemo_run_head_json.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.nemo_ingest_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double),
+                                      ctypes.POINTER(ctypes.c_int64)]
     lib.nemo_free.argtypes = [ctypes.c_void_p]
 
 
@@ -131,6 +139,10 @@ class NativeCorpus:
     node_ids_post: list[list[str]]
     #: live C++ handle for lazy string access (keep_handle=True), else None
     handle: CorpusHandle | None = None
+    #: the engine's counters of this corpus: read_s and parse_s (their sum
+    #: is the engine's wall), files and bytes read; None where no engine
+    #: parsed it (a corpus-store load)
+    engine_stats: dict | None = None
 
     def cond(self, name: str) -> NativeCondBatch:
         return self.pre if name == "pre" else self.post
@@ -193,23 +205,35 @@ def _copy_cond(lib, handle, cond: int, b: int, v: int, e: int) -> NativeCondBatc
     return NativeCondBatch(**arrs)
 
 
-def ingest_native(output_dir: str, with_node_ids: bool = True, keep_handle: bool = False) -> NativeCorpus:
-    """Parse and pack a Molly output directory entirely in C++.
+def _phase(timer, name: str):
+    """``timer.phase(name)`` (utils/timing.py:PhaseTimer), or nothing
+    without a timer."""
+    return contextlib.nullcontext() if timer is None else timer.phase(name)
 
-    With ``keep_handle`` the C++ corpus stays alive on the result
-    (``corpus.handle``) for lazy per-run node ids, prov JSON and head
-    fragments (heads are built only then).  Raises RuntimeError when the
-    engine cannot be built or loaded, or rejects the corpus."""
+
+def _engine(output_dir: str, keep_handle: bool, timer=None) -> CorpusHandle:
+    """The engine's parse of one directory (phase ``ingest.engine``): the
+    live C++ corpus.  Raises RuntimeError when the engine cannot be built
+    or loaded, or rejects the corpus."""
     lib = NATIVE.load()
     err = ctypes.create_string_buffer(1024)
-    handle = lib.nemo_ingest(os.fsencode(output_dir), err, len(err), int(keep_handle))
+    with _phase(timer, "ingest.engine"):
+        handle = lib.nemo_ingest(os.fsencode(output_dir), err, len(err), int(keep_handle))
     if not handle:
         raise RuntimeError(f"native ingestion failed: {err.value.decode()}")
-    keeper = CorpusHandle(lib, handle)
+    return CorpusHandle(lib, handle)
+
+
+def _unpack(keeper: CorpusHandle, with_node_ids: bool, keep_handle: bool) -> NativeCorpus:
+    """The arrays, vocabularies and counters copied out of a live C++
+    corpus; the corpus is freed unless ``keep_handle``."""
+    lib, handle = keeper._lib, keeper._live()
     try:
         dims = (ctypes.c_int64 * 9)()
         lib.nemo_dims(handle, dims)
         b, v, e, n_tables, n_labels, n_times, pre_tid, post_tid, max_depth = (int(x) for x in dims)
+        secs, counts = (ctypes.c_double * 2)(), (ctypes.c_int64 * 2)()
+        lib.nemo_ingest_stats(handle, secs, counts)
         iteration = np.empty((b,), np.int32)
         success = np.empty((b,), np.uint8)
         lib.nemo_runs(handle, iteration.ctypes.data_as(ctypes.c_void_p), success.ctypes.data_as(ctypes.c_void_p))
@@ -237,10 +261,21 @@ def ingest_native(output_dir: str, with_node_ids: bool = True, keep_handle: bool
             node_ids_pre=ids_pre,
             node_ids_post=ids_post,
             handle=keeper if keep_handle else None,
+            engine_stats={"read_s": secs[0], "parse_s": secs[1], "files": counts[0], "bytes": counts[1]},
         )
     finally:
         if not keep_handle:
             keeper.close()
+
+
+def ingest_native(output_dir: str, with_node_ids: bool = True, keep_handle: bool = False) -> NativeCorpus:
+    """Parse and pack a Molly output directory entirely in C++.
+
+    With ``keep_handle`` the C++ corpus stays alive on the result
+    (``corpus.handle``) for lazy per-run node ids, prov JSON and head
+    fragments (heads are built only then).  Raises RuntimeError when the
+    engine cannot be built or loaded, or rejects the corpus."""
+    return _unpack(_engine(output_dir, keep_handle), with_node_ids, keep_handle)
 
 
 class RawProv:
@@ -341,26 +376,31 @@ class LazyRunData(RunData):
         return {k: [list(r) for r in tables[k]] for k in ("pre", "post") if k in tables}
 
 
-def load_molly_output_packed(output_dir: str):
+def load_molly_output_packed(output_dir: str, timer=None):
     """Packed-first Molly ingest: run metadata from runs.json by the Python
     loader's rules, both provenance files of every run through the C++
     engine.  Returns a MollyOutput whose runs carry RawProv placeholders and
-    which exposes the packed arrays as ``.native_corpus``."""
+    which exposes the packed arrays as ``.native_corpus``.  ``timer`` (a
+    PhaseTimer) gets two phases: ``ingest.engine``, the engine's call,
+    and ``ingest.unpack``, the rest (copy-out, vocabularies, the runs.json
+    parse and the per-run objects)."""
     from nemo_tpu_torch.ingest import molly
     from nemo_tpu_torch.ingest.molly import MollyOutput
 
-    corpus = ingest_native(output_dir, with_node_ids=False, keep_handle=True)
-    out = MollyOutput(run_name=os.path.basename(os.path.normpath(output_dir)), output_dir=output_dir)
-    with open(os.path.join(output_dir, "runs.json"), "r", encoding="utf-8") as f:
-        raw_runs = json.load(f)
-    if len(raw_runs) != corpus.n_runs:
-        raise RuntimeError(f"native corpus has {corpus.n_runs} runs but runs.json has {len(raw_runs)}")
-    out.runs = [LazyRunData(r, corpus, i) for i, r in enumerate(raw_runs)]
-    for i, run in enumerate(out.runs):
-        molly.attach_run_metadata(out, run, tables=run.holds_tables)
-        run.pre_prov = RawProv(corpus, "pre", i)
-        run.post_prov = RawProv(corpus, "post", i)
-    out.native_corpus = corpus
+    keeper = _engine(output_dir, keep_handle=True, timer=timer)
+    with _phase(timer, "ingest.unpack"):
+        corpus = _unpack(keeper, with_node_ids=False, keep_handle=True)
+        out = MollyOutput(run_name=os.path.basename(os.path.normpath(output_dir)), output_dir=output_dir)
+        with open(os.path.join(output_dir, "runs.json"), "r", encoding="utf-8") as f:
+            raw_runs = json.load(f)
+        if len(raw_runs) != corpus.n_runs:
+            raise RuntimeError(f"native corpus has {corpus.n_runs} runs but runs.json has {len(raw_runs)}")
+        out.runs = [LazyRunData(r, corpus, i) for i, r in enumerate(raw_runs)]
+        for i, run in enumerate(out.runs):
+            molly.attach_run_metadata(out, run, tables=run.holds_tables)
+            run.pre_prov = RawProv(corpus, "pre", i)
+            run.post_prov = RawProv(corpus, "post", i)
+        out.native_corpus = corpus
     return out
 
 

@@ -15,8 +15,17 @@ Clock: event timestamps are microseconds of CLOCK_MONOTONIC
 process's earliest event and re-bases an adopted clock domain from
 another machine.
 
-Disabled-mode cost: ``span()`` reads one module global and returns a shared
-null context manager: no allocation, no string work.
+Disabled-mode cost: ``span()`` reads two module globals, asks the
+profiler hook (when installed) whether a capture is running, and returns a
+shared null context manager: no allocation, no string work.
+
+Profiler labels: while a ``torch.profiler`` capture is running, every span
+(and every ``utils/timing.py`` phase, as ``phase:<name>``) also opens a
+label of its own name on the profiler's timeline, so a capture names the
+program's innermost open span at each instant.  This module stays stdlib
+only: ``nemo_tpu_torch/device.py``, which imports torch, installs the
+check and the label (``set_profiler_hook``).  With no capture running no
+label is entered.
 
 Thread safety: spans are appended under a lock; thread ids are attributed
 via ``threading.get_ident`` with the thread's name exported as Perfetto
@@ -37,6 +46,8 @@ __all__ = [
     "enabled",
     "export",
     "finish",
+    "profiler_label",
+    "set_profiler_hook",
     "span",
     "start_trace",
     "trace_id",
@@ -216,15 +227,17 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    """Live span context manager (only ever built when tracing is on or a
-    flight recorder is armed)."""
+    """Live span context manager (only ever built when tracing is on, a
+    flight recorder is armed or a profiler capture is running).  With no
+    recorder (a capture alone) it is the profiler label only."""
 
-    __slots__ = ("_tracer", "_name", "_args", "_start")
+    __slots__ = ("_tracer", "_name", "_args", "_start", "_label")
 
-    def __init__(self, tracer: Tracer, name: str, args: dict) -> None:
+    def __init__(self, tracer: Tracer | None, name: str, args: dict, label=None) -> None:
         self._tracer = tracer
         self._name = name
         self._args = args
+        self._label = label
 
     def set(self, **attrs) -> None:
         """Attach attributes discovered mid-span, merged into the span's
@@ -232,16 +245,21 @@ class _Span:
         self._args.update(attrs)
 
     def __enter__(self):
+        if self._label is not None:
+            self._label.__enter__()
         self._start = _now_us()
         return self
 
     def __exit__(self, *exc):
         dur = _now_us() - self._start
         args = self._args or None
-        self._tracer.add_span(self._name, self._start, dur, args)
+        if self._tracer is not None:
+            self._tracer.add_span(self._name, self._start, dur, args)
         f = _FLIGHT
         if f is not None and f is not self._tracer:
             f.add_span(self._name, self._start, dur, args)
+        if self._label is not None:
+            self._label.__exit__(*exc)
         return False
 
 
@@ -258,6 +276,27 @@ _FLIGHT = None
 def set_flight_recorder(rec) -> None:
     global _FLIGHT
     _FLIGHT = rec
+
+
+# The profiler hook, (active, label): ``active()`` says whether a profiler
+# capture is running, ``label(name)`` is a context manager that puts
+# ``name`` on its timeline.  None until nemo_tpu_torch/device.py installs it.
+_PROFILER = None
+
+
+def set_profiler_hook(active, label) -> None:
+    """Install the profiler check and label."""
+    global _PROFILER
+    _PROFILER = (active, label)
+
+
+def profiler_label(name: str):
+    """A label ``name`` on a running profiler capture's timeline, else the
+    shared null context manager."""
+    p = _PROFILER
+    if p is not None and p[0]():
+        return p[1](name)
+    return _NULL
 
 
 def enabled() -> bool:
@@ -277,14 +316,15 @@ def trace_id() -> str | None:
 def span(name: str, **attrs):
     """Context manager bracketing one unit of work.  Nested uses on one
     thread render as a nested flame in Perfetto.  Near-free when tracing is
-    disabled."""
+    disabled and no profiler capture is running."""
     t = _TRACER
-    if t is None:
-        f = _FLIGHT
-        if f is None:
-            return _NULL
-        return _Span(f, name, attrs)
-    return _Span(t, name, attrs)
+    rec = t if t is not None else _FLIGHT
+    p = _PROFILER
+    if p is not None and p[0]():
+        return _Span(rec, name, attrs, p[1](name))
+    if rec is None:
+        return _NULL
+    return _Span(rec, name, attrs)
 
 
 def add_span(name: str, start_us: int, dur_us: int, args: dict | None = None) -> None:

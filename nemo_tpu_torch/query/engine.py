@@ -24,6 +24,13 @@ JAX package's do: the device's session lane models (EWMA feedback), work
 stealing between the two lanes, the dispatch deadline and the breaker
 (on the CPU a recorded failover to the host; on the card the failure is
 raised); ``serial`` keeps its plans but runs them on the caller's thread.
+
+A query's wall is staged by a PhaseTimer (utils/timing.py), returned as the
+document's ``stats["timings"]``: ``query.plan``; ``query.prep`` (lane
+crossover, vocabulary, name validation, graph views, bind, bucketize);
+``query.eval_host`` and ``query.eval_device`` (each bucket's execute on its
+lane: time plane, uploads, waves, the copy back); ``query.extract``
+(per-run values, merge, finalize).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 from nemo_tpu_torch import obs
 from nemo_tpu_torch.query.lang import HOP_ADJ, Query, QueryError
 from nemo_tpu_torch.query.plan import QueryPlan, plan_query
+from nemo_tpu_torch.utils.timing import PhaseTimer
 
 #: The seeded crossover: ``derived_query_host_work`` with no measured
 #: profile (host 1e-6 s a unit; sparse_device a fixed 100,000 x (1e-6 -
@@ -349,6 +357,7 @@ def map_segment_runs(
     pin_lanes: bool = False,
     routes: list | None = None,
     serial: bool = False,
+    timer: PhaseTimer | None = None,
 ) -> QueryPartial:
     """Map one segment's runs: bucketize their graphs (``graph_of(run) ->
     PackedGraph | None``), one job a bucket (verb ``query``, lanes
@@ -358,26 +367,30 @@ def map_segment_runs(
     the scheduler, ``pin_lanes`` pins each job to that lane (reason
     ``forced``).  ``routes``, when given, gets one record per bucket, as the
     bucket ran: rows, v, e, work, lane, reason (none for a dispatch the
-    scheduler abandoned past its deadline)."""
+    scheduler abandoned past its deadline).  ``timer`` gets the phases
+    ``query.prep``, ``query.eval_<lane>`` and ``query.extract``."""
     from nemo_tpu_torch.graphs.packed import bucketize
     from nemo_tpu_torch.kernels.build import thread_loads
     from nemo_tpu_torch.parallel import sched as sched_mod
 
-    selected = _filter_runs(runs, plan.run_filter)
-    part = QueryPartial(n_runs=len(selected))
-    rids, graphs = [], []
-    for r in selected:
-        g = graph_of(r)
-        if g is None or g.n_nodes == 0:
-            part.per_run[r.iteration] = _empty_value(plan.agg)
-            continue
-        rids.append(r.iteration)
-        graphs.append(g)
+    timer = timer or PhaseTimer()
+    with timer.phase("query.prep"):
+        selected = _filter_runs(runs, plan.run_filter)
+        part = QueryPartial(n_runs=len(selected))
+        rids, graphs = [], []
+        for r in selected:
+            g = graph_of(r)
+            if g is None or g.n_nodes == 0:
+                part.per_run[r.iteration] = _empty_value(plan.agg)
+                continue
+            rids.append(r.iteration)
+            graphs.append(g)
+        if rids:
+            bound = plan.bind(vocab)
+            batches = bucketize(rids, graphs)
     if not rids:
         return part
-    bound = plan.bind(vocab)
     num_tables = max(1, len(vocab.tables))
-    batches = bucketize(rids, graphs)
 
     def make_execute(batch, job):
         rows, work = job.rows, job.work
@@ -385,15 +398,16 @@ def map_segment_runs(
         def execute(lane: str, reason: str, stolen: bool) -> np.ndarray:
             obs.metrics.inc("kernel.dispatches.query")
             obs.metrics.inc("query.rows_scanned", rows)
-            tp = _time_plane(batch) if plan.needs_time else np.full((rows, batch.v), -1, dtype=np.int32)
-            if lane == "host":
-                cap = _eval_host(batch, tp, bound, num_tables)
-            else:
-                loads = thread_loads()
-                cold = sched_mod.first_dispatch("query", device)
-                cap = _eval_device(batch, tp, bound, num_tables, device)
-                if cold or thread_loads() != loads:
-                    job.wall_tainted = True
+            with timer.phase("query.eval_host" if lane == "host" else "query.eval_device"):
+                tp = _time_plane(batch) if plan.needs_time else np.full((rows, batch.v), -1, dtype=np.int32)
+                if lane == "host":
+                    cap = _eval_host(batch, tp, bound, num_tables)
+                else:
+                    loads = thread_loads()
+                    cold = sched_mod.first_dispatch("query", device)
+                    cap = _eval_device(batch, tp, bound, num_tables, device)
+                    if cold or thread_loads() != loads:
+                        job.wall_tainted = True
             if sched_mod.claim_dispatch():
                 obs.metrics.inc(f"query.route.{lane}")
                 if routes is not None:
@@ -417,8 +431,9 @@ def map_segment_runs(
     else:
         scheduler = sched_mod.HeterogeneousScheduler(sched_mod.session_models(device), device=device)
         caps = scheduler.run(jobs, serial=serial)
-    for batch, cap in zip(batches, caps):
-        part.per_run.update(_extract(plan, batch, cap, vocab))
+    with timer.phase("query.extract"):
+        for batch, cap in zip(batches, caps):
+            part.per_run.update(_extract(plan, batch, cap, vocab))
     return part
 
 
@@ -495,7 +510,9 @@ def execute_query(
     """Plan and execute one query over an ingested corpus on ``device``
     (None: cuda, which raises without a card).  Returns the result document
     with ``stats``: ``cache`` (``hit``, ``miss``, or ``off`` when the corpus
-    is not store-served) and ``segments_mapped``.
+    is not store-served), ``segments_mapped`` and ``timings`` (phase name ->
+    seconds, the module's docstring; on the card each phase ends with a
+    synchronize of the current stream).
 
     Two cache tiers in the result cache (``result_cache``: a root, ``off``,
     or None for ``NEMO_RESULT_CACHE``; ``use_cache=False`` skips both),
@@ -508,11 +525,12 @@ def execute_query(
     lane under the scheduler (:func:`map_segment_runs`'s ``pin_lanes``).
     ``routes`` and ``serial``: see :func:`map_segment_runs`."""
     from nemo_tpu_torch.analysis.delta import blob_cache_key, corpus_segments
-    from nemo_tpu_torch.device import resolve_device
+    from nemo_tpu_torch.device import resolve_device, stream_sync
     from nemo_tpu_torch.store.rcache import resolve_result_cache
 
     dev = resolve_device(device)
-    with obs.span("query:plan", agg=q.agg, patterns=len(q.patterns)):
+    timer = PhaseTimer(sync=stream_sync(dev))
+    with timer.phase("query.plan"):
         plan = plan_query(q)
     rc = resolve_result_cache(result_cache) if use_cache else None
     full_key = blob_cache_key("query", getattr(molly, "store_segments", None), {"plan": plan.key})
@@ -521,15 +539,16 @@ def execute_query(
         if blob is not None:
             obs.metrics.inc("query.cache.hit")
             doc = json.loads(blob.decode("utf-8"))
-            doc["stats"] = {"cache": "hit", "segments_mapped": 0}
+            doc["stats"] = {"cache": "hit", "segments_mapped": 0, "timings": timer.as_dict()}
             return doc
         obs.metrics.inc("query.cache.miss")
 
     with obs.span("query:execute", plan=plan.key[:12]):
-        qhw = derived_query_host_work(dev) if query_host_work is None else query_host_work
-        vocab = corpus_vocab(molly)
-        plan.validate_names(vocab)
-        graph_of = _graph_getter(plan, molly, vocab)
+        with timer.phase("query.prep"):
+            qhw = derived_query_host_work(dev) if query_host_work is None else query_host_work
+            vocab = corpus_vocab(molly)
+            plan.validate_names(vocab)
+            graph_of = _graph_getter(plan, molly, vocab)
         parts, mapped = [], 0
         for seg in corpus_segments(molly):
             pkey = None
@@ -544,16 +563,18 @@ def execute_query(
             obs.metrics.inc("query.partial.miss")
             part = map_segment_runs(plan, molly.runs[seg.start : seg.stop], vocab, graph_of, dev,
                                     query_host_work=qhw, pin_lanes=query_host_work is not None, routes=routes,
-                                    serial=serial)
+                                    serial=serial, timer=timer)
             mapped += 1
             if rc is not None and pkey is not None:
                 rc.put_blob("query-partial", pkey, json.dumps(part.to_json(), sort_keys=True).encode("utf-8"))
             parts.append(part)
-        doc = finalize(plan, merge_query_partials(parts))
+        with timer.phase("query.extract"):
+            doc = finalize(plan, merge_query_partials(parts))
     if rc is not None and full_key is not None:
         rc.put_blob("query", full_key, json.dumps(doc, sort_keys=True).encode("utf-8"))
     obs.metrics.inc("query.executes")
-    doc["stats"] = {"cache": "miss" if full_key is not None else "off", "segments_mapped": mapped}
+    doc["stats"] = {"cache": "miss" if full_key is not None else "off", "segments_mapped": mapped,
+                    "timings": timer.as_dict()}
     return doc
 
 

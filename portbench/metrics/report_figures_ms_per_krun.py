@@ -1,0 +1,8 @@
+"""report_figures_ms_per_krun: the writer's phase ``report.figures`` (the map
+figures and the SVG drain), per 1,000 runs of the reports that timed it."""
+
+from portbench.stages import nested_phase_ms_per_krun
+
+
+def read(ctx):
+    return nested_phase_ms_per_krun(ctx.records, "report.figures") if ctx.loop == "report" else None

@@ -12,6 +12,9 @@ Python loader, on the CPU.
   ``tests/test_native_malformed.py``, raise RuntimeError in both engines
   with the same message.
 * A source that cannot be built or loaded raises; nothing falls back.
+* The engine's counters: every file it read (runs.json and two a run) and
+  their bytes, and a read and parse wall within the ``ingest.engine``
+  phase around its call.
 
 Tolerance: none (integers, booleans and bytes).
 """
@@ -31,6 +34,7 @@ from nemo_tpu_torch.ingest import native
 from nemo_tpu_torch.ingest.molly import load_molly_output
 from nemo_tpu_torch.store.npack import head_bytes
 from nemo_tpu_torch.utils.cbuild import BUILD_DIR, NativeLib
+from nemo_tpu_torch.utils.timing import PhaseTimer
 
 FAMILY_RUNS = 60
 CORPORA = sorted(CASE_STUDIES) + ["synth", "giant"]
@@ -115,6 +119,22 @@ def test_packed_loader_matches_object_loader(corpora):
     assert native.corpus_step_static(packed.native_corpus)["comp_linear"] in (True, False)
 
 
+@pytest.mark.parametrize("name", CORPORA)
+def test_engine_counts_its_files_bytes_and_wall(corpora, name):
+    cd = corpora[name]
+    timer = PhaseTimer()
+    molly = native.load_molly_output_packed(cd, timer)
+    stats = molly.native_corpus.engine_stats
+    files = ["runs.json"] + [f"run_{i}_{c}_provenance.json" for i in range(len(molly.runs)) for c in ("pre", "post")]
+    assert stats["files"] == len(files) == 2 * len(molly.runs) + 1
+    assert stats["bytes"] == sum(os.path.getsize(os.path.join(cd, f)) for f in files)
+    walls = timer.as_dict()
+    assert set(walls) == {"ingest.engine", "ingest.unpack"}
+    assert stats["read_s"] > 0 and stats["parse_s"] > 0
+    assert stats["read_s"] + stats["parse_s"] <= walls["ingest.engine"]
+    assert native.ingest_native(cd).engine_stats["files"] == stats["files"]
+
+
 def _malformed_cases(cd: str) -> list[tuple[str, str, bytes]]:
     """(label, file, content): one or two of each corruption class."""
     with open(os.path.join(cd, "runs.json"), "rb") as fh:
@@ -193,6 +213,6 @@ def test_compile_error_raises_with_compiler_output(monkeypatch, tmp_path):
 
 def test_abi_mismatch_raises(tmp_path):
     src = tmp_path / "old_engine.cpp"
-    src.write_text('extern "C" int nemo_abi_version() { return 4; }\n')
-    with pytest.raises(RuntimeError, match="ABI 4, expected 5"):
+    src.write_text('extern "C" int nemo_abi_version() { return 5; }\n')
+    with pytest.raises(RuntimeError, match="ABI 5, expected 6"):
         NativeLib(src, native._bind, "nemo_abi_version", native.ABI_VERSION).load()

@@ -16,6 +16,8 @@ sidecar or router:
 * counters, gauges, histograms, the series cap and ``delta``;
 * JSON log records carrying the active trace id; the slow-dispatch
   watchdog and the cost table;
+* the profiler hook: spans and phases are ``record_function`` labels under
+  a ``torch.profiler`` capture only, a report's and a query's among them;
 * the flight recorder: one bundle for a watch cycle made to fail, none
   more within the cooldown;
 * ``render_prometheus`` byte-equal to the JAX package's for the same
@@ -309,12 +311,14 @@ def test_untraced_telemetry_has_the_new_sections(small_corpus, tmp_path, monkeyp
     with open(os.path.join(res.report_dir, "telemetry.json"), encoding="utf-8") as fh:
         tel = json.load(fh)
     assert {"timings", "figure_stats", "ingest", "result_cache", "metrics", "trace_id", "kernel_cost",
-            "memory"} <= set(tel)
+            "memory", "ingest_engine"} <= set(tel)
     assert tel["trace_id"] is None
+    # The engine's counters: sums over files, so beside the phases, not in them.
+    assert set(tel["ingest_engine"]) == {"read_s", "parse_s", "files", "bytes"}
+    assert tel["ingest_engine"]["files"] == 2 * len(res.molly.runs) + 1
+    assert {"ingest.engine", "ingest.unpack", "report.assets", "report.json", "report.figures"} <= set(tel["timings"])
     for rec in tel["kernel_cost"]:
-        assert set(rec) == {"verb", "shapes", "statics", "flops", "bytes_accessed", "first_dispatch_s",
-                            "compiled", "dispatches", "pad_rows"}
-        assert rec["flops"] is None and rec["bytes_accessed"] is None and rec["compiled"] is False
+        assert set(rec) == {"verb", "shapes", "statics", "first_dispatch_s", "dispatches", "pad_rows"}
         assert rec["first_dispatch_s"] >= 0 and rec["dispatches"] >= 1
     assert {r["verb"] for r in tel["kernel_cost"]} == set(backend.executor.dispatches)
 
@@ -351,7 +355,7 @@ def test_slow_dispatch_watchdog_and_cost_table(small_corpus, tmp_path, monkeypat
     assert n and d["counters"]["watchdog.slow_kernel"] == n
     recs = [r for r in _log_records(log) if r["event"] == "kernel.slow_dispatch"]
     assert len(recs) == n and {r["verb"] for r in recs} == set(backend.executor.dispatches)
-    assert all(r["level"] == "warning" and r["logger"] == "nemo.backend" and r["compiled"] is False
+    assert all(r["level"] == "warning" and r["logger"] == "nemo.backend" and "compiled" not in r
                and r["upload_bytes"] > 0 for r in recs)
     costs = torch_backend.kernel_cost_snapshot()
     assert costs == sorted(costs, key=lambda r: (-r["dispatches"], r["verb"], r["shapes"]))
@@ -368,16 +372,72 @@ def test_memory_watermarks_on_the_cpu():
     assert d["gauges"]["mem.host_peak_rss_bytes"] > 0
 
 
-def test_device_annotation_only_under_a_capture():
-    import contextlib
+def _counted_labels(monkeypatch) -> list[str]:
+    """The names of every profiler label entered from now on: the hook that
+    nemo_tpu_torch/device.py installs, wrapped in a count."""
+    active, label = obs_trace._PROFILER
+    entered: list[str] = []
 
-    assert isinstance(torch_backend._device_annotation("nemo:fused"), contextlib.nullcontext)
+    def counted(name):
+        entered.append(name)
+        return label(name)
+
+    monkeypatch.setattr(obs_trace, "_PROFILER", (active, counted))
+    return entered
+
+
+def test_device_annotation_only_under_a_capture(monkeypatch):
+    """device.py's hook: the profiler check ``_profiler_enabled`` and
+    ``record_function``.  With no capture running a span is the shared null
+    context and neither it nor a phase enters a label; under one both put
+    their names on the capture."""
+    assert obs_trace._PROFILER == (torch._C._autograd._profiler_enabled, torch.profiler.record_function)
+    entered = _counted_labels(monkeypatch)
+    assert not obs.enabled() and obs.span("kernel:fused") is obs_trace._NULL
+    with obs.span("kernel:fused"), PhaseTimer().phase("ingest"):
+        pass
+    assert entered == []
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        ann = torch_backend._device_annotation("nemo:fused")
-        assert not isinstance(ann, contextlib.nullcontext)
-        with ann:
+        with obs.span("kernel:fused") as sp:
+            sp.set(rows=4)
             torch.ones(4).sum()
-    assert "nemo:fused" in {e.key for e in prof.key_averages()}
+        with PhaseTimer().phase("ingest"):
+            pass
+    assert entered == ["kernel:fused", "phase:ingest"]
+    assert {"kernel:fused", "phase:ingest"} <= {e.key for e in prof.key_averages()}
+
+
+def test_a_report_and_a_query_label_a_capture_with_the_programs_spans(small_corpus, tmp_path, monkeypatch):
+    """Under a CPU capture a report and a query carry a ``user_annotation``
+    for every phase they timed (the nested ``ingest.engine``,
+    ``report.json``, ``query.eval_host`` among them) and for the kernel
+    dispatches (``kernel:<verb>``); without a capture the same work enters
+    no label."""
+    from nemo_tpu_torch.query.engine import execute_query, ingest_corpus
+    from nemo_tpu_torch.query.lang import parse_query
+
+    entered = _counted_labels(monkeypatch)
+    q = parse_query("from pre match goal[holds=true] -> @rule tables")
+
+    def work(tag):
+        res, _ = _report(small_corpus, str(tmp_path / tag))
+        doc = execute_query(q, ingest_corpus(small_corpus, "off"), device="cpu", use_cache=False,
+                            query_host_work=10**15)
+        return res, doc
+
+    work("plain")
+    assert entered == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res, doc = work("profiled")
+    path = str(tmp_path / "capture.json")
+    prof.export_chrome_trace(path)
+    with open(path, encoding="utf-8") as fh:
+        labels = {e["name"] for e in json.load(fh)["traceEvents"] if e.get("cat") == "user_annotation"}
+    phases = {f"phase:{p}" for p in [*res.timings, *doc["stats"]["timings"]]}
+    assert {"phase:ingest.engine", "phase:ingest.unpack", "phase:report.json", "phase:report.figures",
+            "phase:query.plan", "phase:query.prep", "phase:query.eval_host", "phase:query.extract"} <= phases
+    assert phases <= labels and any(n.startswith("kernel:") for n in labels)
+    assert labels <= set(entered)
 
 
 # ----------------------------------------------------------------- metrics
@@ -731,7 +791,8 @@ def test_cli_trace_metrics_timings_profile(small_corpus, tmp_path, capsys):
     (pt,) = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
     with open(prof / pt, encoding="utf-8") as fh:
         events = json.load(fh)["traceEvents"]
-    assert {"nemo:fused", "nemo:diff"} <= {e.get("name") for e in events}
+    labels = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    assert {"kernel:fused", "kernel:diff", "phase:load_raw_provenance", "phase:diff_prov"} <= labels
 
 
 def test_cli_metrics_out_file(small_corpus, tmp_path, capsys):

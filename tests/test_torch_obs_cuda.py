@@ -8,7 +8,7 @@ They skip without one.  This file imports neither JAX nor the JAX package:
   count exactly the executor's dispatches, and the ``kernel.dispatches.*``
   deltas equal them; tracing adds no ``torch.cuda.synchronize``;
 * a profiled report (``run_debug(profile_dir=...)``): the capture's device
-  events include K1's kernel functions, launched under a ``nemo:fused``
+  events include K1's kernel functions, launched under a ``kernel:fused``
   label, and telemetry.json's memory section has the device peak.
 """
 
@@ -99,7 +99,7 @@ def test_profile_capture_shows_k1_under_its_label(cuda, family, tmp_path):
     (trace,) = glob.glob(str(prof / "*.pt.trace.json"))
     with open(trace, encoding="utf-8") as fh:
         events = json.load(fh)["traceEvents"]
-    names = labelled_kernels(events, "nemo:fused")
+    names = labelled_kernels(events, "kernel:fused")
     assert any(f in n for n in names for f in K1_FUNCTIONS), sorted(names)
     with open(os.path.join(res.report_dir, "telemetry.json"), encoding="utf-8") as fh:
         mem = json.load(fh)["memory"]

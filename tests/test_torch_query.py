@@ -112,6 +112,23 @@ def _strip(doc: dict) -> str:
     return json.dumps({k: v for k, v in doc.items() if k != "stats"}, sort_keys=True)
 
 
+def _stages(lane: str | None) -> set:
+    """The stages a query times (``stats["timings"]``): the plan alone on a
+    whole-result cache hit (``lane`` None), else every stage, with the
+    evaluation of the lane its buckets ran on."""
+    if lane is None:
+        return {"query.plan"}
+    return {"query.plan", "query.prep", f"query.eval_{lane}", "query.extract"}
+
+
+def _stats(doc: dict) -> tuple[dict, set]:
+    """A document's stats: its cache bookkeeping, and the stages it timed."""
+    stats = dict(doc["stats"])
+    timings = stats.pop("timings")
+    assert all(isinstance(v, float) and v >= 0 for v in timings.values()), timings
+    return stats, set(timings)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
@@ -241,7 +258,8 @@ def test_documents_match_jax_and_oracle(corpora, name, packed):
                                 routes=host_routes)
         assert dev_routes and {r["lane"] for r in dev_routes} == {"sparse_device"}
         assert {r["lane"] for r in host_routes} == {"host"}
-        assert on_dev["stats"] == {"cache": "off", "segments_mapped": 1}
+        assert _stats(on_dev) == ({"cache": "off", "segments_mapped": 1}, _stages("device"))
+        assert _stats(on_host) == ({"cache": "off", "segments_mapped": 1}, _stages("host"))
         want = _strip(jax_execute_query(jax_parse_query(text), jmolly, use_cache=False))
         assert _strip(on_dev) == _strip(on_host) == want, text
         assert _strip(oracle_query(q, molly)) == want, text
@@ -359,7 +377,7 @@ def test_cache_warm_grown_changed_and_off(tmp_path, k2_calls):
 
     routes = []
     cold = run_query_text(text, ingest_corpus(d, cc), routes=routes, **kw)
-    assert cold["stats"] == {"cache": "miss", "segments_mapped": 1}
+    assert _stats(cold) == ({"cache": "miss", "segments_mapped": 1}, _stages("device"))
     # One -*-> hop, into the capture step: the forward reach only (the
     # backward pass stops at the capture step).
     assert routes and len(k2_calls) == len(routes)
@@ -367,7 +385,7 @@ def test_cache_warm_grown_changed_and_off(tmp_path, k2_calls):
     del k2_calls[:]
     routes = []
     warm = run_query_text(text, ingest_corpus(d, cc), routes=routes, **kw)
-    assert warm["stats"] == {"cache": "hit", "segments_mapped": 0}
+    assert _stats(warm) == ({"cache": "hit", "segments_mapped": 0}, _stages(None))
     assert routes == [] and k2_calls == []
     assert _strip(warm) == _strip(cold)
 
@@ -380,7 +398,7 @@ def test_cache_warm_grown_changed_and_off(tmp_path, k2_calls):
     assert len(molly.store_segments) == 2
     routes = []
     grown = run_query_text(text, molly, routes=routes, **kw)
-    assert grown["stats"] == {"cache": "miss", "segments_mapped": 1}
+    assert _stats(grown) == ({"cache": "miss", "segments_mapped": 1}, _stages("device"))
     assert sum(r["rows"] for r in routes) <= 6
     scratch = run_query_text(text, ingest_corpus(full, "off"), device="cpu", use_cache=False)
     assert _strip(grown) == _strip(scratch)
@@ -390,12 +408,12 @@ def test_cache_warm_grown_changed_and_off(tmp_path, k2_calls):
     changed_src = write_corpus(SynthSpec(n_runs=24, seed=3, eot=6), str(tmp_path / "other"))
     shutil.copytree(changed_src, d)
     changed = run_query_text(text, ingest_corpus(d, cc), **kw)
-    assert changed["stats"] == {"cache": "miss", "segments_mapped": 1}
+    assert _stats(changed) == ({"cache": "miss", "segments_mapped": 1}, _stages("device"))
     assert _strip(changed) == _strip(run_query_text(text, ingest_corpus(changed_src, "off"), device="cpu"))
 
     # No store: no fingerprints, so the cache is off.
     off = run_query_text(text, ingest_corpus(d, "off"), **kw)
-    assert off["stats"] == {"cache": "off", "segments_mapped": 1}
+    assert _stats(off) == ({"cache": "off", "segments_mapped": 1}, _stages("device"))
     assert oracle_query(parse_query(text), ingest_corpus(d, "off"))["stats"]["cache"] == "oracle"
 
 

@@ -160,6 +160,8 @@ def test_post_query_on_the_batch_report(reports):
     want = execute_query(parse_query(BENCH_QUERY), res.molly, device="cpu", use_cache=False)
     with _Server(handler) as srv:
         status, doc = _post(srv.port, {"query": BENCH_QUERY})
+        # Each answer times its own stages: the same stages, other walls.
+        assert set(doc["stats"].pop("timings")) == set(want["stats"].pop("timings"))
         assert status == 200 and doc == want
         assert _strip(doc) == _strip(oracle_query(parse_query(BENCH_QUERY), res.molly))
         status, doc = _post(srv.port, {"query": "match wat"})
@@ -232,7 +234,9 @@ def test_watch_resolver_answers_over_a_store_warm_corpus(tmp_path):
         assert _post(srv.port, {"query": "from post match @goal[holds=true] tables"})[1]["stats"]["cache"] == "hit"
         grow_corpus_dir(full, d, 12)
         status, doc = _post(srv.port, {"query": "from post match @goal[holds=true] tables"})
+        timings = doc["stats"].pop("timings")
         assert status == 200 and doc["n_runs"] == 12 and doc["stats"] == {"cache": "miss", "segments_mapped": 1}
+        assert set(timings) == {"query.plan", "query.prep", "query.eval_host", "query.extract"}
     assert resolve({}) is not first
 
 
