@@ -116,7 +116,8 @@ def oracle_tree_diff(oracle: dict[str, bytes], tree: dict[str, bytes]) -> list[s
 
 def _engine_stats(molly: MollyOutput) -> dict | None:
     """The C++ engine's counters of the corpus it parsed (read_s, parse_s,
-    files, bytes), or None where no engine parsed it."""
+    read_thread_s, workers, files, bytes), or None where no engine parsed
+    it."""
     return getattr(getattr(molly, "native_corpus", None), "engine_stats", None)
 
 

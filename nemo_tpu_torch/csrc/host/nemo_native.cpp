@@ -17,6 +17,10 @@
 // Exposed as a C ABI consumed via ctypes (nemo_tpu/ingest/native.py); no
 // external dependencies (self-contained minimal JSON parser below).
 
+#include <sched.h>
+
+#include <algorithm>
+#include <atomic>
 #include <charconv>
 #include <chrono>
 #include <clocale>
@@ -28,6 +32,8 @@
 #include <sstream>
 #include <stdexcept>
 #include <string>
+#include <system_error>
+#include <thread>
 #include <unordered_map>
 #include <vector>
 
@@ -1188,10 +1194,14 @@ struct Corpus {
   std::vector<uint8_t> success;
   std::vector<std::string> run_heads;  // per run, canonical head JSON fragment
   std::string error;  // empty on success
-  // The engine's own wall, split: read_file's share and the rest (JSON
-  // parse, provenance transform, packing).
+  // The engine's own wall, split: read_s, the reads' share (runs.json's
+  // read, plus the pool's wall times its workers' read share), and parse_s,
+  // the rest (JSON parse, provenance transform, packing).  files and bytes
+  // count every file read; read_thread_s sums the workers' read_file
+  // walls, and workers is the pool's size.
   ReadStats read;
-  double parse_s = 0;
+  double parse_s = 0, read_thread_s = 0;
+  int64_t workers = 1;
 };
 
 void pack_cond(std::vector<RawGraph>& graphs, int64_t v, int64_t e, Corpus& c,
@@ -1238,7 +1248,60 @@ void pack_cond(std::vector<RawGraph>& graphs, int64_t v, int64_t e, Corpus& c,
   }
 }
 
-Corpus* ingest(const std::string& dir, bool with_heads) {
+constexpr int kPoolMaxWorkers = 16;
+
+// The pool's size: `forced` when above 0 (tests), else the process's CPU
+// affinity set clamped to [2, 16] (two at least, since a file read is a
+// wait that another worker's parse can hide); never more than the runs.
+int pool_workers(int64_t n_runs, int forced) {
+  int64_t n;
+  if (forced > 0) {
+    n = forced;
+  } else {
+    cpu_set_t set;
+    int cores = sched_getaffinity(0, sizeof set, &set) == 0 ? CPU_COUNT(&set)
+                                                             : (int)std::thread::hardware_concurrency();
+    n = std::clamp(cores, 2, kPoolMaxWorkers);
+  }
+  return (int)std::max<int64_t>(1, std::min(n, n_runs));
+}
+
+// An error and the run whose row or files raised it (-1: none).
+struct RunError {
+  int64_t run = -1;
+  std::string what;
+};
+
+// One pool worker: claims run indices in order from `next` until it draws
+// one at or past `limit`, and parses that run's pre file, then its post
+// file.  A failure lowers `limit` to its run, so runs after it are not
+// claimed; every run before it still is, so the error of the lowest run
+// is the one the serial order meets first.
+struct PoolWorker {
+  ReadStats read;
+  double busy_s = 0;
+  RunError error;
+
+  void run(const std::string& dir, const std::vector<int32_t>& iteration, std::atomic<int64_t>& next,
+           std::atomic<int64_t>& limit, std::vector<RawGraph>& pre, std::vector<RawGraph>& post) {
+    auto t0 = std::chrono::steady_clock::now();
+    for (int64_t i; (i = next.fetch_add(1)) < limit.load();) {
+      // Provenance files are indexed by position i, not iteration (molly.go:59-60).
+      std::string stem = dir + "/run_" + std::to_string(i);
+      try {
+        pre[i] = parse_prov(stem + "_pre_provenance.json", iteration[i], "pre", read);
+        post[i] = parse_prov(stem + "_post_provenance.json", iteration[i], "post", read);
+      } catch (const std::exception& ex) {
+        error = RunError{i, ex.what()};
+        for (int64_t cur = limit.load(); i < cur && !limit.compare_exchange_weak(cur, i);) {
+        }
+      }
+    }
+    busy_s = seconds_since(t0);
+  }
+};
+
+Corpus* ingest(const std::string& dir, bool with_heads, int forced_workers) {
   auto t0 = std::chrono::steady_clock::now();
   auto c = std::make_unique<Corpus>();
   // Pin "pre"/"post" to table ids 0/1 (mirror of graphs/packed.py
@@ -1251,35 +1314,69 @@ Corpus* ingest(const std::string& dir, bool with_heads) {
   if (runs.type != JVal::ARR) throw std::runtime_error("runs.json: root not an array");
   c->n_runs = (int64_t)runs.arr.size();
 
-  std::vector<RawGraph> pre_graphs, post_graphs;
-  pre_graphs.reserve(c->n_runs);
-  post_graphs.reserve(c->n_runs);
+  // (a) The runs.json rows, in order.  A bad row ends the walk: the pool
+  // then parses only the runs before it, whose files the serial order
+  // reads first.
+  RunError first;
+  int64_t n_rows = c->n_runs;
   for (int64_t i = 0; i < c->n_runs; ++i) {
-    const JVal& r = runs.arr[i];
-    require_obj(r, "runs.json run");
-    // Python int(d.get("iteration", 0)) semantics (coerce_int_str), then a
-    // loud int32 range check: Python would accept an astronomically large
-    // iteration (arbitrary-precision int), but the packed arrays are
-    // int32 — rejecting beats silently truncating the run namespace.
-    std::string it_str = coerce_int_str(r.get("iteration"), 0);
-    int32_t iter32 = 0;
-    auto itp = std::from_chars(it_str.data(), it_str.data() + it_str.size(), iter32);
-    if (itp.ec != std::errc() || itp.ptr != it_str.data() + it_str.size())
-      throw std::runtime_error("runs.json: iteration out of int32 range: " + it_str);
-    long iter = (long)iter32;
-    c->iteration.push_back(iter32);
-    c->success.push_back(r.get_str("status") == "success");  // molly.go:53
-    // Head fragments are only reachable through a live handle
-    // (nemo_run_head_json); bench/prewarm ingests that drop the handle
-    // skip building them — the messages arrays dominate runs.json.
-    if (with_heads) c->run_heads.push_back(build_run_head(r));
-    // Provenance files are indexed by position i, not iteration (molly.go:59-60).
-    pre_graphs.push_back(
-        parse_prov(dir + "/run_" + std::to_string(i) + "_pre_provenance.json", iter, "pre", c->read));
-    post_graphs.push_back(
-        parse_prov(dir + "/run_" + std::to_string(i) + "_post_provenance.json", iter, "post", c->read));
+    try {
+      const JVal& r = runs.arr[i];
+      require_obj(r, "runs.json run");
+      // Python int(d.get("iteration", 0)) semantics (coerce_int_str), then a
+      // loud int32 range check: Python would accept an astronomically large
+      // iteration (arbitrary-precision int), but the packed arrays are
+      // int32 — rejecting beats silently truncating the run namespace.
+      std::string it_str = coerce_int_str(r.get("iteration"), 0);
+      int32_t iter32 = 0;
+      auto itp = std::from_chars(it_str.data(), it_str.data() + it_str.size(), iter32);
+      if (itp.ec != std::errc() || itp.ptr != it_str.data() + it_str.size())
+        throw std::runtime_error("runs.json: iteration out of int32 range: " + it_str);
+      c->iteration.push_back(iter32);
+      c->success.push_back(r.get_str("status") == "success");  // molly.go:53
+      // Head fragments are only reachable through a live handle
+      // (nemo_run_head_json); bench/prewarm ingests that drop the handle
+      // skip building them — the messages arrays dominate runs.json.
+      if (with_heads) c->run_heads.push_back(build_run_head(r));
+    } catch (const std::exception& ex) {
+      first = RunError{i, ex.what()};
+      n_rows = i;
+      break;
+    }
   }
 
+  // (b) Every run's pre and post file on the pool; the calling thread is
+  // its first worker.
+  std::vector<RawGraph> pre_graphs(n_rows), post_graphs(n_rows);
+  c->workers = pool_workers(n_rows, forced_workers);
+  std::vector<PoolWorker> pool(c->workers);
+  std::atomic<int64_t> next{0}, limit{n_rows};
+  auto tp = std::chrono::steady_clock::now();
+  {
+    std::vector<std::thread> threads;
+    for (size_t w = 1; w < pool.size(); ++w) {
+      try {
+        threads.emplace_back(&PoolWorker::run, &pool[w], std::cref(dir), std::cref(c->iteration),
+                             std::ref(next), std::ref(limit), std::ref(pre_graphs), std::ref(post_graphs));
+      } catch (const std::system_error&) {
+        break;  // no thread to be had: the workers started share the runs
+      }
+    }
+    c->workers = 1 + (int64_t)threads.size();
+    pool[0].run(dir, c->iteration, next, limit, pre_graphs, post_graphs);
+    for (std::thread& t : threads) t.join();
+  }
+  double pool_s = seconds_since(tp), read_thread_s = 0, busy_s = 0;
+  for (const PoolWorker& w : pool) {
+    if (w.error.run >= 0 && (first.run < 0 || w.error.run < first.run)) first = w.error;
+    c->read.files += w.read.files;
+    c->read.bytes += w.read.bytes;
+    read_thread_s += w.read.read_s;
+    busy_s += w.busy_s;
+  }
+  if (first.run >= 0) throw std::runtime_error(first.what);
+
+  // (c) Dims, then interning, in order.
   int32_t max_n = 1, max_e = 1, max_lp = 0;
   for (const auto* gs : {&pre_graphs, &post_graphs})
     for (const RawGraph& g : *gs) {
@@ -1295,6 +1392,9 @@ Corpus* ingest(const std::string& dir, bool with_heads) {
   // graphs in run order, then all post graphs — so ids are bit-identical.
   pack_cond(pre_graphs, c->v, c->e, *c, c->cond[0]);
   pack_cond(post_graphs, c->v, c->e, *c, c->cond[1]);
+  // The pool's wall goes to the reads in the share its workers spent in them.
+  c->read_thread_s = read_thread_s;
+  if (busy_s > 0) c->read.read_s += pool_s * (read_thread_s / busy_s);
   c->parse_s = seconds_since(t0) - c->read.read_s;
   return c.release();
 }
@@ -1309,10 +1409,12 @@ extern "C" {
 
 // Returns an opaque handle, or nullptr with a message in err[0..errlen).
 // with_heads != 0 pre-serializes each run's debugging.json head fragment
-// (nemo_run_head_json); callers that never read heads pass 0.
-void* nemo_ingest(const char* dir, char* err, int errlen, int with_heads) {
+// (nemo_run_head_json); callers that never read heads pass 0.  workers: 0
+// for the engine's own rule (pool_workers), which the package always uses;
+// n > 0 forces a pool of n, a hook for tests only.
+void* nemo_ingest(const char* dir, char* err, int errlen, int with_heads, int workers) {
   try {
-    return ingest(dir, with_heads != 0);
+    return ingest(dir, with_heads != 0, workers);
   } catch (const std::exception& ex) {
     if (err && errlen > 0) {
       std::strncpy(err, ex.what(), (size_t)errlen - 1);
@@ -1402,19 +1504,21 @@ const char* nemo_run_head_json(void* h, int run) {
   return c->run_heads[(size_t)run].c_str();
 }
 
-// The engine's counters of the corpus: secs [read_s, parse_s], whose sum is
-// the engine's wall; counts [files, bytes] read.
+// The engine's counters of the corpus: secs [read_s, parse_s, read_thread_s]
+// (the first two sum to the engine's wall); counts [files, bytes, workers].
 void nemo_ingest_stats(void* h, double* secs, int64_t* counts) {
   auto* c = (Corpus*)h;
   secs[0] = c->read.read_s;
   secs[1] = c->parse_s;
+  secs[2] = c->read_thread_s;
   counts[0] = c->read.files;
   counts[1] = c->read.bytes;
+  counts[2] = c->workers;
 }
 
 void nemo_free(void* h) { delete (Corpus*)h; }
 
 // ABI version for the ctypes wrapper to sanity-check.
-int nemo_abi_version() { return 6; }
+int nemo_abi_version() { return 7; }
 
 }  // extern "C"

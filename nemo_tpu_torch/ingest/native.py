@@ -1,5 +1,5 @@
 """ctypes bindings for the port's native C++ ingestion engine
-(``csrc/host/nemo_native.cpp``, C ABI version 6): Molly JSON straight to
+(``csrc/host/nemo_native.cpp``, C ABI version 7): Molly JSON straight to
 packed batch arrays, with no per-goal Python objects.
 
 A copy of the JAX package's ``ingest/native.py``, trimmed to the
@@ -11,10 +11,27 @@ serialized strings equal the Python loader's (``ingest/molly.py`` +
 ``graphs/packed.py:pack_graph``, interning all pre graphs in run order,
 then all post), which ``tests/test_torch_native.py`` checks.
 
-The engine counts its own wall per corpus (``nemo_ingest_stats``): the
-time in its file reads (open, read, UTF-8 check) against the rest (JSON
-parse, provenance transform, packing), and the files and bytes read
-(``NativeCorpus.engine_stats``, telemetry.json's ``ingest_engine``).
+The engine reads and parses the provenance files on a pool of threads:
+it walks runs.json's rows in order, then its workers claim runs in order
+and parse each run's pre and post file, then it interns every graph into
+the vocabularies in run order, so every id is the serial order's.  The
+pool has as many workers as the process's CPU affinity set, at least 2
+(a file read is a wait another worker's parse can hide) and at most 16,
+and never more than the corpus's runs; ``nemo_ingest``'s last argument,
+always 0 here, forces a size for tests only.  A malformed corpus raises
+the error the serial order meets first.
+
+The engine counts its own wall per corpus (``nemo_ingest_stats``;
+``NativeCorpus.engine_stats``, telemetry.json's ``ingest_engine``):
+
+* ``read_s`` and ``parse_s`` split its wall.  ``read_s`` is runs.json's
+  read plus the pool's wall times its workers' share of time in file reads
+  (open, read, UTF-8 check); ``parse_s`` is the rest (JSON parse,
+  provenance transform, packing).
+* ``read_thread_s``: the workers' file reads summed over the workers.  Over
+  ``files`` it is a read's latency under the pool: growing with
+  ``workers``, it says the file system serialises the opens.
+* ``workers``: the pool's size; ``files`` and ``bytes``: every file read.
 """
 
 from __future__ import annotations
@@ -30,12 +47,12 @@ import numpy as np
 from nemo_tpu_torch.ingest.datatypes import FailureSpec, Message, Model, RunData
 from nemo_tpu_torch.utils.cbuild import HOST_SRC_DIR, NativeLib
 
-ABI_VERSION = 6
+ABI_VERSION = 7
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.nemo_ingest.restype = ctypes.c_void_p
-    lib.nemo_ingest.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    lib.nemo_ingest.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.nemo_dims.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
     lib.nemo_copy.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12
     lib.nemo_runs.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -140,8 +157,9 @@ class NativeCorpus:
     #: live C++ handle for lazy string access (keep_handle=True), else None
     handle: CorpusHandle | None = None
     #: the engine's counters of this corpus: read_s and parse_s (their sum
-    #: is the engine's wall), files and bytes read; None where no engine
-    #: parsed it (a corpus-store load)
+    #: is the engine's wall), read_thread_s, workers, files and bytes read
+    #: (the module's docstring); None where no engine parsed it (a
+    #: corpus-store load)
     engine_stats: dict | None = None
 
     def cond(self, name: str) -> NativeCondBatch:
@@ -218,7 +236,7 @@ def _engine(output_dir: str, keep_handle: bool, timer=None) -> CorpusHandle:
     lib = NATIVE.load()
     err = ctypes.create_string_buffer(1024)
     with _phase(timer, "ingest.engine"):
-        handle = lib.nemo_ingest(os.fsencode(output_dir), err, len(err), int(keep_handle))
+        handle = lib.nemo_ingest(os.fsencode(output_dir), err, len(err), int(keep_handle), 0)
     if not handle:
         raise RuntimeError(f"native ingestion failed: {err.value.decode()}")
     return CorpusHandle(lib, handle)
@@ -232,7 +250,7 @@ def _unpack(keeper: CorpusHandle, with_node_ids: bool, keep_handle: bool) -> Nat
         dims = (ctypes.c_int64 * 9)()
         lib.nemo_dims(handle, dims)
         b, v, e, n_tables, n_labels, n_times, pre_tid, post_tid, max_depth = (int(x) for x in dims)
-        secs, counts = (ctypes.c_double * 2)(), (ctypes.c_int64 * 2)()
+        secs, counts = (ctypes.c_double * 3)(), (ctypes.c_int64 * 3)()
         lib.nemo_ingest_stats(handle, secs, counts)
         iteration = np.empty((b,), np.int32)
         success = np.empty((b,), np.uint8)
@@ -261,7 +279,8 @@ def _unpack(keeper: CorpusHandle, with_node_ids: bool, keep_handle: bool) -> Nat
             node_ids_pre=ids_pre,
             node_ids_post=ids_post,
             handle=keeper if keep_handle else None,
-            engine_stats={"read_s": secs[0], "parse_s": secs[1], "files": counts[0], "bytes": counts[1]},
+            engine_stats={"read_s": secs[0], "parse_s": secs[1], "read_thread_s": secs[2], "workers": counts[2],
+                          "files": counts[0], "bytes": counts[1]},
         )
     finally:
         if not keep_handle:

@@ -1,7 +1,7 @@
 """Build and load the port's host C++ libraries (g++, not nvcc).
 
 A source under ``nemo_tpu_torch/csrc/host/`` is compiled with
-``g++ -O3 -std=c++17 -shared -fPIC`` into ``nemo_tpu_torch/build/`` (listed
+``g++ -O3 -std=c++17 -shared -fPIC -pthread`` into ``nemo_tpu_torch/build/`` (listed
 in ``.gitignore``), named by a digest of the source and the flags, so an
 edited source rebuilds and an unchanged one is reused.  The build writes to
 a temporary name and renames, so several processes may race to build the
@@ -26,7 +26,7 @@ from nemo_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, BuildError
 
 HOST_SRC_DIR = CSRC_DIR / "host"
 
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def build_shared_lib(src: Path) -> Path:

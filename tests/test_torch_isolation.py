@@ -213,7 +213,7 @@ def test_engine_is_the_ports_own_copy():
     lib = NATIVE.load()
     assert NATIVE.src == PORT / "csrc" / "host" / "nemo_native.cpp"
     assert Path(lib._name).parent == PORT / "build"
-    assert lib.nemo_abi_version() == 6
+    assert lib.nemo_abi_version() == 7
 
 
 _TOP_LEVEL_GRPC = re.compile(r"^(import\s+(grpc|google\.protobuf)\b|from\s+(grpc|google\.protobuf)\b)", re.MULTILINE)

@@ -14,11 +14,17 @@ Python loader, on the CPU.
 * A source that cannot be built or loaded raises; nothing falls back.
 * The engine's counters: every file it read (runs.json and two a run) and
   their bytes, and a read and parse wall within the ``ingest.engine``
-  phase around its call.
+  phase around its call; the pool's size and its workers' summed reads.
+* The pool: at 200 runs a family, one worker and eight give corpora
+  byte-equal to each other and to the JAX package's engine; the default
+  size follows the process's CPU affinity set, capped at the runs; a
+  corpus with two faults under eight workers raises the fault the serial
+  order meets first, as the JAX package's engine does.
 
 Tolerance: none (integers, booleans and bytes).
 """
 
+import ctypes
 import json
 import os
 import shutil
@@ -35,8 +41,12 @@ from nemo_tpu_torch.ingest.molly import load_molly_output
 from nemo_tpu_torch.store.npack import head_bytes
 from nemo_tpu_torch.utils.cbuild import BUILD_DIR, NativeLib
 from nemo_tpu_torch.utils.timing import PhaseTimer
+from portbench.gen import synth as bench_synth
 
 FAMILY_RUNS = 60
+#: Runs a family for the pool's tests.
+POOL_RUNS = 200
+POOL_CORPORA = sorted(CASE_STUDIES) + ["bench_synth"]
 CORPORA = sorted(CASE_STUDIES) + ["synth", "giant"]
 ARRAYS = (
     "table_id", "label_id", "time_id", "type_id", "is_goal", "node_mask",
@@ -52,6 +62,76 @@ def corpora(tmp_path_factory):
     # Two runs of ~4,200 nodes: above TorchBackend's giant threshold.
     out["giant"] = write_corpus(SynthSpec(n_runs=2, seed=2, eot=1200, name="giant"), root)
     return out
+
+
+@pytest.fixture(scope="module")
+def pool_corpora(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("torch_native_pool"))
+    out = {name: write_case_study(name, POOL_RUNS, 3, root) for name in sorted(CASE_STUDIES)}
+    out["bench_synth"] = bench_synth.write_corpus(bench_synth.SynthSpec(n_runs=POOL_RUNS, seed=9, name="bench_synth"), root)
+    return out
+
+
+def _ingest_forced(output_dir: str, workers: int) -> native.NativeCorpus:
+    """``ingest_native(keep_handle=True)`` with the engine's pool forced to
+    ``workers`` through the C ABI, which the package never does."""
+    lib = native.NATIVE.load()
+    err = ctypes.create_string_buffer(1024)
+    handle = lib.nemo_ingest(os.fsencode(output_dir), err, len(err), 1, workers)
+    if not handle:
+        raise RuntimeError(f"native ingestion failed: {err.value.decode()}")
+    return native._unpack(native.CorpusHandle(lib, handle), with_node_ids=True, keep_handle=True)
+
+
+def _assert_same_corpus(a: native.NativeCorpus, b: native.NativeCorpus) -> None:
+    for f in ("n_runs", "v", "e", "tables", "labels", "times", "pre_tid", "post_tid", "max_depth"):
+        assert getattr(a, f) == getattr(b, f), f
+    np.testing.assert_array_equal(a.iteration, b.iteration)
+    np.testing.assert_array_equal(a.success, b.success)
+    for cond in ("pre", "post"):
+        for f in ARRAYS:
+            x, y = getattr(a.cond(cond), f), getattr(b.cond(cond), f)
+            assert x.dtype == y.dtype, (cond, f)
+            np.testing.assert_array_equal(x, y, err_msg=f"{cond}.{f}")
+    assert a.node_ids_pre == b.node_ids_pre and a.node_ids_post == b.node_ids_post
+    for row in range(a.n_runs):
+        assert a.run_head_json(row) == b.run_head_json(row)
+        for cond in ("pre", "post"):
+            assert a.prov_json(cond, row) == b.prov_json(cond, row)
+
+
+@pytest.mark.parametrize("name", POOL_CORPORA)
+def test_pool_of_eight_equals_one_worker(pool_corpora, name):
+    cd = pool_corpora[name]
+    one, eight = _ingest_forced(cd, 1), _ingest_forced(cd, 8)
+    assert (one.engine_stats["workers"], eight.engine_stats["workers"]) == (1, 8)
+    _assert_same_corpus(one, eight)
+    _assert_same_corpus(one, native.ingest_native(cd, keep_handle=True))
+    _assert_same_corpus(eight, jax_ingest_native(cd, keep_handle=True))
+    for k in ("files", "bytes"):
+        assert one.engine_stats[k] == eight.engine_stats[k]
+    assert one.engine_stats["files"] == 2 * POOL_RUNS + 1
+
+
+def test_more_workers_than_cores_parse_alike(pool_corpora):
+    """A stress of the pool's shared run counter: more workers than cores,
+    a few times over; a run claimed twice or never would differ."""
+    cd = pool_corpora["bench_synth"]
+    ref = jax_ingest_native(cd, keep_handle=True)
+    many = 2 * len(os.sched_getaffinity(0)) + 1
+    for _ in range(3):
+        got = _ingest_forced(cd, many)
+        assert got.engine_stats["workers"] == many
+        _assert_same_corpus(got, ref)
+
+
+def test_pool_size_follows_the_affinity_set(corpora, pool_corpora):
+    rule = min(max(len(os.sched_getaffinity(0)), 2), 16)
+    assert native.ingest_native(pool_corpora["bench_synth"]).engine_stats["workers"] == rule
+    # Never more workers than runs.
+    for name in ("synth", "giant"):
+        got = native.ingest_native(corpora[name])
+        assert got.engine_stats["workers"] == min(rule, got.n_runs)
 
 
 @pytest.mark.parametrize("name", CORPORA)
@@ -130,8 +210,10 @@ def test_engine_counts_its_files_bytes_and_wall(corpora, name):
     assert stats["bytes"] == sum(os.path.getsize(os.path.join(cd, f)) for f in files)
     walls = timer.as_dict()
     assert set(walls) == {"ingest.engine", "ingest.unpack"}
+    assert set(stats) == {"read_s", "parse_s", "read_thread_s", "workers", "files", "bytes"}
     assert stats["read_s"] > 0 and stats["parse_s"] > 0
     assert stats["read_s"] + stats["parse_s"] <= walls["ingest.engine"]
+    assert stats["workers"] >= 1 and stats["read_thread_s"] > 0
     assert native.ingest_native(cd).engine_stats["files"] == stats["files"]
 
 
@@ -184,6 +266,48 @@ def test_malformed_corpora_raise_alike(tmp_path):
         assert str(port_err.value) == str(jax_err.value), label
 
 
+#: (label, [(file, corruption)]): two faults, or one late, in a corpus of
+#: ERROR_RUNS runs; the serial order meets the first fault listed first.
+ERROR_RUNS = 100
+TWO_FAULTS = [
+    ("post-70-then-row-90", [("run_70_post_provenance.json", "truncate"), ("runs.json", "iteration@90")]),
+    ("row-30-then-pre-80", [("runs.json", "iteration@30"), ("run_80_pre_provenance.json", "truncate")]),
+    ("truncate-99", [("run_99_pre_provenance.json", "truncate")]),
+    ("deep-array-93", [("run_93_post_provenance.json", "deep")]),
+]
+
+
+@pytest.fixture(scope="module")
+def error_base(tmp_path_factory):
+    return write_case_study("pb_asynchronous", ERROR_RUNS, 11, str(tmp_path_factory.mktemp("torch_native_errors")))
+
+
+@pytest.mark.parametrize("label", [c[0] for c in TWO_FAULTS])
+def test_eight_workers_raise_the_serial_orders_first_fault(tmp_path, error_base, label):
+    d = str(tmp_path / "c")
+    shutil.copytree(error_base, d)
+    for fname, kind in dict(TWO_FAULTS)[label]:
+        path = os.path.join(d, fname)
+        with open(path, "rb") as fh:
+            raw = fh.read()
+        if kind == "truncate":
+            raw = raw[: len(raw) // 2]
+        elif kind == "deep":
+            raw = b"[" * 5000
+        else:
+            rows = json.loads(raw)
+            rows[int(kind.split("@")[1])]["iteration"] = "x"
+            raw = json.dumps(rows).encode()
+        with open(path, "wb") as fh:
+            fh.write(raw)
+    with pytest.raises(RuntimeError) as jax_err:
+        jax_ingest_native(d, keep_handle=True)
+    for run in (lambda: _ingest_forced(d, 8), lambda: native.ingest_native(d, keep_handle=True)):
+        with pytest.raises(RuntimeError) as port_err:
+            run()
+        assert str(port_err.value) == str(jax_err.value)
+
+
 def test_unbuildable_source_raises(monkeypatch, tmp_path, corpus_dir):
     from nemo_tpu_torch.analysis.pipeline import run_debug
     from nemo_tpu_torch.backend.torch_backend import TorchBackend
@@ -214,5 +338,5 @@ def test_compile_error_raises_with_compiler_output(monkeypatch, tmp_path):
 def test_abi_mismatch_raises(tmp_path):
     src = tmp_path / "old_engine.cpp"
     src.write_text('extern "C" int nemo_abi_version() { return 5; }\n')
-    with pytest.raises(RuntimeError, match="ABI 5, expected 6"):
+    with pytest.raises(RuntimeError, match="ABI 5, expected 7"):
         NativeLib(src, native._bind, "nemo_abi_version", native.ABI_VERSION).load()

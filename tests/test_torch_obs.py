@@ -314,7 +314,7 @@ def test_untraced_telemetry_has_the_new_sections(small_corpus, tmp_path, monkeyp
             "memory", "ingest_engine"} <= set(tel)
     assert tel["trace_id"] is None
     # The engine's counters: sums over files, so beside the phases, not in them.
-    assert set(tel["ingest_engine"]) == {"read_s", "parse_s", "files", "bytes"}
+    assert set(tel["ingest_engine"]) == {"read_s", "parse_s", "read_thread_s", "workers", "files", "bytes"}
     assert tel["ingest_engine"]["files"] == 2 * len(res.molly.runs) + 1
     assert {"ingest.engine", "ingest.unpack", "report.assets", "report.json", "report.figures"} <= set(tel["timings"])
     for rec in tel["kernel_cost"]:

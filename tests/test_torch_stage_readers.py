@@ -1,6 +1,7 @@
 """The benchmark's readers of the port's stage instruments
 (``portbench/metrics/``: the C++ ingest engine's counters in each report's
-telemetry.json, the nested phases ``ingest.unpack``, ``report.json`` and
+telemetry.json, ``read_thread_s`` among them, which an engine without a
+pool does not write, the nested phases ``ingest.unpack``, ``report.json`` and
 ``report.figures``, and the query stages of ``stats["timings"]``), on
 constructed runs: the right value from a run that has them, None from the
 other loop and from a program without them."""
@@ -13,7 +14,8 @@ import pytest
 from portbench.harness import _metric
 
 RUNS = (1700, 300)
-ENGINE = ({"read_s": 0.5, "parse_s": 1.25, "files": 3401, "bytes": 9}, {"read_s": 0.25, "parse_s": 0.5})
+ENGINE = ({"read_s": 0.5, "parse_s": 1.25, "read_thread_s": 2.0, "workers": 8, "files": 3401, "bytes": 9},
+          {"read_s": 0.25, "parse_s": 0.5, "read_thread_s": 1.5, "workers": 8})
 TIMINGS = ({"ingest": 2.0, "ingest.unpack": 0.25, "report": 0.5, "report.json": 0.125, "report.figures": 0.25},
            {"ingest": 1.0, "ingest.unpack": 0.125, "report": 0.25, "report.json": 0.0625, "report.figures": 0.125})
 STAGES = ({"query.plan": 0.001, "query.prep": 0.002, "query.eval_host": 0.010, "query.extract": 0.003},
@@ -25,6 +27,7 @@ KRUNS = sum(RUNS) / 1e3
 WANT = {
     "ingest_read_ms_per_krun": ("report", 750 / KRUNS),
     "ingest_parse_ms_per_krun": ("report", 1750 / KRUNS),
+    "ingest_read_thread_ms_per_krun": ("report", 3500 / KRUNS),
     "ingest_unpack_ms_per_krun": ("report", 375 / KRUNS),
     "report_json_ms_per_krun": ("report", 187.5 / KRUNS),
     "report_figures_ms_per_krun": ("report", 375 / KRUNS),
@@ -68,3 +71,19 @@ def test_reader_reads_its_stage_and_nothing_elsewhere(tmp_path, name):
     assert read(other) is None
     bare = _report_ctx(tmp_path, "report", False) if loop == "report" else _query_ctx("query", False)
     assert read(bare) is None
+
+
+def test_read_thread_reader_skips_an_engine_without_a_pool(tmp_path):
+    """An engine without a pool writes ``ingest_engine`` without
+    ``read_thread_s``: None where no report has it, and only the runs of
+    the reports that have it where some do."""
+    read = _metric("ingest_read_thread_ms_per_krun").read
+    ctx = _report_ctx(tmp_path, "report", True)
+    for k, rec in enumerate(ctx.records):
+        tel_path = tmp_path / rec["dir"] / "telemetry.json"
+        tel = json.loads(tel_path.read_text())
+        tel["ingest_engine"] = {key: v for key, v in tel["ingest_engine"].items() if key not in ("read_thread_s", "workers")}
+        tel_path.write_text(json.dumps(tel))
+        if k == 0:
+            assert read(ctx) == pytest.approx(1500 / (RUNS[1] / 1e3), rel=1e-12)
+    assert read(ctx) is None
