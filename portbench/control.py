@@ -66,7 +66,8 @@ def control_readings(workload: str, seed: int, workdir: str, bench_dir: str) -> 
     cs = corpora.write_corpora(config, seed, os.path.join(workdir, "corpora"),
                                os.path.join(os.path.dirname(bench_dir), ".portbench-cache", "corpora"))
     compared = rejected = mismatched = 0
-    if traffic["loop"] == "report":
+    # The store loop's reports are the report loop's, served from a store.
+    if traffic["loop"] in ("report", "report_store"):
         for c in cs:
             want = expected_report(c["dir"], traffic["figures"])
             got = _write_report(os.path.join(workdir, "control"), c["name"],
